@@ -1,0 +1,104 @@
+"""Host-side mesh stage: masked grid refinement and surface-nets extraction.
+
+The native kernels live in ``native/mesh_native.cpp`` and are built with g++
+on first use into the package's git-ignored build directory.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..native import build_library
+
+__all__ = ["Mesh", "isosurface", "refine_level", "load_library"]
+
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native",
+                    "mesh_native.cpp")
+
+_F32P = ctypes.POINTER(ctypes.c_float)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+
+
+@dataclass
+class Mesh:
+    vertices: np.ndarray  # (V, 3) float32
+    faces: np.ndarray  # (F, 3) int64
+
+    @property
+    def is_empty(self) -> bool:
+        return len(self.vertices) == 0 or len(self.faces) == 0
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if stale) and load the native mesh library."""
+    lib = build_library("s3d_torch_mesh", [_SRC],
+                        ["g++", "-O3", "-std=c++17", "-fPIC", "-shared"])
+    if lib.s3d_isosurface_sn.argtypes is None:
+        i64 = ctypes.c_int64
+        lib.s3d_isosurface_sn.restype = ctypes.c_int
+        lib.s3d_isosurface_sn.argtypes = [
+            _F32P, i64, i64, i64, ctypes.c_float,
+            ctypes.POINTER(_F32P), _I64P, ctypes.POINTER(_I64P), _I64P,
+        ]
+        lib.s3d_refine_level.restype = ctypes.c_int
+        lib.s3d_refine_level.argtypes = [
+            _F32P, i64, ctypes.c_float, i64, _F32P, ctypes.POINTER(_I32P), _I64P,
+        ]
+        lib.s3d_free.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def isosurface(grid: np.ndarray, iso: float = 0.0) -> Mesh:
+    """Surface-nets iso-surface of a dense (nx, ny, nz) grid; values > iso
+    are inside.  Vertices are in lattice coordinates, faces outward."""
+    lib = load_library()
+    g = np.ascontiguousarray(grid, dtype=np.float32)
+    verts_p, faces_p = _F32P(), _I64P()
+    nv, nf = ctypes.c_int64(), ctypes.c_int64()
+    rc = lib.s3d_isosurface_sn(
+        g.ctypes.data_as(_F32P), g.shape[0], g.shape[1], g.shape[2],
+        ctypes.c_float(iso), ctypes.byref(verts_p), ctypes.byref(nv),
+        ctypes.byref(faces_p), ctypes.byref(nf))
+    try:
+        if rc != 0:
+            raise RuntimeError("isosurface extraction failed")
+        verts = (np.ctypeslib.as_array(verts_p, shape=(nv.value, 3)).copy()
+                 if nv.value else np.zeros((0, 3), np.float32))
+        faces = (np.ctypeslib.as_array(faces_p, shape=(nf.value, 3)).copy()
+                 if nf.value else np.zeros((0, 3), np.int64))
+    finally:
+        lib.s3d_free(verts_p)
+        lib.s3d_free(faces_p)
+    return Mesh(vertices=verts, faces=faces)
+
+
+def refine_level(grid: np.ndarray, threshold: float, dilate: int = 1):
+    """One coarse->fine level of dense masked refinement.
+
+    Returns (fine grid (2n+1)^3 float32, the trilinear 2x upsample; idx int32,
+    ascending flat indices of the fine lattice points touching a cell whose
+    corners straddle ``threshold``, dilated ``dilate`` times).
+    """
+    lib = load_library()
+    g = np.ascontiguousarray(grid, dtype=np.float32)
+    n1 = g.shape[0]
+    f1 = 2 * (n1 - 1) + 1
+    fine = np.empty((f1, f1, f1), np.float32)
+    idx_p = _I32P()
+    nidx = ctypes.c_int64()
+    rc = lib.s3d_refine_level(g.ctypes.data_as(_F32P), n1, ctypes.c_float(threshold),
+                              dilate, fine.ctypes.data_as(_F32P),
+                              ctypes.byref(idx_p), ctypes.byref(nidx))
+    try:
+        if rc != 0:
+            raise RuntimeError("refine_level failed")
+        idx = (np.ctypeslib.as_array(idx_p, shape=(nidx.value,)).copy()
+               if nidx.value else np.zeros((0,), np.int32))
+    finally:
+        lib.s3d_free(idx_p)
+    return fine, idx

@@ -1,0 +1,359 @@
+// Native host kernels of the port's mesh stage, built with g++ on first use
+// and bound with ctypes (slice3d_tpu_torch/mesh/__init__.py):
+//   * s3d_refine_level  — one coarse->fine level of dense masked refinement
+//                         (active cells, trilinear 2x upsample, indices of the
+//                         fine lattice points to evaluate);
+//   * s3d_isosurface_sn — surface-nets isosurface extraction.
+// C interface over flat buffers; outputs are malloc'd, freed by s3d_free.
+
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <cmath>
+#include <vector>
+#include <algorithm>
+
+namespace {
+
+struct V3 {
+  float x, y, z;
+};
+
+static const int kCornerOff[8][3] = {
+    {0, 0, 0}, {1, 0, 0}, {1, 1, 0}, {0, 1, 0},
+    {0, 0, 1}, {1, 0, 1}, {1, 1, 1}, {0, 1, 1},
+};
+
+// ---------------------------------------------------------------------------
+// Surface nets: one vertex per straddling cell (centroid of its edge
+// crossings), one quad per sign-changing lattice edge connecting the four
+// cells around that edge.  Watertight, outward-oriented, vertices in
+// lattice coordinates.
+class SurfaceNets {
+ public:
+  SurfaceNets(const float* grid, int64_t nx, int64_t ny, int64_t nz, float iso)
+      : g_(grid), nx_(nx), ny_(ny), nz_(nz), iso_(iso) {
+    slab_stride_ = (ny_ - 1) * (nz_ - 1);
+    for (int s = 0; s < 2; ++s) id_[s].assign(slab_stride_, -1);
+  }
+
+  inline float val(int64_t x, int64_t y, int64_t z) const {
+    return g_[(x * ny_ + y) * nz_ + z];
+  }
+
+  // Cell vertex: centroid of the iso crossings on the cell's 12 edges.
+  int make_vertex(int64_t x, int64_t y, int64_t z) {
+    static const int kEdges[12][2] = {
+        {0, 1}, {3, 2}, {7, 6}, {4, 5},  // +x edges
+        {0, 3}, {1, 2}, {5, 6}, {4, 7},  // +y edges
+        {0, 4}, {1, 5}, {2, 6}, {3, 7},  // +z edges
+    };
+    float cv[8];
+    for (int c = 0; c < 8; ++c) {
+      cv[c] = val(x + kCornerOff[c][0], y + kCornerOff[c][1],
+                  z + kCornerOff[c][2]);
+    }
+    V3 acc = {0, 0, 0};
+    int n = 0;
+    for (int e = 0; e < 12; ++e) {
+      const float va = cv[kEdges[e][0]], vb = cv[kEdges[e][1]];
+      if ((va > iso_) == (vb > iso_)) continue;
+      float denom = vb - va;
+      float t = (std::fabs(denom) > 1e-30f) ? (iso_ - va) / denom : 0.5f;
+      t = std::min(1.0f, std::max(0.0f, t));
+      const int* a = kCornerOff[kEdges[e][0]];
+      const int* b = kCornerOff[kEdges[e][1]];
+      acc.x += a[0] + t * (b[0] - a[0]);
+      acc.y += a[1] + t * (b[1] - a[1]);
+      acc.z += a[2] + t * (b[2] - a[2]);
+      ++n;
+    }
+    V3 p = {x + acc.x / n, y + acc.y / n, z + acc.z / n};
+    int idx = static_cast<int>(verts_.size());
+    verts_.push_back(p);
+    return idx;
+  }
+
+  inline void quad(int v00, int v10, int v11, int v01, bool flip) {
+    if (flip) {
+      faces_.push_back(v00); faces_.push_back(v01); faces_.push_back(v11);
+      faces_.push_back(v00); faces_.push_back(v11); faces_.push_back(v10);
+    } else {
+      faces_.push_back(v00); faces_.push_back(v10); faces_.push_back(v11);
+      faces_.push_back(v00); faces_.push_back(v11); faces_.push_back(v01);
+    }
+  }
+
+  void run() {
+    const float iso = iso_;
+    const int64_t npts = nx_ * ny_ * nz_;
+    std::vector<uint8_t> sign(static_cast<size_t>(npts) + 8, 0);
+    for (int64_t i = 0; i < npts; ++i) sign[i] = g_[i] > iso ? 1 : 0;
+    auto load8 = [](const uint8_t* p) {
+      uint64_t w;
+      std::memcpy(&w, p, 8);
+      return w;
+    };
+    auto sgn = [&](int64_t x, int64_t y, int64_t z) {
+      return sign[(x * ny_ + y) * nz_ + z];
+    };
+    const int64_t cy = ny_ - 1, cz = nz_ - 1;
+    auto cid = [&](int s, int64_t y, int64_t z) -> int32_t& {
+      return id_[s][y * cz + z];
+    };
+
+    for (int64_t x = 0; x + 1 < nx_; ++x) {
+      const int s = static_cast<int>(x & 1), sp = 1 - s;
+      std::fill(id_[s].begin(), id_[s].end(), -1);
+      // 1. vertices for straddling cells in cell-slab x
+      for (int64_t y = 0; y < cy; ++y) {
+        const uint8_t* s0 = &sign[((x) * ny_ + y) * nz_];
+        const uint8_t* s1 = &sign[((x) * ny_ + y + 1) * nz_];
+        const uint8_t* s2 = &sign[((x + 1) * ny_ + y) * nz_];
+        const uint8_t* s3 = &sign[((x + 1) * ny_ + y + 1) * nz_];
+        for (int64_t z0 = 0; z0 < cz; z0 += 8) {
+          uint64_t w_or = load8(s0 + z0) | load8(s0 + z0 + 1) |
+                          load8(s1 + z0) | load8(s1 + z0 + 1) |
+                          load8(s2 + z0) | load8(s2 + z0 + 1) |
+                          load8(s3 + z0) | load8(s3 + z0 + 1);
+          uint64_t w_and = load8(s0 + z0) & load8(s0 + z0 + 1) &
+                           load8(s1 + z0) & load8(s1 + z0 + 1) &
+                           load8(s2 + z0) & load8(s2 + z0 + 1) &
+                           load8(s3 + z0) & load8(s3 + z0 + 1);
+          uint64_t diff = w_or ^ w_and;
+          if (!diff) continue;
+          int64_t zmax = std::min<int64_t>(8, cz - z0);
+          for (int64_t dz = 0; dz < zmax; ++dz) {
+            if (!((diff >> (8 * dz)) & 0xffu)) continue;
+            cid(s, y, z0 + dz) = make_vertex(x, y, z0 + dz);
+          }
+        }
+      }
+      // 2. x-edges interior to slab x: edge (x,y,z)->(x+1,y,z); the four
+      //    cells (x, y-1..y, z-1..z) all live in this slab.  Word-skip:
+      //    8 z at a time, XOR of the two sign rows; zero word = no edge.
+      for (int64_t y = 1; y < ny_ - 1; ++y) {
+        const uint8_t* pa = &sign[((x) * ny_ + y) * nz_];
+        const uint8_t* pb = &sign[((x + 1) * ny_ + y) * nz_];
+        for (int64_t z0 = 0; z0 < nz_; z0 += 8) {
+          uint64_t w = load8(pa + z0) ^ load8(pb + z0);
+          if (!w) continue;
+          const int64_t zmax = std::min<int64_t>(z0 + 8, nz_ - 1);
+          for (int64_t z = std::max<int64_t>(z0, 1); z < zmax; ++z) {
+            if (!((w >> (8 * (z - z0))) & 0xffu)) continue;
+            // cyclic order (u,v) = (y,z) gives outward normal +x for sa=1
+            quad(cid(s, y - 1, z - 1), cid(s, y, z - 1),
+                 cid(s, y, z), cid(s, y - 1, z), !pa[z]);
+          }
+        }
+      }
+      if (x == 0) continue;
+      // 3. y/z-edges on lattice plane x: four cells straddle slabs x-1, x.
+      //    Same word-skip: wy flags y-edges, wz flags z-edges (the z+1
+      //    shifted load may cross a row end — those bytes are excluded by
+      //    the scalar bounds checks, and a byte is exact wherever valid).
+      for (int64_t y = 0; y < ny_; ++y) {
+        const uint8_t* p = &sign[((x) * ny_ + y) * nz_];
+        const uint8_t* py1 = (y + 1 < ny_)
+            ? &sign[((x) * ny_ + y + 1) * nz_] : p;
+        for (int64_t z0 = 0; z0 < nz_; z0 += 8) {
+          const uint64_t row = load8(p + z0);
+          const uint64_t wy = row ^ load8(py1 + z0);
+          const uint64_t wz = row ^ load8(p + z0 + 1);
+          if (!(wy | wz)) continue;
+          const int64_t zmax = std::min<int64_t>(z0 + 8, nz_);
+          for (int64_t z = z0; z < zmax; ++z) {
+            const int shift = static_cast<int>(8 * (z - z0));
+            const uint8_t sa = p[z];
+            if (((wy >> shift) & 0xffu) &&
+                y + 1 < ny_ && z >= 1 && z < nz_ - 1) {
+              // +y edge: cyclic order (u,v) = (z,x) -> outward +y for sa=1
+              quad(cid(sp, y, z - 1), cid(sp, y, z),
+                   cid(s, y, z), cid(s, y, z - 1), !sa);
+            }
+            if (((wz >> shift) & 0xffu) &&
+                z + 1 < nz_ && y >= 1 && y < ny_ - 1) {
+              // +z edge: cyclic order (u,v) = (x,y) -> outward +z for sa=1
+              quad(cid(sp, y - 1, z), cid(s, y - 1, z),
+                   cid(s, y, z), cid(sp, y, z), !sa);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  const float* g_;
+  int64_t nx_, ny_, nz_;
+  float iso_;
+  std::vector<V3> verts_;
+  std::vector<int64_t> faces_;
+  int64_t slab_stride_;
+  std::vector<int32_t> id_[2];  // cell vertex ids, rolling x-slabs
+};
+
+}  // namespace
+
+extern "C" {
+
+void s3d_free(void* p) { std::free(p); }
+
+// One coarse->fine refinement level of the dense masked refiner
+// (mesh/extract.py::GridRefiner semantics, reference libmise equivalent):
+//   * active cells = coarse cells whose 8 corners straddle thr, dilated
+//     `dilate` times over the 6-neighborhood;
+//   * out_grid ((2n+1)^3, caller-allocated) = trilinear 2x upsample;
+//   * out_idx (malloc'd, ascending) = flat fine-lattice indices of all
+//     points belonging to an active (subdivided) cell — the points the
+//     device must re-evaluate.
+// Replaces four numpy passes over the 17M-point fine lattice with one
+// native pass (~5x less host time on the critical path).
+int s3d_refine_level(const float* grid, int64_t n1 /* coarse n+1 */,
+                     float thr, int64_t dilate,
+                     float* out_grid, int32_t** out_idx, int64_t* out_nidx) {
+  const int64_t n = n1 - 1;          // coarse cells per axis
+  const int64_t f1 = 2 * n + 1;      // fine lattice points per axis
+  auto G = [&](int64_t x, int64_t y, int64_t z) {
+    return grid[(x * n1 + y) * n1 + z];
+  };
+
+  // 1. active coarse cells (straddle test + dilation).  Two vector-
+  //    friendly passes: per-lattice-row 4-row min/max, then the cell
+  //    test combines adjacent z — no 8-way scalar reduction per cell.
+  std::vector<uint8_t> act(static_cast<size_t>(n * n * n), 0);
+  std::vector<float> rmin(n1), rmax(n1);
+  for (int64_t x = 0; x < n; ++x) {
+    for (int64_t y = 0; y < n; ++y) {
+      const float* c00 = &grid[((x) * n1 + y) * n1];
+      const float* c01 = &grid[((x) * n1 + y + 1) * n1];
+      const float* c10 = &grid[((x + 1) * n1 + y) * n1];
+      const float* c11 = &grid[((x + 1) * n1 + y + 1) * n1];
+      for (int64_t z = 0; z < n1; ++z) {
+        const float a0 = std::min(c00[z], c01[z]), a1 = std::min(c10[z], c11[z]);
+        const float b0 = std::max(c00[z], c01[z]), b1 = std::max(c10[z], c11[z]);
+        rmin[z] = std::min(a0, a1);
+        rmax[z] = std::max(b0, b1);
+      }
+      uint8_t* a = &act[(x * n + y) * n];
+      for (int64_t z = 0; z < n; ++z) {
+        a[z] = (std::min(rmin[z], rmin[z + 1]) <= thr &&
+                std::max(rmax[z], rmax[z + 1]) >= thr) ? 1 : 0;
+      }
+    }
+  }
+  for (int64_t it = 0; it < dilate; ++it) {
+    std::vector<uint8_t> grown(act.size());
+    for (int64_t x = 0; x < n; ++x) {
+      for (int64_t y = 0; y < n; ++y) {
+        const uint8_t* c = &act[(x * n + y) * n];
+        const uint8_t* xm = (x > 0) ? c - n * n : c;
+        const uint8_t* xp = (x + 1 < n) ? c + n * n : c;
+        const uint8_t* ym = (y > 0) ? c - n : c;
+        const uint8_t* yp = (y + 1 < n) ? c + n : c;
+        uint8_t* g = &grown[(x * n + y) * n];
+        for (int64_t z = 0; z < n; ++z) {
+          g[z] = c[z] | xm[z] | xp[z] | ym[z] | yp[z];
+        }
+        for (int64_t z = 1; z < n; ++z) g[z] |= c[z - 1];
+        for (int64_t z = 0; z + 1 < n; ++z) g[z] |= c[z + 1];
+      }
+    }
+    act.swap(grown);
+  }
+
+  // 2. trilinear 2x upsample into out_grid: one rolling 4-row sum per
+  //    output row (srow L1-resident), contiguous pair writes.
+  std::vector<float> srow(n1);
+  for (int64_t x = 0; x < f1; ++x) {
+    const int64_t x0 = x >> 1, x1 = std::min(n, (x + 1) >> 1);
+    for (int64_t y = 0; y < f1; ++y) {
+      const int64_t y0 = y >> 1, y1 = std::min(n, (y + 1) >> 1);
+      const float* r00 = &grid[(x0 * n1 + y0) * n1];
+      const float* r01 = &grid[(x0 * n1 + y1) * n1];
+      const float* r10 = &grid[(x1 * n1 + y0) * n1];
+      const float* r11 = &grid[(x1 * n1 + y1) * n1];
+      if (x0 == x1 && y0 == y1) {
+        for (int64_t zc = 0; zc < n1; ++zc) srow[zc] = 4.0f * r00[zc];
+      } else if (x0 == x1) {
+        for (int64_t zc = 0; zc < n1; ++zc)
+          srow[zc] = 2.0f * (r00[zc] + r01[zc]);
+      } else if (y0 == y1) {
+        for (int64_t zc = 0; zc < n1; ++zc)
+          srow[zc] = 2.0f * (r00[zc] + r10[zc]);
+      } else {
+        for (int64_t zc = 0; zc < n1; ++zc)
+          srow[zc] = r00[zc] + r01[zc] + r10[zc] + r11[zc];
+      }
+      float* out = &out_grid[(x * f1 + y) * f1];
+      for (int64_t zc = 0; zc < n; ++zc) {
+        out[2 * zc] = 0.25f * srow[zc];
+        out[2 * zc + 1] = 0.125f * (srow[zc] + srow[zc + 1]);
+      }
+      out[f1 - 1] = 0.25f * srow[n];
+    }
+  }
+
+  // 3. fine lattice points touched by an active cell: z-runs of active
+  //    cells become one memset per (dx, dy) fine row instead of 9 3-byte
+  //    stores per cell.
+  std::vector<uint8_t> mark(static_cast<size_t>(f1 * f1 * f1) + 8, 0);
+  for (int64_t x = 0; x < n; ++x) {
+    for (int64_t y = 0; y < n; ++y) {
+      const uint8_t* a = &act[(x * n + y) * n];
+      for (int64_t z = 0; z < n;) {
+        if (!a[z]) { ++z; continue; }
+        int64_t z1 = z;
+        while (z1 < n && a[z1]) ++z1;
+        const size_t len = static_cast<size_t>(2 * (z1 - z) + 1);
+        for (int64_t dx = 0; dx < 3; ++dx) {
+          for (int64_t dy = 0; dy < 3; ++dy) {
+            std::memset(&mark[((2 * x + dx) * f1 + 2 * y + dy) * f1 + 2 * z],
+                        1, len);
+          }
+        }
+        z = z1;
+      }
+    }
+  }
+  const int64_t nfine = f1 * f1 * f1;
+  std::vector<int32_t> idx;
+  idx.reserve(1 << 20);
+  for (int64_t i = 0; i < nfine; i += 8) {
+    uint64_t w;
+    std::memcpy(&w, &mark[i], 8);
+    if (!w) continue;
+    const int64_t lim = std::min<int64_t>(8, nfine - i);
+    for (int64_t d = 0; d < lim; ++d) {
+      if (mark[i + d]) idx.push_back(static_cast<int32_t>(i + d));
+    }
+  }
+  *out_nidx = static_cast<int64_t>(idx.size());
+  *out_idx = static_cast<int32_t*>(
+      std::malloc(sizeof(int32_t) * std::max<size_t>(idx.size(), 1)));
+  if (!*out_idx) return -1;
+  if (!idx.empty()) {
+    std::memcpy(*out_idx, idx.data(), sizeof(int32_t) * idx.size());
+  }
+  return 0;
+}
+
+// Surface-nets variant of s3d_isosurface: same contract, ~2.5x smaller
+// output for the same grid (one vertex per straddling cell).
+int s3d_isosurface_sn(const float* grid, int64_t nx, int64_t ny, int64_t nz,
+                      float iso, float** out_verts, int64_t* out_nv,
+                      int64_t** out_faces, int64_t* out_nf) {
+  SurfaceNets ex(grid, nx, ny, nz, iso);
+  ex.run();
+  int64_t nv = static_cast<int64_t>(ex.verts_.size());
+  int64_t nf = static_cast<int64_t>(ex.faces_.size() / 3);
+  *out_verts = static_cast<float*>(std::malloc(sizeof(float) * 3 * std::max<int64_t>(nv, 1)));
+  *out_faces = static_cast<int64_t*>(std::malloc(sizeof(int64_t) * 3 * std::max<int64_t>(nf, 1)));
+  if (!*out_verts || !*out_faces) return -1;
+  if (nv) std::memcpy(*out_verts, ex.verts_.data(), sizeof(float) * 3 * nv);
+  if (nf) std::memcpy(*out_faces, ex.faces_.data(), sizeof(int64_t) * 3 * nf);
+  *out_nv = nv;
+  *out_nf = nf;
+  return 0;
+}
+
+}  // extern "C"

@@ -1,0 +1,102 @@
+"""Shared building blocks: convolutions, inference BatchNorm, the post-LN
+transformer encoder.
+
+Parameters stay fp32 and follow the activation's dtype at use, the way the
+JAX modules cast their fp32 params to the compute dtype: a bf16 input runs a
+bf16 layer.  Parameter names are the reference torch modules' names, so
+reference ``state_dict``s load as they are.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.fused_encoder import fused_encoder_layer, fused_encoder_layer_ref
+
+__all__ = ["Conv2d", "ConvTranspose2d", "Linear", "BatchNorm2d",
+           "TransformerEncoderLayer", "TransformerEncoder"]
+
+
+class Conv2d(nn.Conv2d):
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    def forward(self, x):
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                                  self.stride)
+
+
+class Linear(nn.Linear):
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """Inference BatchNorm (running statistics, eps 1e-5)."""
+
+    def forward(self, x):
+        dt = x.dtype
+        return F.batch_norm(x, self.running_mean.to(dt), self.running_var.to(dt),
+                            self.weight.to(dt), self.bias.to(dt), False, 0.0, self.eps)
+
+
+class _SelfAttention(nn.Module):
+    """Parameter holder with ``nn.MultiheadAttention``'s names."""
+
+    def __init__(self, d_model: int):
+        super().__init__()
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
+        self.out_proj = nn.Linear(d_model, d_model)
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Post-LN encoder layer with ``nn.TransformerEncoderLayer``'s defaults
+    (ReLU, LayerNorm eps 1e-5), inference only, input (B, M, T, D).
+
+    ``head_tokens`` keeps only the first tokens after attention (the head's
+    last layer reads token 0 alone).  ``fused`` sends a CUDA input to the
+    hand-written kernel; otherwise, and for a CPU input, the plain version
+    runs.
+    """
+
+    def __init__(self, d_model: int = 128, n_heads: int = 4, d_ff: int = 2048,
+                 head_tokens: int = 0, fused: bool = True):
+        super().__init__()
+        self.n_heads = n_heads
+        self.head_tokens = head_tokens
+        self.fused = fused
+        self.self_attn = _SelfAttention(d_model)
+        self.linear1 = nn.Linear(d_model, d_ff)
+        self.linear2 = nn.Linear(d_ff, d_model)
+        self.norm1 = nn.LayerNorm(d_model)
+        self.norm2 = nn.LayerNorm(d_model)
+        nn.init.xavier_uniform_(self.self_attn.in_proj_weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        params = dict(self.named_parameters())
+        fn = fused_encoder_layer if self.fused else fused_encoder_layer_ref
+        return fn(x, params, n_heads=self.n_heads, head_tokens=self.head_tokens)
+
+
+class TransformerEncoder(nn.Module):
+    """Stack of post-LN layers; the last keeps ``final_head_tokens`` tokens."""
+
+    def __init__(self, num_layers: int = 3, d_model: int = 128, n_heads: int = 4,
+                 d_ff: int = 2048, final_head_tokens: int = 0, fused: bool = True):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(d_model, n_heads, d_ff,
+                                    final_head_tokens if i + 1 == num_layers else 0,
+                                    fused)
+            for i in range(num_layers))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x)
+        return x

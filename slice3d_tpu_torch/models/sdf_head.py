@@ -1,0 +1,120 @@
+"""Implicit-SDF decoding: sample the folded slice planes, attend, regress.
+
+The SliceNet head: a query-point token (``fc_p``: Linear 3 -> 128) and 12
+slice tokens (``fc_s``: Linear 992 -> 128 of the bilinearly sampled pyramid)
+pass a 3-layer, 13-token post-LN transformer; ``fc_out`` reads token 0.
+
+Fast inference path: ``fc_s`` is linear, so it commutes with bilinear
+sampling.  :meth:`SDFTransformerHead.fold_pyramids` pre-multiplies each
+pyramid level by its slice of ``fc_s`` once per object, :func:`pack_planes`
+puts the 12 slices of a pixel in one row, and :func:`sample_packed_sum`
+samples and sums the 128-wide folded levels per point.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+from torch import nn
+
+from ..ops.hat_sample import hat_sample_sum
+from .layers import Linear, TransformerEncoder
+
+__all__ = ["pack_planes", "sample_packed_sum", "SDFTransformerHead"]
+
+# levels with h * w at most this many rows sample through the hat matmul,
+# larger ones through four row gathers
+HAT_MAX_ROWS = 1024
+
+
+def pack_planes(planes: Sequence[torch.Tensor], n_slices: int) -> List[torch.Tensor]:
+    """(B*S, h, w, d) planes -> [(B, h, w, S*d)]: one row carries every
+    slice's features of a pixel."""
+    packed = []
+    for p in planes:
+        bs, h, w, d = p.shape
+        q = p.reshape(bs // n_slices, n_slices, h, w, d).permute(0, 2, 3, 1, 4)
+        packed.append(q.reshape(bs // n_slices, h, w, n_slices * d))
+    return packed
+
+
+def sample_packed_sum(packed: Sequence[torch.Tensor], uv: torch.Tensor, n_slices: int,
+                      hat_max_rows: int = HAT_MAX_ROWS) -> torch.Tensor:
+    """Bilinearly sample packed planes [(B, h, w, S*d)] at uv (B, M, 2) in
+    [-1, 1] (align_corners=True, zero padding) and sum the levels.
+    Returns (B, M, S, d)."""
+    b, m, _ = uv.shape
+    x = uv[..., 0].to(torch.float32)
+    y = uv[..., 1].to(torch.float32)
+    total, rest = hat_sample_sum(packed, uv, max_rows=hat_max_rows)
+    for plane in rest:
+        _, h, w, sd = plane.shape
+        flat_plane = plane.reshape(b * h * w, sd)
+        base = (torch.arange(b, device=uv.device) * (h * w))[:, None]
+        px = (x + 1.0) * 0.5 * (w - 1)
+        py = (y + 1.0) * 0.5 * (h - 1)
+        x0 = torch.floor(px)
+        y0 = torch.floor(py)
+        wx = (px - x0).to(plane.dtype)
+        wy = (py - y0).to(plane.dtype)
+        x0i = x0.to(torch.int64)
+        y0i = y0.to(torch.int64)
+
+        def corner(xi, yi, weight):
+            valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+            weight = torch.where(valid, weight, torch.zeros_like(weight))
+            flat = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1) + base
+            rows = flat_plane.index_select(0, flat.reshape(-1)).reshape(b, m, sd)
+            return rows * weight[..., None]
+
+        s = (corner(x0i, y0i, (1 - wx) * (1 - wy))
+             + corner(x0i + 1, y0i, wx * (1 - wy))
+             + corner(x0i, y0i + 1, (1 - wx) * wy)
+             + corner(x0i + 1, y0i + 1, wx * wy))
+        total = s if total is None else total + s
+    return total.reshape(b, m, n_slices, -1)
+
+
+class SDFTransformerHead(nn.Module):
+    """SliceNet's token head: [query token; slice tokens] -> SDF.
+
+    Its parameters sit at the top of the model's ``state_dict`` (``fc_p``,
+    ``fc_s``, ``att_decoder``, ``fc_out``), as in the reference checkpoints.
+    """
+
+    def __init__(self, d_model: int = 128, n_layers: int = 3, n_heads: int = 4,
+                 c_local: int = 992, fused: bool = True):
+        super().__init__()
+        self.fc_p = Linear(3, d_model)
+        self.fc_s = Linear(c_local, d_model)
+        self.att_decoder = TransformerEncoder(n_layers, d_model, n_heads,
+                                              final_head_tokens=1, fused=fused)
+        self.fc_out = nn.Sequential(Linear(d_model, 1))
+
+    def fold_pyramids(self, pyramids: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """(N, h, w, c_l) levels -> (N, h, w, d_model), each multiplied by its
+        slice of ``fc_s``.  The bias rides on the first level only, so the
+        sum of the sampled levels is ``fc_s(concat(levels))`` (projected
+        coords are clamped in range, so each point's bilinear weights sum
+        to 1)."""
+        outs = []
+        offset = 0
+        for i, p in enumerate(pyramids):
+            c = p.shape[-1]
+            w_slice = self.fc_s.weight[:, offset:offset + c].to(p.dtype)
+            folded = torch.matmul(p, w_slice.t())
+            if i == 0:
+                folded = folded + self.fc_s.bias.to(p.dtype)
+            outs.append(folded)
+            offset += c
+        return outs
+
+    def from_folded(self, qry: torch.Tensor, sampled_sum: torch.Tensor) -> torch.Tensor:
+        """qry (B, M, 3) camera-aligned; sampled_sum (B, M, S, d) summed
+        folded samples (== fc_s of the sampled pyramid).  Returns fp32 sdf
+        (B, M); the head computes in sampled_sum's dtype."""
+        feat_q = self.fc_p(qry.to(sampled_sum.dtype))
+        tokens = torch.cat([feat_q[:, :, None, :], sampled_sum], dim=2)
+        tokens = self.att_decoder(tokens)
+        return self.fc_out(tokens[:, :, 0, :])[..., 0].to(torch.float32)
