@@ -4,15 +4,27 @@
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. device: name and power limit;
-  2. build every kernel of the main path from the sources in the checkout;
-  3. each kernel against its plain PyTorch version at the main path's shapes,
-     with times (CUDA events) beside the card's bound and a library call;
-  4. the main path: ``Reconstructor.reconstruct`` on 3 seeded 128x128 images
-     (SliceNet, random seeded weights, bf16, res0 64 / up 2 / chunk 32768),
-     with every kernel's launch count read around that run;
-  5. correctness on a small input: kernel path vs plain path on the card,
-     and the card's fp32 plain path vs the CPU's (which the CPU tests hold
-     against the JAX reference).
+  2. build every kernel of both paths from the sources in the checkout, one
+     compiler per source, all started together (ptxas register and shared
+     memory use printed);
+  3. each kernel against its plain PyTorch version at the paths' shapes,
+     with times (CUDA events) beside the card's bound and a library call:
+     fused_encoder_layer at N = 33,800 points, spatial_attention at
+     (8, 8, 4096, 24) and (8, 8, 1024, 48);
+  4. the regression path: ``Reconstructor.reconstruct`` on 3 seeded 128x128
+     images (SliceNet, random seeded weights, bf16, res0 64 / up 2 / chunk
+     32768), with every kernel's launch count read around that run;
+  5. the generation path: ``sample_slices`` (kl-f8 VAE, LDM UNet 192 ch,
+     VGG16-BN conditioner, random seeded weights, bf16) on a batch of 8
+     seeded 128x128 views with DDIM-200, eta 1, then GTSlice
+     ``Reconstructor.reconstruct`` of every generated object at res0 64 /
+     up 2, with the launch counts read around the sampling and around the
+     reconstructions (the res0 16 probe that sets the iso level between
+     them is not counted);
+  6. correctness on small inputs: kernel path vs plain path on the card, and
+     the card's fp32 plain path vs the CPU's (which the CPU tests hold
+     against the JAX reference), for SliceNet, the sampler's atlas and
+     GTSlice.
 The last two lines are the kernels' JSON record and the run's status JSON.
 """
 
@@ -23,20 +35,72 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3; the
+# special function units issue 16 exp2 per clock per SM (132 SMs)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+SFU_PER_CLOCK = 16 * 132
 N_POINTS = 8 * 65 * 65  # one coarse-level slab group: 8 z-slabs of 65^2
 TOL = dict(atol=2e-2, rtol=1e-2)  # bf16 outputs of LayerNorm: ~2.5 ulp
+# kernel vs plain spatial attention: the kernel rounds the unnormalised
+# exp(s - m) to bf16 and divides at the end, the plain version (like the TPU
+# kernel) normalises and then rounds, so they differ by bf16 rounding of the
+# probabilities: a few bf16 ulps of outputs of order 1
+ATTN_TOL = dict(atol=1e-2, rtol=2e-2)
+ATTN_SHAPES = ((8, 8, 4096, 24), (8, 8, 1024, 48))  # ds 1 and ds 2 blocks, batch 8
+# the sampler's atlas after 4 DDIM steps (eta 0, batch 1), element-wise: kernel
+# path vs plain path in bf16, where the probabilities' rounding differs inside
+# 4 UNet calls (readings on the H100: largest error 0.064 where |p| < 1 and
+# 0.083 overall, at |p| 1.6, against |p| up to 36: an absolute error of a few
+# hundredths, so atol carries it at ~3x); and the fp32 plain path on the card
+# vs the CPU (readings: 2.0e-5)
+ATLAS_TOL = dict(atol=0.2, rtol=0.01)
+ATLAS_FP32_TOL = dict(atol=1e-3, rtol=1e-3)
+GEN_BATCH, GEN_STEPS = 8, 200
 
 
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def check_close(got: torch.Tensor, want: torch.Tensor, tol: dict, what: str) -> None:
+    """Element-wise |got - want| <= atol + rtol |want|, with the readings
+    that set such a tolerance: the largest error where |want| < 1 and the
+    largest error relative to |want| where |want| >= 1."""
+    got, want = got.float().cpu(), want.float().cpu()
+    err, mag = (got - want).abs(), want.abs()
+    bad = err > tol["atol"] + tol["rtol"] * mag
+    small, large = mag < 1, mag >= 1
+    at = int(err.argmax())
+    print(f"[check] {what}: max_abs_err {err.max().item():.6g} at |want| "
+          f"{mag.flatten()[at].item():.4g}, max |want| {mag.max().item():.4g}; max err "
+          f"where |want| < 1: {err[small].max().item() if small.any() else 0.0:.6g}, max "
+          f"err/|want| where |want| >= 1: "
+          f"{(err[large] / mag[large]).max().item() if large.any() else 0.0:.6g}; "
+          f"tolerance |k-p| <= {tol['atol']} + {tol['rtol']}*|p|, violations "
+          f"{int(bad.sum())}")
+    check(got.shape == want.shape and not bad.any(), f"{what}: disagree")
+
+
+def reset_counts() -> None:
+    from slice3d_tpu_torch.ops import fused_encoder as fe
+    from slice3d_tpu_torch.ops import spatial_attention as sa
+
+    fe.launches = 0
+    sa.launches = 0
+
+
+def read_counts() -> dict:
+    from slice3d_tpu_torch.ops import fused_encoder as fe
+    from slice3d_tpu_torch.ops import spatial_attention as sa
+
+    return {"fused_encoder_layer": fe.launches, "spatial_attention": sa.launches}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -64,20 +128,32 @@ def encoder_work(n: int, t: int, head_tokens: int, d: int = 128, f: int = 2048,
     return flops, n * (t + t_out) * d * 2 + weights
 
 
-def phase_kernels(model):
+def phase_build():
+    """Every library of both paths, one compiler each, all started together."""
     from slice3d_tpu_torch import native
-    from slice3d_tpu_torch.ops import fused_encoder as fe
-
     from slice3d_tpu_torch.mesh import load_library
+    from slice3d_tpu_torch.ops import fused_encoder as fe
+    from slice3d_tpu_torch.ops import spatial_attention as sa
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    fe.library()
-    print(f"[build] fused_encoder built in {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    load_library()
-    print(f"[build] host mesh library built in {time.perf_counter() - t0:.2f} s")
+    builds = {"fused_encoder": fe.kernel, "spatial_attention": sa.kernel,
+              "host mesh library": load_library}
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futs = {name: pool.submit(timed, fn) for name, fn in builds.items()}
+        for name, fut in futs.items():
+            print(f"[build] {name} built in {fut.result():.2f} s")
+    print(f"[build] all built in {time.perf_counter() - t0:.2f} s")
     for line in native.BUILD_LOG:
         print(line)
+
+
+def phase_kernels(model):
+    from slice3d_tpu_torch.ops import fused_encoder as fe
 
     g = torch.Generator(device="cuda").manual_seed(1)
     layers = model.att_decoder.layers
@@ -122,6 +198,64 @@ def phase_kernels(model):
     return modes
 
 
+def attention_work(shape, sm_clock_hz: float):
+    """(flops, exps, bytes, bound_ms, bound_by) of one attention call: both
+    products on the tensor cores, one exponential per logit on the special
+    function units, q/k/v read and the output written once (bf16)."""
+    b, h, t, dh = shape
+    flops = 4 * b * h * t * t * dh
+    exps = b * h * t * t
+    nbytes = 4 * b * h * t * dh * 2
+    times = {"operations (tensor cores)": flops / PEAK_BF16_FLOPS,
+             "operations (exponentials)": exps / (SFU_PER_CLOCK * sm_clock_hz),
+             "bytes": nbytes / PEAK_BYTES}
+    by = max(times, key=times.get)
+    return flops, exps, nbytes, times[by] * 1e3, by
+
+
+def phase_attention(sm_clock_hz: float):
+    from slice3d_tpu_torch.ops import spatial_attention as sa
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    modes = []
+    for shape in ATTN_SHAPES:
+        # q, k ~ N(0, 4): logits of std ~4, a peaked softmax with outputs of
+        # order 1 (a flat one would average v towards 0 and hide errors)
+        q, k = (2.0 * torch.randn(shape, generator=g, device="cuda") for _ in range(2))
+        v = torch.randn(shape, generator=g, device="cuda")
+        q, k, v = q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
+        scale = shape[-1] ** -0.5
+        with torch.no_grad():
+            got = sa.spatial_attention(q, k, v, scale)
+            torch.cuda.synchronize()
+            want = sa.spatial_attention_ref(q, k, v, scale)
+            err = (got.float() - want.float()).abs()
+            bad = err > ATTN_TOL["atol"] + ATTN_TOL["rtol"] * want.float().abs()
+            max_err = err.max().item()
+            print(f"[kernel] spatial_attention {shape}: max_abs_err {max_err:.6g} "
+                  f"(max |plain| {want.float().abs().max().item():.4g}), tolerance "
+                  f"|k-p| <= {ATTN_TOL['atol']} + {ATTN_TOL['rtol']}*|p|, violations "
+                  f"{int(bad.sum())}")
+            check(got.shape == want.shape and not bad.any()
+                  and bool(torch.isfinite(got).all()),
+                  f"spatial_attention {shape} disagrees with plain")
+            del want, err, bad
+            ms = cuda_ms(lambda: sa.spatial_attention(q, k, v, scale), 20)
+            plain_ms = cuda_ms(lambda: sa.spatial_attention_ref(q, k, v, scale), 3)
+            library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, scale=scale), 20)
+        flops, exps, nbytes, bound_ms, bound_by = attention_work(shape, sm_clock_hz)
+        modes.append({"shape": list(shape), "max_abs_err": max_err, "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+                      "gexp": exps / 1e9, "mbytes": nbytes / 1e6})
+        print(f"[kernel] spatial_attention {shape}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library (scaled_dot_product_attention) "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({flops / 1e9:.2f} GFLOP, {exps / 1e9:.4f} G exp, {nbytes / 1e6:.2f} MB)")
+    return modes
+
+
 def make_feeds(n: int, seed: int = 0):
     from slice3d_tpu_torch.camera import camera_matrices
 
@@ -132,7 +266,6 @@ def make_feeds(n: int, seed: int = 0):
 
 
 def phase_main_path(model):
-    from slice3d_tpu_torch.ops import fused_encoder as fe
     from slice3d_tpu_torch.pipeline import Reconstructor
 
     feeds = make_feeds(3)
@@ -144,7 +277,7 @@ def phase_main_path(model):
     print(f"[main] threshold {threshold:.6f} (median coarse logit {np.median(probe):.6f})")
     rec = Reconstructor(model, resolution0=64, upsampling_steps=2, chunk_size=32768,
                         threshold=threshold)
-    fe.launches = 0
+    reset_counts()
     results = []
     for i, feed in enumerate(feeds):
         torch.cuda.synchronize()
@@ -158,15 +291,16 @@ def phase_main_path(model):
               f"{stats['final_resolution']}, vertices {len(mesh.vertices)}, faces "
               f"{len(mesh.faces)}, eval {stats['time_eval_points']:.4f} s, marching "
               f"{stats['time_marching']:.4f} s")
-    launches = fe.launches
-    print(f"[main] fused_encoder_layer launches over 3 requests: {launches}")
-    check(launches > 0, "the main path launched no fused_encoder_layer kernel")
+    counts = read_counts()
+    print(f"[main] launches over 3 requests: {counts}")
+    check(counts["fused_encoder_layer"] > 0,
+          "the main path launched no fused_encoder_layer kernel")
     for mesh, stats in results:
         check(stats["n_points_evaluated"] > 65 ** 3, "the refinement levels did not run")
         check(stats["final_resolution"] == 256, "wrong final resolution")
         check(not mesh.is_empty and bool(np.isfinite(mesh.vertices).all()),
               "empty mesh or non-finite vertices")
-    return launches, rec, feeds
+    return counts, rec, feeds
 
 
 def phase_correctness(model, rec, feed):
@@ -207,6 +341,167 @@ def phase_correctness(model, rec, feed):
         check(err_f <= 1e-3, f"{route}: card and CPU fp32 paths disagree")
 
 
+def gtslice_threshold(model, feed) -> float:
+    """Iso level at the median coarse logit of a res0 16 probe: random
+    weights then give a real surface and the refinement levels run."""
+    from slice3d_tpu_torch.pipeline import Reconstructor
+
+    probe, _ = Reconstructor(model, resolution0=16, upsampling_steps=0).build_grid(feed)
+    return float(1.0 / (1.0 + np.exp(-np.median(probe))))
+
+
+def phase_generation():
+    """The generation route at the 128 px operating point: DDIM-200 over a
+    batch of 8 views, then GTSlice reconstruction of each object."""
+    from slice3d_tpu_torch.camera import camera_matrices
+    from slice3d_tpu_torch.diffusion.latent import init_latent_diffusion
+    from slice3d_tpu_torch.diffusion.sampler import sample_slices
+    from slice3d_tpu_torch.models.gtslice import init_gtslice
+    from slice3d_tpu_torch.ops import fused_encoder as fe
+    from slice3d_tpu_torch.pipeline import Reconstructor
+
+    ldm = init_latent_diffusion(seed=0, dtype=torch.bfloat16).to("cuda")
+    gts = init_gtslice(seed=0, dtype=torch.bfloat16).to("cuda")
+    rng = np.random.default_rng(5)
+    views = torch.from_numpy(rng.uniform(-1, 1, (GEN_BATCH, 128, 128, 3)).astype(np.float32))
+    g = torch.Generator(device="cuda")
+    sample_slices(ldm, views, ddim_steps=2, eta=1.0, generator=g.manual_seed(1))  # warm-up
+    torch.cuda.synchronize()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    slices = sample_slices(ldm, views, ddim_steps=GEN_STEPS, eta=1.0,
+                           generator=g.manual_seed(0))
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    sampled = read_counts()
+    print(f"[gen] sample_slices: batch {GEN_BATCH}, DDIM-{GEN_STEPS}, eta 1.0: "
+          f"{sample_s:.4f} s per batch; launches {sampled}")
+    check(sampled["spatial_attention"] == 10 * GEN_STEPS,
+          f"spatial_attention launched {sampled['spatial_attention']} times, "
+          f"expected 10 x {GEN_STEPS}")
+    slices_np = slices.cpu().numpy()
+    check(slices_np.shape == (GEN_BATCH, 12, 128, 128, 3), f"slices {slices_np.shape}")
+    check(bool(np.isfinite(slices_np).all()), "non-finite generated slices")
+    stds = slices_np.reshape(GEN_BATCH * 12, -1).std(axis=1)
+    print(f"[gen] slices: mean {slices_np.mean():.4f}, std {slices_np.std():.4f}, "
+          f"min {slices_np.min():.4f}, max {slices_np.max():.4f}, least per-slice std "
+          f"{stds.min():.4g}")
+    check(bool((stds > 0).all()), "a generated slice is constant")
+
+    _, proj = camera_matrices(0.0, 0.0, 1.2)
+    feeds = [{"img_slices": slices_np[i], "trans_mat_wo_rot_tp": proj.astype(np.float32)}
+             for i in range(GEN_BATCH)]
+    threshold = gtslice_threshold(gts, feeds[0])
+    print(f"[gen] GTSlice threshold {threshold:.6f}")
+    rec = Reconstructor(gts, resolution0=64, upsampling_steps=2, chunk_size=32768,
+                        threshold=threshold)
+    reset_counts()  # the probe is not the path: count the reconstructions alone
+    objects = []
+    for i, feed in enumerate(feeds):
+        before = fe.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh, stats = rec.reconstruct(feed)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        objects.append({"latency_s": dt, "n_points_evaluated": stats["n_points_evaluated"],
+                        "vertices": len(mesh.vertices), "faces": len(mesh.faces),
+                        "fused_encoder_layer_launches": fe.launches - before})
+        print(f"[gen] object {i}: latency {dt:.4f} s, n_points_evaluated "
+              f"{stats['n_points_evaluated']}, vertices {len(mesh.vertices)}, faces "
+              f"{len(mesh.faces)}, fused_encoder_layer launches {fe.launches - before}")
+        check(stats["n_points_evaluated"] > 65 ** 3, "the refinement levels did not run")
+        check(stats["final_resolution"] == 256, "wrong final resolution")
+        check(not mesh.is_empty and bool(np.isfinite(mesh.vertices).all()),
+              "empty mesh or non-finite vertices")
+    recon = read_counts()
+    counts = {name: sampled[name] + recon[name] for name in sampled}
+    print(f"[gen] launches over the generation path (sampling + {GEN_BATCH} "
+          f"reconstructions): {counts}")
+    check(recon["fused_encoder_layer"]
+          == sum(o["fused_encoder_layer_launches"] for o in objects)
+          and all(o["fused_encoder_layer_launches"] > 0 for o in objects),
+          "GTSlice did not launch fused_encoder_layer for every object")
+
+    # one UNet call at the operating point, the conditioning of this batch
+    with torch.no_grad():
+        z = ldm.encode_images(views.cuda()[:, None], generator=g.manual_seed(3))
+        cond = ldm.build_cond(z, views.cuda())
+        x = torch.randn((GEN_BATCH, 64, 64, 4), generator=g, device="cuda")
+        t = torch.full((GEN_BATCH,), 500, dtype=torch.int64, device="cuda")
+        unet_ms = cuda_ms(lambda: ldm.apply_model(x, t, cond), 10)
+    print(f"[gen] UNet call (batch {GEN_BATCH}, 64x64 atlas, bf16): {unet_ms:.4f} ms")
+    return {"sample_s": sample_s, "unet_ms": unet_ms, "counts": counts,
+            "objects": objects}, ldm, gts, views, feeds
+
+
+def phase_generation_checks(ldm, gts, views, feed):
+    """Small inputs on the card: the sampler's atlas and GTSlice's logits,
+    kernel path vs plain path (bf16), and the fp32 plain path card vs CPU."""
+    from slice3d_tpu_torch.diffusion.latent import init_latent_diffusion
+    from slice3d_tpu_torch.diffusion.sampler import sample_atlas
+    from slice3d_tpu_torch.models.gtslice import init_gtslice
+    from slice3d_tpu_torch.models.ldm_unet import AttentionBlock
+    from slice3d_tpu_torch.pipeline import Reconstructor
+
+    rng = np.random.default_rng(6)
+    fixed = dict(ddim_steps=4, eta=0.0,
+                 posterior_noise=torch.from_numpy(rng.normal(size=(1, 16, 16, 4))
+                                                  .astype(np.float32)),
+                 x_T=torch.from_numpy(rng.normal(size=(1, 64, 64, 4)).astype(np.float32)))
+    view = views[:1]
+
+    def set_fused(model, fused):
+        for mod in model.modules():
+            if isinstance(mod, AttentionBlock):
+                mod.fused = fused
+
+    # 1. bf16 kernel path vs bf16 plain path, same weights
+    kern = sample_atlas(ldm, view, **fixed)
+    set_fused(ldm, False)
+    plain = sample_atlas(ldm, view, **fixed)
+    set_fused(ldm, True)
+    check(bool(torch.isfinite(kern).all()), "atlas: non-finite kernel-path atlas")
+    check_close(kern, plain, ATLAS_TOL, "atlas, batch 1, DDIM-4 eta 0, kernel path vs "
+                "plain path (bf16; bf16 rounding of the probabilities, through 4 UNet "
+                "calls)")
+
+    # 2. fp32 plain path: card vs CPU
+    torch.backends.cudnn.allow_tf32 = False
+    l32 = init_latent_diffusion(seed=0, fused=False)
+    cpu = sample_atlas(l32, view, device="cpu", **fixed)
+    gpu = sample_atlas(l32, view, **fixed).cpu()
+    del l32
+    check_close(gpu, cpu, ATLAS_FP32_TOL, "atlas, fp32 card vs CPU (fp32 summation order)")
+
+    small = dict(resolution0=16, upsampling_steps=0, chunk_size=4096)
+    g32 = init_gtslice(0, fused=False)
+    for lattice in (True, False):
+        route = "lattice" if lattice else "gather"
+        kern, _ = Reconstructor(gts, lattice_dense=lattice, **small).build_grid(feed)
+        for layer in gts.att_decoder.layers:
+            layer.fused = False
+        plain, _ = Reconstructor(gts, lattice_dense=lattice, **small).build_grid(feed)
+        for layer in gts.att_decoder.layers:
+            layer.fused = True
+        err = float(np.abs(kern - plain).max())
+        tol = 5e-2 * max(1.0, float(np.abs(plain).max()))
+        print(f"[check] GTSlice {route}: 17^3 logits, kernel path vs plain path (bf16): "
+              f"max_abs_err {err:.6g}, max |plain| {np.abs(plain).max():.4g} (tolerance "
+              f"{tol:.4g}: bf16 rounding flips through 3 layers and fc_out)")
+        check(err <= tol, f"GTSlice {route}: kernel path disagrees with the plain path")
+        cpu, _ = Reconstructor(g32, device="cpu", lattice_dense=lattice,
+                               **small).build_grid(feed)
+        gpu, _ = Reconstructor(g32, lattice_dense=lattice, **small).build_grid(feed)
+        err = float(np.abs(cpu - gpu).max())
+        tol = 1e-3 * max(1.0, float(np.abs(cpu).max()))
+        print(f"[check] GTSlice {route}: 17^3 logits, fp32 card vs CPU: max_abs_err "
+              f"{err:.6g} (tolerance {tol:.4g}: fp32 summation order)")
+        check(err <= tol, f"GTSlice {route}: card and CPU fp32 paths disagree")
+    torch.backends.cudnn.allow_tf32 = True
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -215,28 +510,54 @@ def main() -> int:
     from slice3d_tpu_torch.models.slicenet import init_slicenet
 
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    print(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a")
 
+    def smi(query: str) -> str:
+        out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60, check=True)
+        return out.stdout.strip().splitlines()[0]
+
+    clock = float(smi("clocks.max.sm").split()[0])  # "1980 MHz"
+    print(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+          f"max SM clock {clock:.0f} MHz")
+    print(smi("name,power.limit"))
+
+    t_start = time.perf_counter()
+    phase_build()
     model = init_slicenet(seed=0, dtype=torch.bfloat16).to("cuda")
     modes = phase_kernels(model)
-    launches, rec, feeds = phase_main_path(model)
+    attn_modes = phase_attention(clock * 1e6)
+    main_counts, rec, feeds = phase_main_path(model)
+    gen, ldm, gts, views, gen_feeds = phase_generation()
     phase_correctness(model, rec, feeds[0])
+    phase_generation_checks(ldm, gts, views, gen_feeds[0])
+    print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
 
+    by_path = {"regression": main_counts, "generation": gen["counts"]}
     full = modes[0]
-    record = {"name": "fused_encoder_layer", "route": "cuda",
-              "source": "slice3d_tpu_torch/csrc/fused_encoder.cu",
-              "replaces": "slice3d_tpu/ops/pallas_encoder.py:463",
-              "launches": launches,
-              "max_abs_err": max(m["max_abs_err"] for m in modes),
-              "tol": f"|k-p| <= {TOL['atol']} + {TOL['rtol']}*|p|",
-              "ms": full["ms"], "kernel_ms": full["ms"], "plain_ms": full["plain_ms"],
-              "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
-              "library_ms": full["library_ms"], "modes": modes}
-    print(json.dumps({"kernels": [record]}))
+    encoder = {"name": "fused_encoder_layer", "route": "cuda",
+               "source": "slice3d_tpu_torch/csrc/fused_encoder.cu",
+               "replaces": "slice3d_tpu/ops/pallas_encoder.py:463",
+               "launches": sum(c["fused_encoder_layer"] for c in by_path.values()),
+               "launches_by_path": {k: c["fused_encoder_layer"] for k, c in by_path.items()},
+               "max_abs_err": max(m["max_abs_err"] for m in modes),
+               "tol": f"|k-p| <= {TOL['atol']} + {TOL['rtol']}*|p|",
+               "ms": full["ms"], "kernel_ms": full["ms"], "plain_ms": full["plain_ms"],
+               "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+               "library_ms": full["library_ms"], "modes": modes}
+    ds1 = attn_modes[0]
+    attention = {"name": "spatial_attention", "route": "cuda",
+                 "source": "slice3d_tpu_torch/csrc/spatial_attention.cu",
+                 "replaces": "slice3d_tpu/ops/pallas_attention.py:59",
+                 "launches": sum(c["spatial_attention"] for c in by_path.values()),
+                 "launches_by_path": {k: c["spatial_attention"] for k, c in by_path.items()},
+                 "max_abs_err": max(m["max_abs_err"] for m in attn_modes),
+                 "tol": f"|k-p| <= {ATTN_TOL['atol']} + {ATTN_TOL['rtol']}*|p|",
+                 "ms": ds1["ms"], "kernel_ms": ds1["ms"], "plain_ms": ds1["plain_ms"],
+                 "bound_ms": ds1["bound_ms"],
+                 "bound_by": "bytes" if ds1["bound_by"] == "bytes" else "operations",
+                 "library_ms": ds1["library_ms"], "modes": attn_modes}
+    print(json.dumps({"generation": {k: v for k, v in gen.items() if k != "counts"}}))
+    print(json.dumps({"kernels": [encoder, attention]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

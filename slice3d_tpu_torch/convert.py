@@ -1,25 +1,31 @@
-"""Flax variables (numpy trees) -> the port's SliceNet ``state_dict``.
+"""Flax variables (numpy trees) -> the port's ``state_dict``s.
 
-The inverse of the JAX package's checkpoint importer for SliceNet: a
-variables tree as ``init_variables`` or the torch importer produces it
+The inverse of the JAX package's checkpoint importer
+(``slice3d_tpu/convert/torch_import.py``): a variables tree as
+``init_variables``, the trainers or the torch importer produce it
 (``{"params": ..., "batch_stats": ...}`` with numpy or array leaves) becomes
-a ``state_dict`` under the reference torch names, which
-``SliceNetModel.load_state_dict`` takes as it is.
+a ``state_dict`` under the reference torch names, which the port's models
+take as it is.  Covered: SliceNet, GTSlice and the latent-diffusion model
+(kl-f8 VAE, ADM UNet, VGG16-BN conditioner).
 
-Layout rules: conv HWIO -> OIHW; Dense (in, out) -> (out, in); ConvTranspose
+Layout rules: conv HWIO -> OIHW; Dense (in, out) -> (out, in); a Dense that
+the reference holds as a 1x1 Conv1d -> (out, in, 1); ConvTranspose
 (kH, kW, O, I) -> (I, O, kH, kW); the fused ``qkv`` kernel transposed is
 ``in_proj_weight``; BatchNorm ``mean``/``var`` -> ``running_mean``/
-``running_var``.
+``running_var``; GroupNorm/LayerNorm ``scale`` -> ``weight``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import re
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["slicenet_state_dict"]
+__all__ = ["slicenet_state_dict", "gtslice_state_dict", "vae_state_dict",
+           "ldm_unet_state_dict", "cond_encoder_state_dict",
+           "latent_diffusion_state_dict"]
 
 # (conv index, conv block, conv child, bn block, bn child) of the reference's
 # sliced VGG16-BN: blocks are features[:4] [4:11] [11:21] [21:31] [31:41]
@@ -31,6 +37,8 @@ _REF_VGG_SLICES = [
     (12, 4, 40, 5, 41),
 ]
 _BLOCKS = ("down1", "down2", "down3", "down4", "down5", "down5_")
+_REF_BLOCKS = ("conv1_2", "conv2_2", "conv3_3", "conv4_3", "conv5_3", "conv_last")
+_TRANS = ("trans1_2", "trans2_2", "trans3_3", "trans4_3", "trans5_3")
 
 
 def _t(a) -> torch.Tensor:
@@ -75,16 +83,39 @@ def _encoder_layer(sd: Dict, prefix: str, p: Mapping) -> None:
     _norm(sd, f"{prefix}.norm2", p["norm2"])
 
 
+def _vgg(sd: Dict, blocks: Sequence[str], p: Mapping, s: Mapping) -> None:
+    """A VGG16BNBackbone subtree (conv0..12, bn0..12) under six block names."""
+    for ci, cb, cidx, bb, bidx in _REF_VGG_SLICES:
+        _conv(sd, f"{blocks[cb]}.{cidx}", p[f"conv{ci}"])
+        _bn(sd, f"{blocks[bb]}.{bidx}", p[f"bn{ci}"], s[f"bn{ci}"])
+
+
+def _leaf(sd: Dict, prefix: str, p: Mapping) -> None:
+    """A conv (4-D kernel), Dense (2-D kernel) or norm (``scale``) module."""
+    if "scale" in p:
+        _norm(sd, prefix, p)
+    elif np.ndim(p["kernel"]) == 4:
+        _conv(sd, prefix, p)
+    else:
+        _dense(sd, prefix, p)
+
+
+def _tree(sd: Dict, prefix: str, p: Mapping) -> None:
+    """Every module of a subtree whose child names are the reference's."""
+    for name, child in p.items():
+        if "kernel" in child or "scale" in child:
+            _leaf(sd, f"{prefix}.{name}", child)
+        else:
+            _tree(sd, f"{prefix}.{name}", child)
+
+
 def slicenet_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     """SliceNet flax variables -> the port's (reference-named) state_dict."""
     params, stats = variables["params"], variables["batch_stats"]
     up, us = params["slices_generator"], stats["slices_generator"]
     g = "slices_generator"
     sd: Dict[str, torch.Tensor] = {}
-    enc_p, enc_s = up["encoder"], us["encoder"]
-    for ci, cb, cidx, bb, bidx in _REF_VGG_SLICES:
-        _conv(sd, f"{g}.{_BLOCKS[cb]}.{cidx}", enc_p[f"conv{ci}"])
-        _bn(sd, f"{g}.{_BLOCKS[bb]}.{bidx}", enc_p[f"bn{ci}"], enc_s[f"bn{ci}"])
+    _vgg(sd, [f"{g}.{b}" for b in _BLOCKS], up["encoder"], us["encoder"])
     sd[f"{g}.emds.weight"] = _t(up["emds"]["embedding"])
     _conv(sd, f"{g}.trans_c", up["trans_c"])
     for i in (1, 2, 3, 4):
@@ -103,4 +134,120 @@ def slicenet_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     for i in range(len(head["att_decoder"])):
         _encoder_layer(sd, f"att_decoder.layers.{i}", head["att_decoder"][f"layer{i}"])
     _dense(sd, "fc_out.0", head["fc_out"])
+    return sd
+
+
+def gtslice_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """GTSlice flax variables -> the port's (reference-named) state_dict."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _vgg(sd, [f"img_encoder.{b}" for b in _REF_BLOCKS], params["img_encoder"],
+         stats["img_encoder"])
+    head = params["head"]
+    for i, idx in enumerate((0, 2, 4)):
+        _dense(sd, f"pts_feat_extractor.{idx}", head["pts_mlp"][f"fc{i}"])
+    for i, idx in enumerate((0, 2)):
+        _dense(sd, f"fc_local.{idx}", head["fc_local"][f"fc{i}"])
+    for i in range(len(head["att_decoder"])):
+        _encoder_layer(sd, f"att_decoder.layers.{i}", head["att_decoder"][f"layer{i}"])
+    _dense(sd, "fc_out.0", head["fc_out"])
+    return sd
+
+
+# flax VAE module names -> the reference's
+_VAE_NAMES = [(r"down(\d+)_block(\d+)$", r"down.\1.block.\2"),
+              (r"down(\d+)_downsample$", r"down.\1.downsample"),
+              (r"up(\d+)_block(\d+)$", r"up.\1.block.\2"),
+              (r"up(\d+)_upsample$", r"up.\1.upsample"),
+              (r"mid_block1$", "mid.block_1"), (r"mid_attn$", "mid.attn_1"),
+              (r"mid_block2$", "mid.block_2")]
+
+
+def _key(prefix: str, name: str) -> str:
+    return f"{prefix}.{name}" if prefix else name
+
+
+def vae_state_dict(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """AutoencoderKL flax params -> reference names (``encoder.down.{i}...``)
+    under ``prefix``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for part in ("encoder", "decoder"):
+        for name, child in params[part].items():
+            ref = name
+            for pat, rep in _VAE_NAMES:
+                ref = re.sub(pat, rep, ref)
+            where = _key(prefix, f"{part}.{ref}")
+            if "kernel" in child or "scale" in child:
+                _leaf(sd, where, child)
+            else:
+                _tree(sd, where, child)
+    _conv(sd, _key(prefix, "quant_conv"), params["quant_conv"])
+    _conv(sd, _key(prefix, "post_quant_conv"), params["post_quant_conv"])
+    return sd
+
+
+_ADM_RES = {"in_norm": "in_layers.0", "in_conv": "in_layers.2",
+            "emb_proj": "emb_layers.1", "out_norm": "out_layers.0",
+            "out_conv": "out_layers.3", "skip": "skip_connection"}
+
+
+def _conv1d(sd: Dict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T[:, :, None])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def ldm_unet_state_dict(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """LDMUNet flax params -> reference ``UNetModel`` names under ``prefix``."""
+    sd: Dict[str, torch.Tensor] = {}
+    top = {"time_embed_0": "time_embed.0", "time_embed_2": "time_embed.2",
+           "out_norm": "out.0", "out_conv": "out.2"}
+    for name, child in params.items():
+        if name in top:
+            _leaf(sd, _key(prefix, top[name]), child)
+            continue
+        m = re.fullmatch(r"(input|middle|output)_(\d+)(?:_(\d+))?", name)
+        if m is None:
+            raise KeyError(f"unexpected LDMUNet module {name!r}")
+        kind, a, b = m.groups()
+        where = (_key(prefix, f"middle_block.{a}") if kind == "middle"
+                 else _key(prefix, f"{kind}_blocks.{a}.{b}"))
+        if "kernel" in child:  # input_0_0, the input conv
+            _conv(sd, where, child)
+        elif "qkv" in child:
+            _norm(sd, f"{where}.norm", child["norm"])
+            _conv1d(sd, f"{where}.qkv", child["qkv"])
+            _conv1d(sd, f"{where}.proj_out", child["proj_out"])
+        else:
+            for sub, p in child.items():
+                _leaf(sd, f"{where}.{_ADM_RES[sub]}", p)
+    return sd
+
+
+def cond_encoder_state_dict(variables: Mapping, prefix: str = "cond_stage_model"
+                            ) -> Dict[str, torch.Tensor]:
+    """CondImageEncoder flax variables -> reference ``ImageEncoderVGG16BN``
+    names (BatchNorm statistics included) under ``prefix``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _vgg(sd, [_key(prefix, b) for b in _REF_BLOCKS], params["backbone"],
+         stats["backbone"])
+    for i, name in enumerate(_TRANS):
+        if f"trans{i}" in params:
+            _conv(sd, _key(prefix, name), params[f"trans{i}"])
+    return sd
+
+
+def latent_diffusion_state_dict(variables: Mapping, scale_factor: float = 1.0
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX ``LatentDiffusion`` variables (``first_stage``, ``model``,
+    ``cond_stage``) -> the port's ``LatentDiffusion`` state_dict:
+    ``first_stage_model.*``, ``model.diffusion_model.*``,
+    ``cond_stage_model.*`` and the ``scale_factor`` buffer (kept in the JAX
+    trainer's state, not its variables, hence the argument)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = vae_state_dict(params["first_stage"], "first_stage_model")
+    sd.update(ldm_unet_state_dict(params["model"], "model.diffusion_model"))
+    sd.update(cond_encoder_state_dict({"params": params["cond_stage"],
+                                       "batch_stats": stats["cond_stage"]}))
+    sd["scale_factor"] = torch.tensor(float(scale_factor))
     return sd

@@ -1,5 +1,5 @@
-"""Shared building blocks: convolutions, inference BatchNorm, the post-LN
-transformer encoder.
+"""Shared building blocks: convolutions, inference BatchNorm, GroupNorm, the
+post-LN transformer encoder.
 
 Parameters stay fp32 and follow the activation's dtype at use, the way the
 JAX modules cast their fp32 params to the compute dtype: a bf16 input runs a
@@ -15,7 +15,7 @@ from torch import nn
 
 from ..ops.fused_encoder import fused_encoder_layer, fused_encoder_layer_ref
 
-__all__ = ["Conv2d", "ConvTranspose2d", "Linear", "BatchNorm2d",
+__all__ = ["Conv2d", "ConvTranspose2d", "Linear", "BatchNorm2d", "GroupNorm",
            "TransformerEncoderLayer", "TransformerEncoder"]
 
 
@@ -43,6 +43,14 @@ class BatchNorm2d(nn.BatchNorm2d):
         dt = x.dtype
         return F.batch_norm(x, self.running_mean.to(dt), self.running_var.to(dt),
                             self.weight.to(dt), self.bias.to(dt), False, 0.0, self.eps)
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm in the activation's dtype (statistics in fp32 inside)."""
+
+    def forward(self, x):
+        return F.group_norm(x, self.num_groups, self.weight.to(x.dtype),
+                            self.bias.to(x.dtype), self.eps)
 
 
 class _SelfAttention(nn.Module):

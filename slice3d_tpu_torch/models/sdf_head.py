@@ -1,19 +1,24 @@
 """Implicit-SDF decoding: sample the folded slice planes, attend, regress.
 
-The SliceNet head: a query-point token (``fc_p``: Linear 3 -> 128) and 12
-slice tokens (``fc_s``: Linear 992 -> 128 of the bilinearly sampled pyramid)
-pass a 3-layer, 13-token post-LN transformer; ``fc_out`` reads token 0.
+A query-point token and 12 slice tokens (a local transform of the
+bilinearly sampled pyramid) pass a 3-layer, 13-token post-LN transformer;
+``fc_out`` reads token 0.  Each model hands the head its own transforms:
 
-Fast inference path: ``fc_s`` is linear, so it commutes with bilinear
+  * SliceNet: ``fc_p`` (Linear 3 -> 128) and ``fc_s`` (Linear 992 -> 128);
+  * GTSlice: ``pts_feat_extractor`` (3 -> 32 -> 64 -> 128, ReLU after each)
+    and ``fc_local`` (1472 -> 128 -> ReLU -> 128 -> ReLU).
+
+Fast inference path: the first local Linear commutes with bilinear
 sampling.  :meth:`SDFTransformerHead.fold_pyramids` pre-multiplies each
-pyramid level by its slice of ``fc_s`` once per object, :func:`pack_planes`
-puts the 12 slices of a pixel in one row, and :func:`sample_packed_sum`
-samples and sums the 128-wide folded levels per point.
+pyramid level by its slice of that Linear once per object,
+:func:`pack_planes` puts the 12 slices of a pixel in one row,
+:func:`sample_packed_sum` samples and sums the 128-wide folded levels per
+point, and the rest of the local transform runs after sampling.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Mapping, Sequence
 
 import torch
 from torch import nn
@@ -21,7 +26,7 @@ from torch import nn
 from ..ops.hat_sample import hat_sample_sum
 from .layers import Linear, TransformerEncoder
 
-__all__ = ["pack_planes", "sample_packed_sum", "SDFTransformerHead"]
+__all__ = ["pack_planes", "sample_packed_sum", "relu_mlp", "SDFTransformerHead"]
 
 # levels with h * w at most this many rows sample through the hat matmul,
 # larger ones through four row gathers
@@ -76,45 +81,64 @@ def sample_packed_sum(packed: Sequence[torch.Tensor], uv: torch.Tensor, n_slices
     return total.reshape(b, m, n_slices, -1)
 
 
-class SDFTransformerHead(nn.Module):
-    """SliceNet's token head: [query token; slice tokens] -> SDF.
+def relu_mlp(cin: int, widths: Sequence[int]) -> nn.Sequential:
+    """Linear -> ReLU per width (Linears at indices 0, 2, 4, ...)."""
+    layers: List[nn.Module] = []
+    for w in widths:
+        layers += [Linear(cin, w), nn.ReLU()]
+        cin = w
+    return nn.Sequential(*layers)
 
-    Its parameters sit at the top of the model's ``state_dict`` (``fc_p``,
-    ``fc_s``, ``att_decoder``, ``fc_out``), as in the reference checkpoints.
+
+class SDFTransformerHead(nn.Module):
+    """The token head: [query token; slice tokens] -> SDF.
+
+    The model builds its own point and local transforms and hands them over:
+    ``nets`` maps the reference's names to those modules (registered first,
+    in that order, at the top of the model's ``state_dict``); ``point_net``
+    embeds the query point, ``local_first`` is the local transform's first
+    Linear (folded into the planes) and ``local_rest`` the rest of it, run
+    after sampling.
     """
 
-    def __init__(self, d_model: int = 128, n_layers: int = 3, n_heads: int = 4,
-                 c_local: int = 992, fused: bool = True):
+    def __init__(self, nets: Mapping[str, nn.Module], point_net: nn.Module,
+                 local_first: nn.Linear, local_rest: nn.Module, d_model: int = 128,
+                 n_layers: int = 3, n_heads: int = 4, fused: bool = True):
         super().__init__()
-        self.fc_p = Linear(3, d_model)
-        self.fc_s = Linear(c_local, d_model)
+        for name, net in nets.items():
+            self.add_module(name, net)
         self.att_decoder = TransformerEncoder(n_layers, d_model, n_heads,
                                               final_head_tokens=1, fused=fused)
         self.fc_out = nn.Sequential(Linear(d_model, 1))
+        # the roles, kept out of the module tree: their parameters are
+        # registered above under the reference's names
+        object.__setattr__(self, "point_net", point_net)
+        object.__setattr__(self, "local_first", local_first)
+        object.__setattr__(self, "local_rest", local_rest)
 
     def fold_pyramids(self, pyramids: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """(N, h, w, c_l) levels -> (N, h, w, d_model), each multiplied by its
-        slice of ``fc_s``.  The bias rides on the first level only, so the
-        sum of the sampled levels is ``fc_s(concat(levels))`` (projected
-        coords are clamped in range, so each point's bilinear weights sum
-        to 1)."""
+        slice of the first local Linear.  The bias rides on the first level
+        only, so the sum of the sampled levels is that Linear applied to
+        ``concat(levels)`` (projected coords are clamped in range, so each
+        point's bilinear weights sum to 1)."""
         outs = []
         offset = 0
         for i, p in enumerate(pyramids):
             c = p.shape[-1]
-            w_slice = self.fc_s.weight[:, offset:offset + c].to(p.dtype)
+            w_slice = self.local_first.weight[:, offset:offset + c].to(p.dtype)
             folded = torch.matmul(p, w_slice.t())
             if i == 0:
-                folded = folded + self.fc_s.bias.to(p.dtype)
+                folded = folded + self.local_first.bias.to(p.dtype)
             outs.append(folded)
             offset += c
         return outs
 
     def from_folded(self, qry: torch.Tensor, sampled_sum: torch.Tensor) -> torch.Tensor:
         """qry (B, M, 3) camera-aligned; sampled_sum (B, M, S, d) summed
-        folded samples (== fc_s of the sampled pyramid).  Returns fp32 sdf
-        (B, M); the head computes in sampled_sum's dtype."""
-        feat_q = self.fc_p(qry.to(sampled_sum.dtype))
-        tokens = torch.cat([feat_q[:, :, None, :], sampled_sum], dim=2)
+        folded samples (== the first local Linear of the sampled pyramid).
+        Returns fp32 sdf (B, M); the head computes in sampled_sum's dtype."""
+        feat_q = self.point_net(qry.to(sampled_sum.dtype))
+        tokens = torch.cat([feat_q[:, :, None, :], self.local_rest(sampled_sum)], dim=2)
         tokens = self.att_decoder(tokens)
         return self.fc_out(tokens[:, :, 0, :])[..., 0].to(torch.float32)

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from ..ops.projection import project_points
-from .layers import TransformerEncoderLayer
+from .layers import Linear, TransformerEncoderLayer
 from .sdf_head import SDFTransformerHead, pack_planes, sample_packed_sum
 from .unet_slices import SliceUNet
 
@@ -30,7 +30,9 @@ class SliceNetModel(SDFTransformerHead):
 
     def __init__(self, n_slices: int = 12, fused: bool = True,
                  dtype: Optional[torch.dtype] = None):
-        super().__init__(fused=fused)
+        fc_p, fc_s = Linear(3, 128), Linear(992, 128)
+        super().__init__({"fc_p": fc_p, "fc_s": fc_s}, point_net=fc_p, local_first=fc_s,
+                         local_rest=nn.Identity(), fused=fused)
         self.n_slices = n_slices
         self.dtype = dtype
         self.slices_generator = SliceUNet(n_slices)

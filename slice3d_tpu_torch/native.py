@@ -17,7 +17,8 @@ from typing import Dict, List, Sequence
 __all__ = ["BUILD_DIR", "nvcc_path", "build_library"]
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # guards _LOCKS
+_LOCKS: Dict[str, threading.Lock] = {}  # one per library: builds run in parallel
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # compiler output of every build made by this process (chip_smoke prints it)
 BUILD_LOG: List[str] = []
@@ -45,6 +46,8 @@ def build_library(name: str, sources: Sequence[str],
     file.
     """
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LOADED.get(name)
         if lib is not None:
             return lib

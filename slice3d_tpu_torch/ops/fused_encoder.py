@@ -90,19 +90,26 @@ def fused_encoder_layer_ref(x: torch.Tensor, params: Mapping[str, torch.Tensor],
     return out.to(dt)
 
 
-def library() -> ctypes.CDLL:
-    """Build (if stale) and load the kernel library (nvcc, sm_90a)."""
-    from ..native import build_library, nvcc_path
+_KERNEL = None  # the library's entry point, bound once per process
 
-    lib = build_library(
-        "s3d_fused_encoder", [_SRC],
-        [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"])
-    fn = lib.s3d_fused_encoder_layer
-    if fn.argtypes is None:
+
+def kernel():
+    """The kernel's C entry point: built (if stale, nvcc for sm_90a) and
+    bound on the first call, then cached, so a launch never reaches
+    ``native``."""
+    global _KERNEL
+    if _KERNEL is None:
+        from ..native import build_library, nvcc_path
+
+        lib = build_library(
+            "s3d_fused_encoder", [_SRC],
+            [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"])
+        fn = lib.s3d_fused_encoder_layer
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    return lib
+        _KERNEL = fn
+    return _KERNEL
 
 
 def fused_encoder_layer(x: torch.Tensor, params: Mapping[str, torch.Tensor], *,
@@ -151,10 +158,10 @@ def fused_encoder_layer(x: torch.Tensor, params: Mapping[str, torch.Tensor], *,
     out = torch.empty((n, t_out, d), dtype=x.dtype, device=x.device)
     if n == 0:
         return out.reshape(b, m, t_out, d)
-    lib = library()
+    launch = kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.s3d_fused_encoder_layer(
+        rc = launch(
             xf.data_ptr(),
             ws["self_attn.in_proj_weight"].data_ptr(), vs["self_attn.in_proj_bias"].data_ptr(),
             ws["self_attn.out_proj.weight"].data_ptr(), vs["self_attn.out_proj.bias"].data_ptr(),

@@ -1,11 +1,14 @@
-"""Reconstruction pipeline: one image -> SliceNet -> SDF lattice -> mesh.
+"""Reconstruction pipeline: one object -> SDF lattice -> mesh.
 
-Per object: encode once (feature pyramids folded through ``fc_s`` and packed,
-kept on the device), evaluate the dense coarse lattice, refine it level by
-level through the host-side masked refiner, extract the mesh with surface
-nets.  The coarse level runs as groups of fixed-z slabs sampled with
-separable matmuls when the projection allows it (ops/lattice_sample.py),
-else through the same per-point gather path as the refinement levels.
+Two models serve it: SliceNet (one input image, ``feed["img_input"]``) and
+GTSlice (12 slice images, ``feed["img_slices"]``, e.g. the generation
+route's sampled slices).  Per object: encode once (feature pyramids folded
+through the first local Linear and packed, kept on the device), evaluate the
+dense coarse lattice, refine it level by level through the host-side masked
+refiner, extract the mesh with surface nets.  The coarse level runs as
+groups of fixed-z slabs sampled with separable matmuls when the projection
+allows it (ops/lattice_sample.py), else through the same per-point gather
+path as the refinement levels.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 from . import resolve_device
 from .mesh import Mesh
 from .mesh.extract import MeshGenerator, extract_mesh_from_grid
+from .models.gtslice import GTSliceModel
 from .models.slicenet import SliceNetModel
 from .ops.lattice_sample import lattice_sample_sum, projection_is_separable
 from .ops.projection import project_points
@@ -30,11 +34,11 @@ _FLIP = (1.0, -1.0, -1.0)
 
 
 class Reconstructor:
-    """SliceNet reconstruction at batch 1 on one device.
+    """SliceNet or GTSlice reconstruction at batch 1 on one device.
 
     Args:
-      model: a ``SliceNetModel`` (its ``dtype`` is the compute dtype; the
-        fused encoder kernel takes bf16 on the card).
+      model: a ``SliceNetModel`` or a ``GTSliceModel`` (its ``dtype`` is the
+        compute dtype; the fused encoder kernel takes bf16 on the card).
       resolution0 / upsampling_steps / threshold / chunk_size / box_size:
         the MISE operating point; refinement levels are evaluated in chunks
         of at most ``chunk_size`` points.
@@ -45,7 +49,8 @@ class Reconstructor:
       device: where the model runs; CUDA unless the caller asks otherwise.
     """
 
-    def __init__(self, model: SliceNetModel, *, resolution0: int = 64,
+    def __init__(self, model: Union[SliceNetModel, GTSliceModel], *,
+                 resolution0: int = 64,
                  upsampling_steps: int = 2, threshold: float = 0.5,
                  chunk_size: int = 32768, box_size: float = 1.0,
                  slab_points: int = 32768, lattice_dense: bool = True,
@@ -120,16 +125,24 @@ class Reconstructor:
 
     # -- reconstruction --------------------------------------------------------
 
+    def _encode(self, feed: Dict[str, np.ndarray]) -> List[torch.Tensor]:
+        """The model's folded, packed planes of one object."""
+        if isinstance(self.model, GTSliceModel):
+            img = torch.from_numpy(np.asarray(feed["img_slices"], np.float32))[None]
+            return self.model.encode_folded(img.to(self.device))
+        img = torch.from_numpy(np.asarray(feed["img_input"], np.float32))[None]
+        return self.model.encode_folded(img.to(self.device))[0]
+
     @torch.no_grad()
     def build_grid(self, feed: Dict[str, np.ndarray]) -> Tuple[np.ndarray, Dict]:
-        """feed: ``img_input`` (H, W, 3) and ``trans_mat_wo_rot_tp`` (4, 3).
-        Returns (dense (res+1)^3 logit grid, stats)."""
+        """feed: ``trans_mat_wo_rot_tp`` (4, 3) and the model's images:
+        ``img_input`` (H, W, 3) for SliceNet, ``img_slices`` (12, H, W, 3)
+        for GTSlice.  Returns (dense (res+1)^3 logit grid, stats)."""
         trans_np = np.asarray(feed["trans_mat_wo_rot_tp"], np.float32)
-        img = torch.from_numpy(np.asarray(feed["img_input"], np.float32))[None]
         trans = torch.from_numpy(trans_np)[None].to(self.device)
         stats: Dict = {}
         t0 = time.perf_counter()
-        packed, _ = self.model.encode_folded(img.to(self.device))
+        packed = self._encode(feed)
         n0 = self.generator.resolution0
         if self.lattice_dense and projection_is_separable(trans_np):
             dense = self._dense_lattice(packed, trans)

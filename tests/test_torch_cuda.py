@@ -11,8 +11,11 @@ import pytest
 import torch
 
 from slice3d_tpu_torch.ops import fused_encoder as fe
+from slice3d_tpu_torch.ops import spatial_attention as sa
 
 D, F = 128, 2048
+# kernel vs plain spatial attention: bf16 rounding of the probabilities
+ATTN_TOL = dict(atol=1e-2, rtol=2e-2)
 
 
 def layer_params(seed, device):
@@ -69,3 +72,41 @@ def test_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError):
         fe.fused_encoder_layer(torch.zeros((1, 4, 17, D), device=card,
                                            dtype=torch.bfloat16), params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 1024, 24), (1, 2, 4096, 24),
+                                   (2, 3, 1024, 48), (1, 2, 1536, 48)],
+                         ids=["dh24-t1024", "dh24-t4096", "dh48-t1024", "dh48-t1536"])
+def test_spatial_attention_matches_plain(card, shape):
+    """bf16 kernel vs the plain version on the same bf16 inputs.  The kernel
+    rounds the unnormalised exp(s - m) to bf16 and divides at the end, the
+    plain version normalises and then rounds: they differ by bf16 rounding
+    of the probabilities, a few bf16 ulps of the output."""
+    rng = np.random.default_rng(sum(shape))
+    # q, k ~ N(0, 4): a peaked softmax with outputs of order 1
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32) * s)
+               .to(card).to(torch.bfloat16) for s in (2.0, 2.0, 1.0))
+    scale = shape[-1] ** -0.5
+    before = sa.launches
+    got = sa.spatial_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert sa.launches == before + 1
+    want = sa.spatial_attention_ref(q, k, v, scale)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL)
+
+
+@pytest.mark.cuda
+def test_spatial_attention_rejects_what_it_does_not_take(card):
+    x = torch.zeros((1, 2, 1024, 24), device=card, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):  # fp32 has no instantiation
+        sa.spatial_attention(x.float(), x.float(), x.float(), 0.2)
+    with pytest.raises(ValueError):  # ragged T
+        y = torch.zeros((1, 2, 1000, 24), device=card, dtype=torch.bfloat16)
+        sa.spatial_attention(y, y, y, 0.2)
+    with pytest.raises(ValueError):  # a head width with no instantiation
+        y = torch.zeros((1, 2, 1024, 40), device=card, dtype=torch.bfloat16)
+        sa.spatial_attention(y, y, y, 0.2)
+    with pytest.raises(ValueError):  # k on the CPU
+        sa.spatial_attention(x, x.cpu(), x, 0.2)

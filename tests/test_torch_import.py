@@ -6,13 +6,28 @@ import os
 import subprocess
 import sys
 
+import types
+
+import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
+from jax_weights import redraw
 from torch_refs import TorchSliceNetRef, randomize_bn_stats
 from slice3d_tpu.convert import torch_import
+from slice3d_tpu.models.build import init_variables
+from slice3d_tpu.models.cond_encoder import CondImageEncoder as JaxCond
+from slice3d_tpu.models.gtslice import GTSliceModel as JaxGTSlice
+from slice3d_tpu.models.ldm_unet import LDMUNet as JaxUNet
+from slice3d_tpu.models.vae import AutoencoderKL as JaxVAE
 import slice3d_tpu_torch
+from slice3d_tpu_torch import convert
 from slice3d_tpu_torch.convert import slicenet_state_dict
+from slice3d_tpu_torch.diffusion.latent import LatentDiffusion
+from slice3d_tpu_torch.models.gtslice import GTSliceModel
 from slice3d_tpu_torch.models.slicenet import init_slicenet
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -21,7 +36,8 @@ PKG = os.path.join(ROOT, "slice3d_tpu_torch")
 
 def test_import_leaves_jax_out():
     code = ("import sys, slice3d_tpu_torch, slice3d_tpu_torch.pipeline, "
-            "slice3d_tpu_torch.convert; "
+            "slice3d_tpu_torch.convert, slice3d_tpu_torch.diffusion.sampler, "
+            "slice3d_tpu_torch.models.gtslice; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'slice3d_tpu' or m.startswith('slice3d_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -75,3 +91,95 @@ def test_resolve_device_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError):
             slice3d_tpu_torch.resolve_device()
+
+
+def _flat(tree, prefix=()):
+    if hasattr(tree, "items"):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, prefix + (k,)))
+        return out
+    return {prefix: np.asarray(tree)}
+
+
+def _assert_same_tree(got, want):
+    got, want = _flat(got), _flat(want)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=str(k))
+
+
+# tiny LatentDiffusion parts: VAE, UNet (its ds-1 attention at T 1024 when the
+# atlas is 32 px), conditioner (the reference's five maps; the UNet injects
+# the first two, at blocks 0 and 3)
+VAE = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1)
+UNET = dict(model_channels=32, channel_mult=(1, 2), num_res_blocks=1, attention_ds=(1, 2))
+COND = dict(widths=(32, 64, 64, 128, 128), latent_size=8)
+
+
+def _ldm_variables():
+    vae = redraw(JaxVAE(**VAE).init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)),
+                                    None, False), 20)
+    unet = redraw(JaxUNet(**UNET, n_heads=4, fmap_inject_blocks=(0, 3)).init(
+        jax.random.PRNGKey(1), jnp.zeros((1, 32, 32, 8)), jnp.zeros((1,), jnp.int32),
+        {"f1": jnp.zeros((1, 32, 32, 32)), "f2": jnp.zeros((1, 16, 16, 64))}), 21)
+    cond = redraw(JaxCond(**COND).init(jax.random.PRNGKey(2), jnp.zeros((1, 16, 16, 3))),
+                  22)
+    return {"params": {"first_stage": vae["params"], "model": unet["params"],
+                       "cond_stage": cond["params"]},
+            "batch_stats": {"cond_stage": cond["batch_stats"]}}
+
+
+@pytest.mark.parametrize("part", ["gtslice", "vae", "unet", "cond"])
+def test_weight_bridge_round_trip_generation(part):
+    """port state_dict -> the JAX package's torch importer is the identity on
+    the variables, and the port's model takes the state_dict strictly."""
+    if part == "gtslice":
+        variables = redraw(init_variables(JaxGTSlice(), types.SimpleNamespace(
+            img_size=32, n_slices=12), seed=0), 23)
+        sd = convert.gtslice_state_dict(variables)
+        _assert_same_tree(torch_import.gtslice_model(sd), variables)
+        GTSliceModel().load_state_dict(sd)  # strict
+        return
+    variables = _ldm_variables()
+    sd = convert.latent_diffusion_state_dict(variables, scale_factor=0.5)
+    params, stats = variables["params"], variables["batch_stats"]
+    if part == "vae":
+        back = torch_import.autoencoder_kl(sd, prefix="first_stage_model", **VAE)
+        _assert_same_tree(back, {"params": params["first_stage"]})
+    elif part == "unet":
+        back = torch_import.ldm_unet(sd, "model.diffusion_model", **UNET)
+        _assert_same_tree(back, {"params": params["model"]})
+    else:
+        back = torch_import.cond_image_encoder(sd, "cond_stage_model")
+        _assert_same_tree(back, {"params": params["cond_stage"],
+                                 "batch_stats": stats["cond_stage"]})
+    ldm = LatentDiffusion(vae_ch=32, vae_mult=(1, 2), vae_nres=1, unet_channels=32,
+                          unet_mult=(1, 2), unet_nres=1, unet_attention_ds=(1, 2),
+                          unet_inject_blocks=(0, 3), cond_widths=COND["widths"],
+                          latent_size=8)
+    ldm.load_state_dict(sd)  # strict
+    assert float(ldm.scale_factor) == 0.5
+
+
+@pytest.mark.parametrize("module", ["fused_encoder", "spatial_attention"])
+def test_kernel_entry_point_is_bound_once(module, monkeypatch):
+    """A kernel wrapper resolves its library on the first launch only: later
+    launches never reach ``native`` (no compiler search, no locks)."""
+    import importlib
+
+    from slice3d_tpu_torch import native
+
+    ops = importlib.import_module(f"slice3d_tpu_torch.ops.{module}")
+    builds = []
+
+    def fake_build(name, sources, command):
+        builds.append(name)
+        return types.SimpleNamespace(s3d_fused_encoder_layer=lambda *args: 0,
+                                     s3d_spatial_attention=lambda *args: 0)
+
+    monkeypatch.setattr(native, "build_library", fake_build)
+    monkeypatch.setattr(native, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(ops, "_KERNEL", None)
+    first = ops.kernel()
+    assert ops.kernel() is first and builds == [f"s3d_{module}"]
