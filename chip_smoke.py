@@ -24,7 +24,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   6. correctness on small inputs: kernel path vs plain path on the card, and
      the card's fp32 plain path vs the CPU's (which the CPU tests hold
      against the JAX reference), for SliceNet, the sampler's atlas and
-     GTSlice.
+     GTSlice;
+  7. spatial_attention's backward kernel against its plain version at the
+     training path's shapes (through autograd), with its time beside the
+     bound, the plain version's and scaled_dot_product_attention's backward;
+  8. the training path: ``LDMTrainer`` at configs/objaverse-ldm-kl-8.yaml's
+     widths (batch 8 of seeded synthetic 128x128 images, bf16 networks on
+     fp32 master weights, AdamW at lr 4e-4, EMA, scale_by_std, train-mode
+     BatchNorm in the conditioner): ``maybe_set_scale``, 2 warm-up steps,
+     10 timed steps with the launch counts read around them (10 forward and
+     10 backward attention launches per step), the losses and peak memory,
+     then one step's gradients at batch 1 kernel path vs plain path (bf16)
+     and the fp32 plain path card vs CPU on the tiny configuration.
 The last two lines are the kernels' JSON record and the run's status JSON.
 """
 
@@ -53,6 +64,14 @@ TOL = dict(atol=2e-2, rtol=1e-2)  # bf16 outputs of LayerNorm: ~2.5 ulp
 # probabilities: a few bf16 ulps of outputs of order 1
 ATTN_TOL = dict(atol=1e-2, rtol=2e-2)
 ATTN_SHAPES = ((8, 8, 4096, 24), (8, 8, 1024, 48))  # ds 1 and ds 2 blocks, batch 8
+# backward kernel vs its plain version (dq, dk, dv), element-wise: the kernel
+# takes D = rowsum(do o) from the bf16 output where the plain version (like the
+# TPU kernel) sums rowsum(dp p) in fp32, so dS differs by ~D's rounding and its
+# bf16 rounding flips (readings on the H100 at both shapes: largest error
+# 0.047 where |p| < 1, largest err/|p| 0.037 where |p| >= 1, against |p| up to
+# 21: a few bf16 ulps; the tolerance is ~1.7x the absolute, ~1.1x the relative
+# readings)
+ATTN_BWD_TOL = dict(atol=0.08, rtol=0.04)
 # the sampler's atlas after 4 DDIM steps (eta 0, batch 1), element-wise: kernel
 # path vs plain path in bf16, where the probabilities' rounding differs inside
 # 4 UNet calls (readings on the H100: largest error 0.064 where |p| < 1 and
@@ -62,6 +81,24 @@ ATTN_SHAPES = ((8, 8, 4096, 24), (8, 8, 1024, 48))  # ds 1 and ds 2 blocks, batc
 ATLAS_TOL = dict(atol=0.2, rtol=0.01)
 ATLAS_FP32_TOL = dict(atol=1e-3, rtol=1e-3)
 GEN_BATCH, GEN_STEPS = 8, 200
+# LDM training at configs/objaverse-ldm-kl-8.yaml's widths: batch 8 of 128 px,
+# 2 warm-up steps, then the timed ones
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 10
+# one step's gradients at batch 1, kernel path vs plain path (bf16), element-wise
+# over all parameters: |k - p| <= atol G + rtol |p|, G the model's largest
+# |gradient| (both paths round the attention's probabilities and dS to bf16 at
+# other points, and a bf16 UNet's gradients carry that through every layer;
+# readings on the H100: largest error 0.0083 G, and 0.022 of the tensor's own
+# largest gradient among tensors above 0.01 G; losses 4.1e-4 apart, relative)
+GRAD_TOL = dict(atol=0.02, rtol=0.05)
+LOSS_RTOL = 2e-3
+# the fp32 plain path on the card vs the CPU, one step's gradients of the tiny
+# configuration, as above (fp32 summation order; readings: 4.5e-7 G, and 8.5e-6
+# of the tensor's own largest gradient; the losses equal)
+GRAD_FP32_TOL = dict(atol=2e-6, rtol=1e-4)
+TRAIN_TINY = dict(timesteps=20, vae_ch=32, vae_mult=(1, 2), vae_nres=1, unet_channels=32,
+                  unet_mult=(1, 2), unet_nres=1, unet_attention_ds=(1,),
+                  unet_inject_blocks=(0, 3), cond_widths=(32, 64), latent_size=8)
 
 
 def check(cond: bool, what: str) -> None:
@@ -94,13 +131,15 @@ def reset_counts() -> None:
 
     fe.launches = 0
     sa.launches = 0
+    sa.launches_bwd = 0
 
 
 def read_counts() -> dict:
     from slice3d_tpu_torch.ops import fused_encoder as fe
     from slice3d_tpu_torch.ops import spatial_attention as sa
 
-    return {"fused_encoder_layer": fe.launches, "spatial_attention": sa.launches}
+    return {"fused_encoder_layer": fe.launches, "spatial_attention": sa.launches,
+            "spatial_attention_bwd": sa.launches_bwd}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -142,7 +181,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     builds = {"fused_encoder": fe.kernel, "spatial_attention": sa.kernel,
-              "host mesh library": load_library}
+              "spatial_attention_bwd": sa.kernel_bwd, "host mesh library": load_library}
     with ThreadPoolExecutor(len(builds)) as pool:
         futs = {name: pool.submit(timed, fn) for name, fn in builds.items()}
         for name, fut in futs.items():
@@ -251,6 +290,79 @@ def phase_attention(sm_clock_hz: float):
                       "gexp": exps / 1e9, "mbytes": nbytes / 1e6})
         print(f"[kernel] spatial_attention {shape}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library (scaled_dot_product_attention) "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({flops / 1e9:.2f} GFLOP, {exps / 1e9:.4f} G exp, {nbytes / 1e6:.2f} MB)")
+    return modes
+
+
+def attention_bwd_work(shape, sm_clock_hz: float):
+    """(flops, exps, bytes, bound_ms, bound_by) of one attention backward:
+    the five products (S, dP, dV, dK, dQ: 10 T^2 DH per head) on the tensor
+    cores, one exponential per logit, q/k/v/o/do read and dq/dk/dv written
+    once (bf16) with the forward's fp32 row log-sum-exp."""
+    b, h, t, dh = shape
+    flops = 10 * b * h * t * t * dh
+    exps = b * h * t * t
+    nbytes = 8 * b * h * t * dh * 2 + 4 * b * h * t
+    times = {"operations (tensor cores)": flops / PEAK_BF16_FLOPS,
+             "operations (exponentials)": exps / (SFU_PER_CLOCK * sm_clock_hz),
+             "bytes": nbytes / PEAK_BYTES}
+    by = max(times, key=times.get)
+    return flops, exps, nbytes, times[by] * 1e3, by
+
+
+def phase_attention_bwd(sm_clock_hz: float):
+    """The backward kernel through the autograd path (``spatial_attention``
+    then ``torch.autograd.grad``) against ``spatial_attention_bwd_ref`` on the
+    same bf16 inputs, at the training path's shapes."""
+    from slice3d_tpu_torch.ops import spatial_attention as sa
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    modes = []
+    for shape in ATTN_SHAPES:
+        q, k = (2.0 * torch.randn(shape, generator=g, device="cuda") for _ in range(2))
+        v, do = (torch.randn(shape, generator=g, device="cuda") for _ in range(2))
+        q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
+        scale = shape[-1] ** -0.5
+        qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = sa.spatial_attention(*qkv, scale)
+        got = torch.autograd.grad(out, qkv, do, retain_graph=True)
+        torch.cuda.synchronize()
+        want = sa.spatial_attention_bwd_ref(q, k, v, do, scale)
+        # readings only: both against the exact gradients of the same bf16
+        # inputs (fp32 autograd of the plain forward, no rounding inside)
+        q32 = [x.float().requires_grad_() for x in (q, k, v)]
+        exact = torch.autograd.grad(sa.spatial_attention_ref(*q32, scale), q32, do.float())
+        max_err = 0.0
+        for name, a, b, e in zip(("dq", "dk", "dv"), got, want, exact):
+            check(bool(torch.isfinite(a).all()), f"spatial_attention_bwd {shape}: {name} "
+                  "not finite")
+            check_close(a, b, ATTN_BWD_TOL, f"spatial_attention_bwd {shape} {name}, kernel "
+                        "vs plain (bf16)")
+            max_err = max(max_err, (a.float() - b.float()).abs().max().item())
+            print(f"[check] spatial_attention_bwd {shape} {name} against the exact fp32 "
+                  f"gradient: kernel {(a.float() - e).abs().max().item():.6g}, plain "
+                  f"{(b.float() - e).abs().max().item():.6g}")
+        del want, exact, q32
+        # the kernel's launch wrapper alone, and through autograd as the library
+        out_k, lse = out.detach(), out.grad_fn.saved_tensors[4]
+        qc, kc, vc = (x.contiguous() for x in (q, k, v))
+        ms = cuda_ms(lambda: sa._backward_kernel(qc, kc, vc, out_k, lse, do, scale), 20)
+        autograd_ms = cuda_ms(lambda: torch.autograd.grad(out, qkv, do, retain_graph=True), 20)
+        plain_ms = cuda_ms(lambda: sa.spatial_attention_bwd_ref(q, k, v, do, scale), 3)
+        lib_out = torch.nn.functional.scaled_dot_product_attention(*qkv, scale=scale)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, qkv, do, retain_graph=True),
+                             20)
+        del out, lib_out, qkv, lse
+        flops, exps, nbytes, bound_ms, bound_by = attention_bwd_work(shape, sm_clock_hz)
+        modes.append({"shape": list(shape), "max_abs_err": max_err, "ms": ms,
+                      "autograd_ms": autograd_ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "gflop": flops / 1e9, "gexp": exps / 1e9, "mbytes": nbytes / 1e6})
+        print(f"[kernel] spatial_attention_bwd {shape}: kernel {ms:.4f} ms (through "
+              f"autograd {autograd_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, library (scaled_dot_product_attention backward, through "
+              f"autograd) "
               f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
               f"({flops / 1e9:.2f} GFLOP, {exps / 1e9:.4f} G exp, {nbytes / 1e6:.2f} MB)")
     return modes
@@ -436,13 +548,22 @@ def phase_generation():
             "objects": objects}, ldm, gts, views, feeds
 
 
+def set_fused(model, fused: bool) -> None:
+    """Send the UNet's long attention to the kernels (True) or to the plain
+    version, autograd through plain ops (False)."""
+    from slice3d_tpu_torch.models.ldm_unet import AttentionBlock
+
+    for mod in model.modules():
+        if isinstance(mod, AttentionBlock):
+            mod.fused = fused
+
+
 def phase_generation_checks(ldm, gts, views, feed):
     """Small inputs on the card: the sampler's atlas and GTSlice's logits,
     kernel path vs plain path (bf16), and the fp32 plain path card vs CPU."""
     from slice3d_tpu_torch.diffusion.latent import init_latent_diffusion
     from slice3d_tpu_torch.diffusion.sampler import sample_atlas
     from slice3d_tpu_torch.models.gtslice import init_gtslice
-    from slice3d_tpu_torch.models.ldm_unet import AttentionBlock
     from slice3d_tpu_torch.pipeline import Reconstructor
 
     rng = np.random.default_rng(6)
@@ -451,11 +572,6 @@ def phase_generation_checks(ldm, gts, views, feed):
                                                   .astype(np.float32)),
                  x_T=torch.from_numpy(rng.normal(size=(1, 64, 64, 4)).astype(np.float32)))
     view = views[:1]
-
-    def set_fused(model, fused):
-        for mod in model.modules():
-            if isinstance(mod, AttentionBlock):
-                mod.fused = fused
 
     # 1. bf16 kernel path vs bf16 plain path, same weights
     kern = sample_atlas(ldm, view, **fixed)
@@ -502,6 +618,176 @@ def phase_generation_checks(ldm, gts, views, feed):
     torch.backends.cudnn.allow_tf32 = True
 
 
+def check_grads(got: dict, want: dict, tol: dict, what: str) -> None:
+    """Element-wise over every parameter tensor: |got - want| <= atol G +
+    rtol |want|, G the largest |gradient| of the model (a tensor whose
+    gradient cancels by structure, as a conv bias right before a BatchNorm,
+    carries only rounding noise, so its own largest value is no scale).
+    Prints the readings: the largest error in units of G, and among tensors
+    whose largest gradient is at least 1% of G the largest error relative
+    to that."""
+    check(set(got) == set(want), f"{what}: different parameters carry gradients")
+    big = max(float(w.abs().max()) for w in want.values())
+    worst, worst_name, max_err, bad = 0.0, "", 0.0, 0
+    for name, w in want.items():
+        g, w = got[name].float().cpu(), w.float().cpu()
+        err, scale = (g - w).abs(), float(w.abs().max())
+        bad += int((err > tol["atol"] * big + tol["rtol"] * w.abs()).sum())
+        max_err = max(max_err, float(err.max()))
+        if scale >= 0.01 * big and float(err.max()) / scale > worst:
+            worst, worst_name = float(err.max()) / scale, name
+    print(f"[check] {what}: {len(want)} tensors, largest |gradient| G {big:.6g}, max_abs_err "
+          f"{max_err:.6g} ({max_err / big:.6g} G); among tensors whose largest gradient is "
+          f">= 0.01 G, largest error / that {worst:.6g} ({worst_name}); tolerance |k-p| <= "
+          f"{tol['atol']}*G + {tol['rtol']}*|p|, violations {bad}")
+    check(bad == 0, f"{what}: disagree")
+
+
+def train_batches(n: int, b: int, g: torch.Generator, size: int = 128):
+    """``n`` seeded synthetic batches in [-1, 1], made on the card."""
+    return [{"image": torch.rand((b, 13, size, size, 3), generator=g, device="cuda") * 2 - 1,
+             "img_ipt_view": torch.rand((b, size, size, 3), generator=g, device="cuda") * 2 - 1}
+            for _ in range(n)]
+
+
+def phase_training():
+    """LDM training at the config's widths: ``LDMTrainer`` on a bf16 model
+    (fp32 master weights, AdamW, EMA, train-mode BatchNorm in the
+    conditioner), ``maybe_set_scale``, warm-up steps, then timed steps with
+    the launch counts read around them."""
+    from slice3d_tpu_torch.diffusion.latent import init_latent_diffusion
+    from slice3d_tpu_torch.train.train_ldm import LDMTrainer
+
+    trainer = LDMTrainer(module=init_latent_diffusion(seed=0, dtype=torch.bfloat16))
+    state = trainer.init_state()
+    print(f"[train] LDMTrainer: batch {trainer.batch_size}, lr {trainer.lr:g}, "
+          f"accumulate {trainer.accumulate}, EMA {trainer.use_ema}, scale_by_std "
+          f"{trainer.scale_by_std}, learn_logvar {trainer.learn_logvar}")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    batches = train_batches(TRAIN_WARMUP + TRAIN_STEPS, TRAIN_BATCH, g)
+    trainer.maybe_set_scale(state, batches[0], g)
+    for batch in batches[:TRAIN_WARMUP]:
+        trainer.train_step(state, batch, g)
+    torch.cuda.synchronize()
+
+    ldm = state.ldm
+
+    def snap(named):
+        return {n: t.detach().clone() for n, t in named}
+
+    vae0 = snap(ldm.first_stage_model.named_parameters())
+    net0 = snap((n, p) for n, p in ldm.named_parameters() if n in state.ema)
+    ema0 = snap(state.ema.items())
+    bn0 = snap((n, b) for n, b in ldm.named_buffers()
+               if n.endswith(("running_mean", "running_var")))
+    logvar0 = state.logvar.clone()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    logs = []
+    t0 = time.perf_counter()
+    for batch in batches[TRAIN_WARMUP:]:
+        logs.append(trainer.train_step(state, batch, g)[1])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [{k: float(v) for k, v in step.items()} for step in logs]
+    print(f"[train] {TRAIN_STEPS} steps of batch {TRAIN_BATCH}: {step_ms:.4f} ms per step; "
+          f"peak memory {peak_gb:.4f} GB; launches {counts} "
+          f"({counts['spatial_attention'] / TRAIN_STEPS:g} forward and "
+          f"{counts['spatial_attention_bwd'] / TRAIN_STEPS:g} backward attention per step)")
+    for i, step in enumerate(losses):
+        print(f"[train] step {TRAIN_WARMUP + i}: " + ", ".join(
+            f"{k} {v:.6f}" for k, v in sorted(step.items())))
+    check(counts["spatial_attention"] == 10 * TRAIN_STEPS,
+          f"spatial_attention launched {counts['spatial_attention']} times, expected 10 x "
+          f"{TRAIN_STEPS}")
+    check(counts["spatial_attention_bwd"] == 10 * TRAIN_STEPS,
+          f"spatial_attention_bwd launched {counts['spatial_attention_bwd']} times, expected "
+          f"10 x {TRAIN_STEPS}")
+    check(all(np.isfinite(v) for step in losses for v in step.values()), "a loss is not finite")
+    check(all(torch.equal(p, vae0[n]) for n, p in ldm.first_stage_model.named_parameters()),
+          "the frozen VAE's parameters changed")
+    # every trained tensor moves but the conditioner's last BatchNorm, which
+    # feeds no output (weight decay alone moves a weight by < 1 fp32 ulp)
+    live = [n for n in net0 if ".conv_last." not in n]
+    params = dict(ldm.named_parameters())
+    moved = sum(not torch.equal(params[n], net0[n]) for n in live)
+    ema_moved = sum(not torch.equal(state.ema[n], ema0[n]) for n in live)
+    bn_moved = sum(not torch.equal(b, bn0[n]) for n, b in ldm.named_buffers()
+                   if n in bn0 and ".conv_last." not in n)
+    n_bn = sum(".conv_last." not in n for n in bn0)
+    print(f"[train] moved over the timed steps: {moved} / {len(live)} UNet and conditioner "
+          f"tensors, {ema_moved} / {len(live)} EMA tensors, {bn_moved} / {n_bn} BatchNorm "
+          f"statistics; logvar max |.| {float(state.logvar.abs().max()):g}")
+    check(moved == len(live), "a trained parameter did not move")
+    check(ema_moved == len(live), "the EMA did not move")
+    check(bn_moved == n_bn, "a BatchNorm's running statistics did not move")
+    check(torch.equal(state.logvar, logvar0), "logvar moved without learn_logvar")
+    return {"step_ms": step_ms, "peak_gb": peak_gb, "steps": TRAIN_STEPS,
+            "batch": TRAIN_BATCH, "losses": losses, "counts": counts}, trainer, state
+
+
+def phase_training_checks(trainer, state):
+    """Small inputs on the card: one step's gradients at batch 1, kernel path
+    vs plain path (bf16, full width), and the fp32 plain path card vs CPU on
+    the tiny configuration."""
+    from slice3d_tpu_torch.diffusion.latent import init_latent_diffusion
+    from slice3d_tpu_torch.train.train_ldm import LDMTrainer, trainable_parameters
+
+    def grads(tr, st, batch, draws):
+        st.optimizer.zero_grad(set_to_none=True)
+        logs = tr.loss_and_grads(st, batch, draws=draws)
+        return ({k: float(v) for k, v in logs.items()},
+                {n: p.grad.clone() for n, p in trainable_parameters(st.ldm).items()
+                 if p.grad is not None})
+
+    # 1. bf16, batch 1, full width: kernel path vs plain path, same weights
+    rng = np.random.default_rng(8)
+    batch = {"image": rng.uniform(-1, 1, (1, 13, 128, 128, 3)).astype(np.float32),
+             "img_ipt_view": rng.uniform(-1, 1, (1, 128, 128, 3)).astype(np.float32)}
+    draws = {"posterior_noise": rng.normal(size=(1, 13, 16, 16, 4)).astype(np.float32),
+             "t": np.array([500]), "noise": rng.normal(size=(1, 64, 64, 4)).astype(np.float32)}
+    reset_counts()
+    k_logs, kern = grads(trainer, state, batch, draws)
+    counts = read_counts()
+    check(counts["spatial_attention"] == 10 and counts["spatial_attention_bwd"] == 10,
+          f"the kernel path's step launched {counts}")
+    set_fused(state.ldm, False)
+    p_logs, plain = grads(trainer, state, batch, draws)
+    set_fused(state.ldm, True)
+    print(f"[check] training step, batch 1 (bf16): kernel path losses {k_logs}, plain path "
+          f"{p_logs}")
+    check(all(abs(k_logs[k] - p_logs[k]) <= LOSS_RTOL * abs(p_logs[k]) for k in p_logs),
+          "training step losses: kernel path and plain path disagree")
+    check_grads(kern, plain, GRAD_TOL, "training step gradients, batch 1, kernel path vs "
+                "plain path (bf16)")
+    del kern, plain
+    state.optimizer.zero_grad(set_to_none=True)
+
+    # 2. fp32 plain path: card vs CPU, tiny configuration (the CPU tests hold
+    # the CPU's against the JAX package)
+    torch.backends.cudnn.allow_tf32 = False
+    tiny = init_latent_diffusion(seed=1, fused=False, **TRAIN_TINY)
+    rng = np.random.default_rng(9)
+    batch = {"image": rng.uniform(-1, 1, (2, 13, 16, 16, 3)).astype(np.float32),
+             "img_ipt_view": rng.uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)}
+    draws = {"posterior_noise": rng.normal(size=(2, 13, 8, 8, 4)).astype(np.float32),
+             "t": np.array([3, 17]), "noise": rng.normal(size=(2, 32, 32, 4)).astype(np.float32)}
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tr = LDMTrainer(img_size=16, batch_size=2, timesteps=20, module=tiny, device=dev)
+        runs[dev] = grads(tr, tr.init_state(), batch, draws)
+    torch.backends.cudnn.allow_tf32 = True
+    (c_logs, cpu), (g_logs, gpu) = runs["cpu"], runs["cuda"]
+    print(f"[check] training step, tiny fp32: card losses {g_logs}, CPU {c_logs}")
+    check(all(abs(g_logs[k] - c_logs[k]) <= 1e-5 * abs(c_logs[k]) for k in c_logs),
+          "training step losses: card and CPU fp32 paths disagree")
+    check_grads(gpu, cpu, GRAD_FP32_TOL, "training step gradients, tiny, fp32 card vs CPU "
+                "(fp32 summation order)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -530,9 +816,14 @@ def main() -> int:
     gen, ldm, gts, views, gen_feeds = phase_generation()
     phase_correctness(model, rec, feeds[0])
     phase_generation_checks(ldm, gts, views, gen_feeds[0])
+    del ldm, gts, model, rec
+    bwd_modes = phase_attention_bwd(clock * 1e6)
+    train, trainer, state = phase_training()
+    phase_training_checks(trainer, state)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
 
-    by_path = {"regression": main_counts, "generation": gen["counts"]}
+    by_path = {"regression": main_counts, "generation": gen["counts"],
+               "training": train["counts"]}
     full = modes[0]
     encoder = {"name": "fused_encoder_layer", "route": "cuda",
                "source": "slice3d_tpu_torch/csrc/fused_encoder.cu",
@@ -556,8 +847,22 @@ def main() -> int:
                  "bound_ms": ds1["bound_ms"],
                  "bound_by": "bytes" if ds1["bound_by"] == "bytes" else "operations",
                  "library_ms": ds1["library_ms"], "modes": attn_modes}
-    print(json.dumps({"generation": {k: v for k, v in gen.items() if k != "counts"}}))
-    print(json.dumps({"kernels": [encoder, attention]}))
+    bwd1 = bwd_modes[0]
+    attention_bwd = {"name": "spatial_attention_bwd", "route": "cuda",
+                     "source": "slice3d_tpu_torch/csrc/spatial_attention_bwd.cu",
+                     "replaces": "slice3d_tpu/ops/pallas_attention.py:150",
+                     "launches": sum(c["spatial_attention_bwd"] for c in by_path.values()),
+                     "launches_by_path": {k: c["spatial_attention_bwd"]
+                                          for k, c in by_path.items()},
+                     "max_abs_err": max(m["max_abs_err"] for m in bwd_modes),
+                     "tol": f"|k-p| <= {ATTN_BWD_TOL['atol']} + {ATTN_BWD_TOL['rtol']}*|p|",
+                     "ms": bwd1["ms"], "kernel_ms": bwd1["ms"], "plain_ms": bwd1["plain_ms"],
+                     "bound_ms": bwd1["bound_ms"],
+                     "bound_by": "bytes" if bwd1["bound_by"] == "bytes" else "operations",
+                     "library_ms": bwd1["library_ms"], "modes": bwd_modes}
+    print(json.dumps({"generation": {k: v for k, v in gen.items() if k != "counts"},
+                      "training": {k: v for k, v in train.items() if k != "counts"}}))
+    print(json.dumps({"kernels": [encoder, attention, attention_bwd]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

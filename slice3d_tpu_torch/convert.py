@@ -18,14 +18,14 @@ the reference holds as a 1x1 Conv1d -> (out, in, 1); ConvTranspose
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 __all__ = ["slicenet_state_dict", "gtslice_state_dict", "vae_state_dict",
            "ldm_unet_state_dict", "cond_encoder_state_dict",
-           "latent_diffusion_state_dict"]
+           "latent_diffusion_state_dict", "ldm_train_payload"]
 
 # (conv index, conv block, conv child, bn block, bn child) of the reference's
 # sliced VGG16-BN: blocks are features[:4] [4:11] [11:21] [21:31] [31:41]
@@ -66,8 +66,11 @@ def _norm(sd: Dict, prefix: str, p: Mapping) -> None:
     sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
-def _bn(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
+def _bn(sd: Dict, prefix: str, p: Mapping, s: Optional[Mapping]) -> None:
+    """BatchNorm parameters, and its statistics unless ``s`` is None."""
     _norm(sd, prefix, p)
+    if s is None:
+        return
     sd[f"{prefix}.running_mean"] = _t(s["mean"])
     sd[f"{prefix}.running_var"] = _t(s["var"])
     sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
@@ -83,11 +86,12 @@ def _encoder_layer(sd: Dict, prefix: str, p: Mapping) -> None:
     _norm(sd, f"{prefix}.norm2", p["norm2"])
 
 
-def _vgg(sd: Dict, blocks: Sequence[str], p: Mapping, s: Mapping) -> None:
-    """A VGG16BNBackbone subtree (conv0..12, bn0..12) under six block names."""
+def _vgg(sd: Dict, blocks: Sequence[str], p: Mapping, s: Optional[Mapping]) -> None:
+    """A VGG16BNBackbone subtree (conv0..12, bn0..12) under six block names
+    (without BatchNorm statistics when ``s`` is None)."""
     for ci, cb, cidx, bb, bidx in _REF_VGG_SLICES:
         _conv(sd, f"{blocks[cb]}.{cidx}", p[f"conv{ci}"])
-        _bn(sd, f"{blocks[bb]}.{bidx}", p[f"bn{ci}"], s[f"bn{ci}"])
+        _bn(sd, f"{blocks[bb]}.{bidx}", p[f"bn{ci}"], None if s is None else s[f"bn{ci}"])
 
 
 def _leaf(sd: Dict, prefix: str, p: Mapping) -> None:
@@ -226,11 +230,12 @@ def ldm_unet_state_dict(params: Mapping, prefix: str = "") -> Dict[str, torch.Te
 def cond_encoder_state_dict(variables: Mapping, prefix: str = "cond_stage_model"
                             ) -> Dict[str, torch.Tensor]:
     """CondImageEncoder flax variables -> reference ``ImageEncoderVGG16BN``
-    names (BatchNorm statistics included) under ``prefix``."""
-    params, stats = variables["params"], variables["batch_stats"]
+    names under ``prefix`` (BatchNorm statistics included when the variables
+    have ``batch_stats``)."""
+    params, stats = variables["params"], variables.get("batch_stats")
     sd: Dict[str, torch.Tensor] = {}
     _vgg(sd, [_key(prefix, b) for b in _REF_BLOCKS], params["backbone"],
-         stats["backbone"])
+         None if stats is None else stats["backbone"])
     for i, name in enumerate(_TRANS):
         if f"trans{i}" in params:
             _conv(sd, _key(prefix, name), params[f"trans{i}"])
@@ -251,3 +256,19 @@ def latent_diffusion_state_dict(variables: Mapping, scale_factor: float = 1.0
                                        "batch_stats": stats["cond_stage"]}))
     sd["scale_factor"] = torch.tensor(float(scale_factor))
     return sd
+
+
+def ldm_train_payload(params: Mapping, batch_stats: Mapping, ema_params: Mapping,
+                      logvar, scale_factor: float, step: int = 0) -> Dict:
+    """The JAX ``LDMTrainState``'s ``params``, ``batch_stats``, ``ema_params``
+    (``{"model", "cond_stage"}``), ``logvar`` and ``scale_factor`` (numpy
+    trees) -> the port trainer's payload (``LDMTrainer.load_payload``): the
+    model's state_dict with the BatchNorm running statistics and
+    ``scale_factor``, the EMA by parameter name (the UNet's and the
+    conditioner's parameters, no statistics), ``logvar`` and the step.  The
+    optimizer state is not carried: AdamW starts fresh."""
+    model = latent_diffusion_state_dict({"params": params, "batch_stats": batch_stats},
+                                        scale_factor)
+    ema = ldm_unet_state_dict(ema_params["model"], "model.diffusion_model")
+    ema.update(cond_encoder_state_dict({"params": ema_params["cond_stage"]}))
+    return {"model": model, "ema": ema, "logvar": _t(logvar), "step": int(step)}

@@ -31,7 +31,10 @@
 //     one ex2.approx per logit; P's accumulator layout is repacked to bf16 A
 //     fragments in registers (no shared-memory round trip) for P.V, whose B
 //     fragments come from ldmatrix.trans of the V tile;
-//   * the row sums are reduced across the lane quad and divided out at the end.
+//   * the row sums are reduced across the lane quad and divided out at the end;
+//     when asked (the autograd path), the row's log-sum-exp in log2 units,
+//     L = m + log2(l), is written in fp32 for the backward
+//     (csrc/spatial_attention_bwd.cu), which recomputes P = exp2(S c - L).
 //
 // Only bf16 q/k/v are taken, with T a multiple of 64 and DH 24 or 48 (the UNet's);
 // the Python wrapper (slice3d_tpu_torch/ops/spatial_attention.py) raises on
@@ -115,8 +118,8 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
 template <int DH>
 __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int t,
-    float scale_log2) {
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int t, float scale_log2) {
   constexpr int DP = (DH + 15) / 16 * 16;  // k-padded width for Q K^T
   constexpr int LD = DP + 8;                // shared row stride (bank-conflict free)
   constexpr int KS = DP / 16;               // k16 steps of Q K^T
@@ -263,6 +266,7 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.f / l;
     const int row = q0 + warp * 16 + g + 8 * half;
+    if (lse != nullptr && t4 == 0) lse[size_t(bh) * t + row] = m_run[half] + log2f(l);
     __nv_bfloat16* dst = out + (size_t(bh) * t + row) * DH;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -273,14 +277,14 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* out, int bh, int t,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+           int t, float scale, cudaStream_t stream) {
   const float log2e = 1.4426950408889634f;
   const dim3 grid(unsigned(bh) * unsigned(t / BQ));
   attention_fwd_kernel<DH><<<grid, THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), t,
-      scale * log2e);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse,
+      t, scale * log2e);
   return int(cudaGetLastError());
 }
 
@@ -288,15 +292,17 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh, int t
 
 extern "C" {
 
-// q, k, v, out: contiguous bf16 (bh, t, dh).  Returns 0 on success, the
-// cudaError_t of the launch, or -1 for a shape the kernel does not take.
-int s3d_spatial_attention(const void* q, const void* k, const void* v, void* out, int bh,
-                          int t, int dh, float scale, void* stream) {
+// q, k, v, out: contiguous bf16 (bh, t, dh); lse: fp32 (bh, t) or null (the
+// rows' log-sum-exp of S * scale in log2 units, written only when given).
+// Returns 0 on success, the cudaError_t of the launch, or -1 for a shape the
+// kernel does not take.
+int s3d_spatial_attention(const void* q, const void* k, const void* v, void* out, void* lse,
+                          int bh, int t, int dh, float scale, void* stream) {
   if (bh <= 0 || t <= 0 || t % BQ != 0 || t % BK != 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 24: return launch<24>(q, k, v, out, bh, t, scale, s);
-    case 48: return launch<48>(q, k, v, out, bh, t, scale, s);
+    case 24: return launch<24>(q, k, v, out, static_cast<float*>(lse), bh, t, scale, s);
+    case 48: return launch<48>(q, k, v, out, static_cast<float*>(lse), bh, t, scale, s);
     default: return -1;
   }
 }

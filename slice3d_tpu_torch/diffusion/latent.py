@@ -1,4 +1,4 @@
-"""LatentDiffusion: the Slice3D slice-generation model, inference methods.
+"""LatentDiffusion: the Slice3D slice-generation model and its training loss.
 
 The reference ``LatentDiffusion`` at the Slice3D operating point: a frozen
 kl-f8 VAE encodes images to latents, the 12 slice latents tile into a 4x4
@@ -8,7 +8,8 @@ names are the reference's: ``first_stage_model.*``,
 ``model.diffusion_model.*``, ``cond_stage_model.*`` and the ``scale_factor``
 buffer (a reference checkpoint also carries schedule buffers, ``logvar``
 and ``model_ema.*``, which inference does not read: load it with
-``strict=False``).
+``strict=False``).  ``p_losses`` is the eps-prediction loss of training
+(``slice3d_tpu/diffusion/latent.py::p_losses``).
 """
 
 from __future__ import annotations
@@ -22,10 +23,10 @@ from ..models.cond_encoder import CondImageEncoder
 from ..models.ldm_unet import LDMUNet
 from ..models.random_init import random_init_
 from ..models.vae import AutoencoderKL, DiagonalGaussian
-from ..ops.atlas import untile_atlas
+from ..ops.atlas import tile_slices_to_atlas, untile_atlas
 from .schedule import DiffusionSchedule
 
-__all__ = ["LatentDiffusion", "derived_inject", "init_latent_diffusion"]
+__all__ = ["LatentDiffusion", "derived_inject", "init_latent_diffusion", "p_losses"]
 
 
 def derived_inject(unet_channels: int, unet_mult: Sequence[int], unet_nres: int
@@ -116,17 +117,67 @@ class LatentDiffusion(nn.Module):
 
     # -- conditioning and denoiser --------------------------------------------
 
-    def build_cond(self, z13: torch.Tensor, img_input: torch.Tensor) -> Dict:
+    def build_cond(self, z13: torch.Tensor, img_input: torch.Tensor,
+                   train: Optional[bool] = None) -> Dict:
         """z13 (B, K, h, w, 4) unscaled latents whose LAST tile is the input
-        view's (tile 12 of the reference's 13); img_input (B, H, W, 3)."""
-        fmaps = self.cond_stage_model(img_input)
+        view's (tile 12 of the reference's 13); img_input (B, H, W, 3).
+        ``train=True`` runs the conditioner's BatchNorms on batch statistics
+        and updates their running statistics (the reference trains the
+        conditioner in train mode); None follows the modules' mode."""
+        fmaps = self.cond_stage_model(img_input, train)
         c_concat = (z13[:, -1] * self.scale_factor).repeat(1, 4, 4, 1)
         return {"c_concat": c_concat, "c_fmaps": fmaps}
+
+    def make_atlas(self, z13: torch.Tensor) -> torch.Tensor:
+        """(B, 13, h, w, 4) unscaled latents -> the scaled (B, 4h, 4w, 4)
+        atlas of the 12 slices: the diffusion target."""
+        return tile_slices_to_atlas(z13[:, :12] * self.scale_factor)
 
     def apply_model(self, x: torch.Tensor, t: torch.Tensor, cond: Dict) -> torch.Tensor:
         """x (B, 4h, 4w, 4) noisy atlas, t (B,) -> predicted noise, fp32."""
         xc = torch.cat([x, cond["c_concat"].to(x.dtype)], dim=-1)
         return self.model.diffusion_model(xc, t, cond["c_fmaps"])
+
+
+def p_losses(ldm: LatentDiffusion, schedule: DiffusionSchedule, x_start: torch.Tensor,
+             cond: Dict, *, logvar: Optional[torch.Tensor] = None, loss_type: str = "l1",
+             t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None, l_simple_weight: float = 1.0,
+             original_elbo_weight: float = 0.0) -> Tuple[torch.Tensor, Dict]:
+    """Eps-prediction loss with the logvar weighting (reference
+    ddpm.py:1116-1149): x_start (B, 4h, 4w, 4) the clean atlas.
+
+    ``t`` (B,) uniform in [0, T) and ``noise`` (x_start's shape, Gaussian) are
+    drawn from ``generator`` (t first) unless given.  Returns the loss and
+    the logs ``loss``, ``loss_simple`` and ``loss_vlb`` (0-d tensors)."""
+    b, dev = x_start.shape[0], x_start.device
+    if t is None:
+        t = torch.randint(0, schedule.num_timesteps, (b,), generator=generator, device=dev)
+    if noise is None:
+        noise = torch.randn(x_start.shape, generator=generator, device=dev,
+                            dtype=x_start.dtype)
+    t = t.to(dev, torch.long)
+
+    def table(a):
+        return torch.from_numpy(a).to(dev)[t]
+
+    x_noisy = (table(schedule.sqrt_alphas_cumprod)[:, None, None, None] * x_start
+               + table(schedule.sqrt_one_minus_alphas_cumprod)[:, None, None, None] * noise)
+    model_out = ldm.apply_model(x_noisy, t, cond)
+    err = (model_out - noise).abs() if loss_type == "l1" else (model_out - noise) ** 2
+    loss_simple = err.mean((1, 2, 3))
+    logs = {"loss_simple": loss_simple.mean()}
+    if logvar is not None:
+        lv = logvar[t]
+        loss = loss_simple / torch.exp(lv) + lv
+    else:
+        loss = loss_simple
+    loss = l_simple_weight * loss.mean()
+    lvlb = (table(schedule.lvlb_weights) * loss_simple).mean()
+    logs["loss_vlb"] = lvlb
+    loss = loss + original_elbo_weight * lvlb
+    logs["loss"] = loss
+    return loss, logs
 
 
 def init_latent_diffusion(seed: int = 0, generator: Optional[torch.Generator] = None,

@@ -5,7 +5,8 @@ view (ImageNet-renormalised), 1x1-projected to the UNet's level widths
 (192/384/384/768/768 at the operating point), nearest-resized to 16/8/4/2/1
 px and tiled 4x4 to match the latent atlas.  Parameter names are the
 reference's (``conv1_2 .. conv_last`` VGG blocks, ``trans1_2 .. trans5_3``),
-the ones ``torch_import.cond_image_encoder`` reads.  Inference BatchNorm.
+the ones ``torch_import.cond_image_encoder`` reads.  The conditioner is
+trained with the UNet, its BatchNorms on batch statistics (``train=True``).
 """
 
 from __future__ import annotations
@@ -38,11 +39,14 @@ class CondImageEncoder(VGG16BNBackbone):
         for name, cin, cout in zip(TRANS_NAMES, _TAP_WIDTHS, self.widths):
             setattr(self, name, Conv2d(cin, cout, 1))
 
-    def forward(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, img: torch.Tensor, train: Optional[bool] = None
+                ) -> Dict[str, torch.Tensor]:
         """img (B, H, W, 3) in [-1, 1] -> {'f1', ...} (B, 4s, 4s, width) with
-        s = max(latent_size >> i, 1)."""
+        s = max(latent_size >> i, 1).  ``train``: the BatchNorms' mode, as
+        :meth:`VGG16BNBackbone.forward` (the JAX ``CondImageEncoder``'s
+        ``train`` argument)."""
         x = imagenet_renorm(img).permute(0, 3, 1, 2)
-        taps = super().forward(x.to(self.dtype or x.dtype).contiguous())
+        taps = super().forward(x.to(self.dtype or x.dtype).contiguous(), train)
         out = {}
         for i, (tap, name) in enumerate(zip(taps, TRANS_NAMES[:len(self.widths)])):
             size = max(self.latent_size >> i, 1)

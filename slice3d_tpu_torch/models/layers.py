@@ -1,5 +1,5 @@
-"""Shared building blocks: convolutions, inference BatchNorm, GroupNorm, the
-post-LN transformer encoder.
+"""Shared building blocks: convolutions, BatchNorm, GroupNorm, the post-LN
+transformer encoder.
 
 Parameters stay fp32 and follow the activation's dtype at use, the way the
 JAX modules cast their fp32 params to the compute dtype: a bf16 input runs a
@@ -8,6 +8,8 @@ reference ``state_dict``s load as they are.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -37,12 +39,30 @@ class Linear(nn.Linear):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Inference BatchNorm (running statistics, eps 1e-5)."""
+    """BatchNorm with eps 1e-5, as flax's ``BatchNorm`` in the JAX package.
 
-    def forward(self, x):
+    ``train`` (default: ``self.training``) normalises with the batch's fp32
+    mean and biased variance, ``E[x^2] - E[x]^2`` clipped at 0, and moves
+    the running statistics towards them by ``momentum`` (0.1: flax's 0.9),
+    the variance biased too (torch's own BatchNorm keeps the unbiased one).
+    Otherwise the running statistics normalise."""
+
+    def forward(self, x, train: Optional[bool] = None):
         dt = x.dtype
-        return F.batch_norm(x, self.running_mean.to(dt), self.running_var.to(dt),
-                            self.weight.to(dt), self.bias.to(dt), False, 0.0, self.eps)
+        if not (self.training if train is None else train):
+            return F.batch_norm(x, self.running_mean.to(dt), self.running_var.to(dt),
+                                self.weight.to(dt), self.bias.to(dt), False, 0.0, self.eps)
+        xf = x.to(torch.promote_types(dt, torch.float32))
+        mean = xf.mean((0, 2, 3))
+        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
+            self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(dt)
 
 
 class GroupNorm(nn.GroupNorm):

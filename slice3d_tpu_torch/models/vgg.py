@@ -15,7 +15,7 @@ conv4_3, conv5_3, conv_last``.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -66,9 +66,13 @@ class VGG16BNBackbone(nn.Module):
         for name, a, b in zip(self.block_names, _CUTS[:-1], _CUTS[1:]):
             setattr(self, name, feats[a:b])
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: Optional[bool] = None) -> List[torch.Tensor]:
+        """``train`` runs the BatchNorms on batch statistics and updates their
+        running statistics (True) or on the running statistics (False); None
+        follows each BatchNorm's ``training`` flag."""
         taps = []
         for name in self.block_names[:5]:
-            x = getattr(self, name)(x)
+            for layer in getattr(self, name):
+                x = layer(x, train) if isinstance(layer, BatchNorm2d) else layer(x)
             taps.append(x)
         return taps

@@ -112,20 +112,34 @@ def kernel():
     return _KERNEL
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the kernel), False for a CPU one (the plain
+    version); any other device raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_encoder_layer: unsupported device {x.device}")
+    return x.device.type == "cuda"
+
+
 def fused_encoder_layer(x: torch.Tensor, params: Mapping[str, torch.Tensor], *,
                         n_heads: int = 4, head_tokens: int = 0) -> torch.Tensor:
     """x: (B, M, T, D) -> (B, M, T_out, D).
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the kernel,
     which needs bf16 x, D = 128, 4 heads, T <= 16, F a multiple of 64 and
-    head_tokens in {0, 1}; anything else raises.
+    head_tokens in {0, 1}; anything else raises.  The kernel has no backward:
+    with grad mode on and x or a weight that requires grad it raises rather
+    than return a tensor cut from the graph.
     """
     global launches
-    if x.device.type == "cpu":
+    if not _on_card(x):
         return fused_encoder_layer_ref(x, params, n_heads=n_heads,
                                        head_tokens=head_tokens)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_encoder_layer: unsupported device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or any(p.requires_grad for p in params.values())):
+        raise RuntimeError("fused_encoder_layer kernel is inference only (it has no "
+                           "backward, like the TPU kernel it replaces): run it under "
+                           "torch.no_grad(), or build the layer with fused=False to "
+                           "train through the plain version")
     b, m, t, d = x.shape
     f = params["linear1.weight"].shape[0]
     if x.dtype != torch.bfloat16:

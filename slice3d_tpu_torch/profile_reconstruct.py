@@ -19,6 +19,13 @@ import numpy as np
 import torch
 
 
+def device_kernels(prof) -> list:
+    """A trace's kernels on the card (not the GPU-side user annotations, such
+    as ``Optimizer.step``, whose spans cover idle time too)."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+
+
 def _busy_us(events) -> float:
     """Union of device kernel intervals, in microseconds."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -68,8 +75,7 @@ def main(argv=None) -> int:
             _, stats = rec.reconstruct(feed)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy_s = _busy_us(kernels) / 1e6 / args.requests
     wall = float(np.mean(walls))
     by_name = {}

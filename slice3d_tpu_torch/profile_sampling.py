@@ -21,7 +21,7 @@ import time
 import numpy as np
 import torch
 
-from .profile_reconstruct import _busy_us
+from .profile_reconstruct import _busy_us, device_kernels
 
 BATCH = 8  # the operating point's batch of views
 
@@ -42,6 +42,32 @@ def category(name: str) -> str:
         if any(k in low for k in keys):
             return cat
     return "elementwise / other"
+
+
+def report(prof, wall: float, steps: int, categorize, top: int, what: str) -> None:
+    """Print a trace's device time per step by category and by kernel, the
+    card's busy time and idle share against ``wall`` seconds per step, and
+    one JSON line of them."""
+    kernels = device_kernels(prof)
+    busy = _busy_us(kernels) / 1e6 / steps
+    by_name, by_cat = {}, {}
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        by_cat[categorize(e.name)] = by_cat.get(categorize(e.name), 0.0) + us
+    total = sum(by_name.values())
+    print(f"[profile] {torch.cuda.get_device_name(0)}; {what}")
+    print(f"[profile] wall {wall * 1e3:.3f} ms/step, device busy {busy * 1e3:.3f} ms/step, "
+          f"idle share {1 - busy / wall:.4f}")
+    for cat, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
+        print(f"[profile] {us / 1e3 / steps:9.3f} ms/step {us / total:6.1%}  {cat}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"[profile] {us / 1e3 / steps:9.3f} ms/step {us / total:6.1%}  "
+              f"[{categorize(name)}] {name[:80]}")
+    print(json.dumps({"wall_ms_per_step": wall * 1e3, "busy_ms_per_step": busy * 1e3,
+                      "idle_share": 1 - busy / wall,
+                      "category_ms_per_step": {c: us / 1e3 / steps
+                                               for c, us in by_cat.items()}}))
 
 
 def main(argv=None) -> int:
@@ -77,28 +103,8 @@ def main(argv=None) -> int:
             ddim_sample(eps_fn, params, shape, generator=g, device=views.device)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / args.steps
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = _busy_us(kernels) / 1e6 / args.steps
-    by_name, by_cat = {}, {}
-    for e in kernels:
-        us = e.time_range.elapsed_us()
-        by_name[e.name] = by_name.get(e.name, 0.0) + us
-        by_cat[category(e.name)] = by_cat.get(category(e.name), 0.0) + us
-    total = sum(by_name.values())
-    print(f"[profile] {torch.cuda.get_device_name(0)}; batch {BATCH}, "
-          f"{args.steps} DDIM steps")
-    print(f"[profile] wall {wall * 1e3:.3f} ms/step, device busy {busy * 1e3:.3f} ms/step, "
-          f"idle share {1 - busy / wall:.4f}")
-    for cat, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
-        print(f"[profile] {us / 1e3 / args.steps:9.3f} ms/step {us / total:6.1%}  {cat}")
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1])[:args.top]
-    for name, us in rows:
-        print(f"[profile] {us / 1e3 / args.steps:9.3f} ms/step {us / total:6.1%}  "
-              f"[{category(name)}] {name[:80]}")
-    print(json.dumps({"wall_ms_per_step": wall * 1e3, "busy_ms_per_step": busy * 1e3,
-                      "idle_share": 1 - busy / wall,
-                      "category_ms_per_step": {c: us / 1e3 / args.steps
-                                               for c, us in by_cat.items()}}))
+    report(prof, wall, args.steps, category, args.top,
+           f"batch {BATCH}, {args.steps} DDIM steps")
     return 0
 
 

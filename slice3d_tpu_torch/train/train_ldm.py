@@ -1,0 +1,295 @@
+"""LDM training: the generation route's denoiser and conditioner learn the slices.
+
+The JAX package's ``LDMTrainer`` (``slice3d_tpu/train/train_ldm.py:54-301,
+537-569``; reference ddpm.py:343-365, 571-586, 971-983, 1420-1442).  Per
+step the frozen kl-f8 VAE encodes the 13 images (12 slices and the input
+view) with no gradient, the 12 slice latents tile into the scaled atlas, the
+VGG16-BN conditioner encodes the input view with its BatchNorms on batch
+statistics, and the UNet learns eps-prediction under L1 (``p_losses``).
+AdamW (optax's defaults: b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4)
+updates the UNet and the conditioner, and ``logvar`` when it is learned; an
+EMA of the same parameters (not the BatchNorm statistics) follows each
+update.  ``scale_by_std`` sets the latents' scale factor to 1/std from the
+first batch.  The LR is ``accumulate * bs * base_lr`` on one card
+(``scale_lr``), times the ``scheduler_config`` multiplier.
+
+Differences from the JAX package, on purpose:
+
+* ``logvar`` stays fixed unless ``learn_logvar``: the JAX trainer masks it
+  out of AdamW with ``optax.masked``, which passes the raw gradient through
+  for masked leaves, so there ``logvar`` moves by its gradient every step.
+  The reference keeps it fixed (ddpm.py:1420-1429).
+* The state is updated in place (parameters, optimizer, EMA, BatchNorm
+  statistics): the JAX package returns a new state each step.
+* The conditioner's last BatchNorm (``conv_last.0``, after the fifth tap)
+  feeds no output and does not run, so its running statistics stay where
+  they are; the JAX backbone runs it and moves them.
+
+Networks compute in the module's dtype (bf16 on the card) from fp32 master
+weights, so the gradients, AdamW's state and the EMA are fp32.  Each step's
+random draws (posterior noise, then t, then the noise) come from the
+caller's ``torch.Generator`` or are handed in (``draws``), so a test can
+replay the JAX package's.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+from dataclasses import dataclass
+from typing import Any, Dict, Mapping, Optional, Union
+
+import torch
+
+from .. import resolve_device
+from ..diffusion.latent import LatentDiffusion, init_latent_diffusion, p_losses
+from ..diffusion.sampler import sample_slices
+from ..diffusion.schedule import DiffusionSchedule
+from ..models.ema import ema_update
+from .checkpoint import restore_checkpoint, save_checkpoint
+from .lr_schedules import from_scheduler_config
+
+__all__ = ["LDMTrainState", "LDMTrainer", "TRAINABLE_PREFIXES"]
+
+# the trained subtrees: the UNet and the conditioner (the VAE is frozen)
+TRAINABLE_PREFIXES = ("model.", "cond_stage_model.")
+WEIGHT_DECAY = 1e-4  # optax.adamw's default, which the JAX package runs (torch's is 0.01)
+
+
+@dataclass
+class LDMTrainState:
+    """What a training run carries: the model (weights, BatchNorm statistics
+    and ``scale_factor``), AdamW, the EMA of the trainable parameters (fp32,
+    by name), the (T,) ``logvar`` and the number of micro-steps taken."""
+
+    ldm: LatentDiffusion
+    optimizer: torch.optim.AdamW
+    ema: Dict[str, torch.Tensor]
+    logvar: torch.Tensor
+    step: int = 0
+
+
+def trainable_parameters(ldm: LatentDiffusion) -> Dict[str, torch.nn.Parameter]:
+    """The UNet's and the conditioner's parameters, by name."""
+    return {n: p for n, p in ldm.named_parameters() if n.startswith(TRAINABLE_PREFIXES)}
+
+
+class LDMTrainer:
+    """Train a ``LatentDiffusion`` on batches of ``image`` (B, 13, H, W, 3) and
+    ``img_ipt_view`` (B, H, W, 3) in [-1, 1].
+
+    ``module``: the model to train (copied by :meth:`init_state`); without
+    it :meth:`init_state` draws one with ``init_latent_diffusion`` at the
+    128 px operating point.  Runs on CUDA unless ``device`` says otherwise.
+    """
+
+    def __init__(self, *, img_size: int = 128, batch_size: int = 8, base_lr: float = 5e-5,
+                 scale_lr: bool = True, timesteps: int = 1000, linear_start: float = 0.0015,
+                 linear_end: float = 0.0155, loss_type: str = "l1", use_ema: bool = True,
+                 scale_by_std: bool = True, accumulate: int = 1,
+                 module: Optional[LatentDiffusion] = None,
+                 scheduler_config: Optional[Dict[str, Any]] = None,
+                 learn_logvar: bool = False, cond_train_bn: bool = True,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.device = resolve_device(device)
+        self.module = module
+        self.img_size = img_size
+        self.batch_size = batch_size
+        self.timesteps = timesteps
+        self.linear_start = linear_start
+        self.linear_end = linear_end
+        self.schedule = DiffusionSchedule.create(timesteps, "linear", linear_start, linear_end)
+        self.loss_type = loss_type
+        self.use_ema = use_ema
+        self.scale_by_std = scale_by_std
+        self.accumulate = int(accumulate)
+        self.learn_logvar = learn_logvar
+        self.cond_train_bn = cond_train_bn
+        # one card: accumulate * 1 * bs * base_lr
+        self.lr = accumulate * batch_size * base_lr if scale_lr else base_lr
+        self.lr_multiplier = from_scheduler_config(scheduler_config)
+
+    # -- state ------------------------------------------------------------------
+
+    def init_state(self, seed: int = 0) -> LDMTrainState:
+        """A fresh state on the trainer's device: a copy of ``module`` (or a
+        model drawn from ``seed``), the VAE frozen, AdamW over the trainable
+        parameters (and ``logvar`` when learned), the EMA a copy of them,
+        ``logvar`` zero."""
+        if self.module is not None:
+            ldm = copy.deepcopy(self.module)
+        else:
+            ldm = init_latent_diffusion(seed, timesteps=self.timesteps,
+                                        linear_start=self.linear_start,
+                                        linear_end=self.linear_end,
+                                        latent_size=self.img_size // 8)
+        ldm = ldm.to(self.device).eval()
+        ldm.first_stage_model.requires_grad_(False)
+        params = trainable_parameters(ldm)
+        logvar = torch.zeros(self.timesteps, dtype=torch.float32, device=self.device)
+        if self.learn_logvar:
+            logvar = torch.nn.Parameter(logvar)
+        group = list(params.values()) + ([logvar] if self.learn_logvar else [])
+        optimizer = torch.optim.AdamW(group, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
+                                      weight_decay=WEIGHT_DECAY)
+        ema = ({n: p.detach().to(torch.float32).clone() for n, p in params.items()}
+               if self.use_ema else {})
+        return LDMTrainState(ldm=ldm, optimizer=optimizer, ema=ema, logvar=logvar)
+
+    def current_lr(self, update: int) -> float:
+        """The LR of optimizer update number ``update`` (0-based)."""
+        if self.lr_multiplier is None:
+            return float(self.lr)
+        return float(self.lr * self.lr_multiplier(update))
+
+    # -- batches and draws -------------------------------------------------------
+
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32).to(self.device)
+
+    def _encode(self, state: LDMTrainState, images: torch.Tensor,
+                noise: Optional[torch.Tensor], generator: Optional[torch.Generator]
+                ) -> torch.Tensor:
+        with torch.no_grad():
+            return state.ldm.encode_images(
+                images, noise=None if noise is None else self._tensor(noise),
+                generator=generator)
+
+    def maybe_set_scale(self, state: LDMTrainState, batch: Mapping[str, Any],
+                        generator: Optional[torch.Generator] = None, *,
+                        noise: Optional[torch.Tensor] = None) -> LDMTrainState:
+        """Before the first step with ``scale_by_std``: ``scale_factor`` =
+        1 / std of the batch's sampled latents (biased std, as ``jnp.std``);
+        the posterior noise from ``generator`` or ``noise`` (B, 13, h, w, 4)."""
+        if not self.scale_by_std or state.step > 0:
+            return state
+        z = self._encode(state, self._tensor(batch["image"]), noise, generator)
+        scale = 1.0 / z.std(correction=0)
+        state.ldm.scale_factor.copy_(scale)
+        print(f"### USING STD-RESCALING: scale_factor = {float(scale):.6f} ###")
+        return state
+
+    def _loss(self, state: LDMTrainState, batch: Mapping[str, Any], *, cond_train: bool,
+              generator: Optional[torch.Generator], draws: Optional[Mapping[str, Any]]):
+        draws = draws or {}
+        ldm = state.ldm
+        z13 = self._encode(state, self._tensor(batch["image"]), draws.get("posterior_noise"),
+                           generator)
+        cond = ldm.build_cond(z13, self._tensor(batch["img_ipt_view"]), train=cond_train)
+        t, noise = draws.get("t"), draws.get("noise")
+        return p_losses(ldm, self.schedule, ldm.make_atlas(z13), cond, logvar=state.logvar,
+                        loss_type=self.loss_type,
+                        t=None if t is None else torch.as_tensor(t).to(self.device),
+                        noise=None if noise is None else self._tensor(noise),
+                        generator=generator)
+
+    # -- steps --------------------------------------------------------------------
+
+    def loss_and_grads(self, state: LDMTrainState, batch: Mapping[str, Any],
+                       generator: Optional[torch.Generator] = None, *,
+                       draws: Optional[Mapping[str, Any]] = None) -> Dict[str, torch.Tensor]:
+        """One micro-step's forward and backward: adds the loss's gradient over
+        ``accumulate`` to each trainable parameter's ``.grad`` (and runs the
+        conditioner's BatchNorms in train mode when ``cond_train_bn``, which
+        moves their running statistics).  ``draws`` may hold
+        ``posterior_noise`` (B, 13, h, w, 4), ``t`` (B,) and ``noise`` (the
+        atlas's shape); what it lacks comes from ``generator``.  Returns the
+        logs (0-d tensors)."""
+        loss, logs = self._loss(state, batch, cond_train=self.cond_train_bn,
+                                generator=generator, draws=draws)
+        (loss / self.accumulate).backward()
+        return {k: v.detach() for k, v in logs.items()}
+
+    def train_step(self, state: LDMTrainState, batch: Mapping[str, Any],
+                   generator: Optional[torch.Generator] = None, *,
+                   draws: Optional[Mapping[str, Any]] = None):
+        """One micro-step (in place): gradients accumulate over ``accumulate``
+        micro-steps and AdamW applies their mean on the last, which also
+        moves the EMA (warm-up step: the number of updates before this one).
+        Each parameter's ``.grad`` keeps the applied gradient until the next
+        step.  Returns (state, logs)."""
+        if state.step % self.accumulate == 0:
+            state.optimizer.zero_grad(set_to_none=True)
+        logs = self.loss_and_grads(state, batch, generator, draws=draws)
+        state.step += 1
+        if state.step % self.accumulate == 0:
+            update = state.step // self.accumulate - 1
+            for group in state.optimizer.param_groups:
+                group["lr"] = self.current_lr(update)
+                # a parameter the loss does not reach (a VGG block past the
+                # last tap) still decays, as under optax, which sees a zero
+                # gradient where torch's AdamW would skip a missing one
+                for p in group["params"]:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            state.optimizer.step()
+            if self.use_ema:
+                ema_update(state.ema, trainable_parameters(state.ldm), update)
+        return state, logs
+
+    # -- evaluation and sampling ----------------------------------------------------
+
+    @contextlib.contextmanager
+    def ema_weights(self, state: LDMTrainState, use_ema: bool = True):
+        """Within the block the trainable parameters hold the EMA (when
+        ``use_ema`` and the trainer keeps one); they are put back after."""
+        if not (use_ema and self.use_ema):
+            yield state.ldm
+            return
+        params = trainable_parameters(state.ldm)
+        saved = {n: p.detach().clone() for n, p in params.items()}
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(state.ema[n])
+        try:
+            yield state.ldm
+        finally:
+            with torch.no_grad():
+                for n, p in params.items():
+                    p.copy_(saved[n])
+
+    @torch.no_grad()
+    def eval_loss(self, state: LDMTrainState, batch: Mapping[str, Any],
+                  generator: Optional[torch.Generator] = None, *,
+                  draws: Optional[Mapping[str, Any]] = None,
+                  use_ema: bool = True) -> Dict[str, float]:
+        """Validation losses with the running BatchNorm statistics; with
+        ``use_ema`` the EMA weights are evaluated (the reference logs both)."""
+        with self.ema_weights(state, use_ema):
+            _, logs = self._loss(state, batch, cond_train=False, generator=generator,
+                                 draws=draws)
+        return {k: float(v) for k, v in logs.items()}
+
+    def sample_slices(self, state: LDMTrainState, img_input, *, use_ema: bool = True,
+                      **kwargs) -> torch.Tensor:
+        """Input views (B, H, W, 3) -> generated slices (B, 12, H, W, 3) through
+        :func:`slice3d_tpu_torch.diffusion.sampler.sample_slices` (its keyword
+        arguments), with the EMA weights when ``use_ema``."""
+        with self.ema_weights(state, use_ema):
+            return sample_slices(state.ldm, self._tensor(img_input), device=self.device,
+                                 **kwargs)
+
+    # -- checkpoints ------------------------------------------------------------------
+
+    def state_payload(self, state: LDMTrainState) -> Dict[str, Any]:
+        return {"model": state.ldm.state_dict(), "optimizer": state.optimizer.state_dict(),
+                "ema": state.ema, "logvar": state.logvar.detach(), "step": state.step}
+
+    def load_payload(self, state: LDMTrainState, payload: Mapping[str, Any]) -> LDMTrainState:
+        """In place: the model's weights and statistics, the EMA, ``logvar``,
+        the step and (when the payload has it) AdamW's state."""
+        state.ldm.load_state_dict(payload["model"])
+        if "optimizer" in payload:
+            state.optimizer.load_state_dict(payload["optimizer"])
+        with torch.no_grad():
+            for n, e in state.ema.items():
+                e.copy_(payload["ema"][n])
+            state.logvar.copy_(payload["logvar"])
+        state.step = int(payload["step"])
+        return state
+
+    def save(self, state: LDMTrainState, path: str) -> str:
+        return save_checkpoint(path, self.state_payload(state))
+
+    def restore(self, state: LDMTrainState, path: str) -> LDMTrainState:
+        return self.load_payload(state, restore_checkpoint(path, map_location=self.device))

@@ -16,6 +16,10 @@ from slice3d_tpu_torch.ops import spatial_attention as sa
 D, F = 128, 2048
 # kernel vs plain spatial attention: bf16 rounding of the probabilities
 ATTN_TOL = dict(atol=1e-2, rtol=2e-2)
+# backward kernel vs plain (dq, dk, dv): D = rowsum(do o) from the bf16 output
+# against the plain version's fp32 rowsum(dp p), and bf16 rounding of dS (the
+# tolerance of chip_smoke.py, where the readings are written down)
+ATTN_BWD_TOL = dict(atol=0.08, rtol=0.04)
 
 
 def layer_params(seed, device):
@@ -110,3 +114,47 @@ def test_spatial_attention_rejects_what_it_does_not_take(card):
         sa.spatial_attention(y, y, y, 0.2)
     with pytest.raises(ValueError):  # k on the CPU
         sa.spatial_attention(x, x.cpu(), x, 0.2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 1024, 24), (1, 2, 4096, 24),
+                                   (2, 3, 1024, 48), (1, 2, 1536, 48)],
+                         ids=["dh24-t1024", "dh24-t4096", "dh48-t1024", "dh48-t1536"])
+def test_spatial_attention_backward_matches_plain(card, shape):
+    """Through autograd: the forward kernel saves the rows' log-sum-exp, the
+    backward kernel gives dq, dk, dv of the plain backward's rounding."""
+    rng = np.random.default_rng(sum(shape) + 1)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32) * s)
+                   .to(card).to(torch.bfloat16) for s in (2.0, 2.0, 1.0, 1.0))
+    scale = shape[-1] ** -0.5
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (sa.launches, sa.launches_bwd)
+    out = sa.spatial_attention(*qkv, scale)
+    got = torch.autograd.grad(out, qkv, do)
+    torch.cuda.synchronize()
+    assert (sa.launches, sa.launches_bwd) == (before[0] + 1, before[1] + 1)
+    for g, w in zip(got, sa.spatial_attention_bwd_ref(q, k, v, do, scale)):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(), **ATTN_BWD_TOL)
+
+
+@pytest.mark.cuda
+def test_spatial_attention_without_grad_launches_the_forward_alone(card):
+    x = torch.zeros((1, 2, 1024, 24), device=card, dtype=torch.bfloat16)
+    before = (sa.launches, sa.launches_bwd)
+    out = sa.spatial_attention(x, x, x, 0.2)  # no input requires grad
+    assert out.grad_fn is None and (sa.launches, sa.launches_bwd) == (before[0] + 1,
+                                                                      before[1])
+    with pytest.raises(TypeError):  # fp32 has no instantiation, with grad either
+        y = torch.zeros((1, 2, 1024, 24), device=card, requires_grad=True)
+        sa.spatial_attention(y, y, y, 0.2)
+
+
+@pytest.mark.cuda
+def test_fused_encoder_kernel_refuses_autograd(card):
+    params = {k: v.requires_grad_() for k, v in layer_params(42, card).items()}
+    x = torch.zeros((1, 4, 13, D), device=card, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="inference only"):
+        fe.fused_encoder_layer(x, params)
+    with torch.no_grad():
+        assert fe.fused_encoder_layer(x, params).shape == (1, 4, 13, D)

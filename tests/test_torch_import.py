@@ -37,7 +37,8 @@ PKG = os.path.join(ROOT, "slice3d_tpu_torch")
 def test_import_leaves_jax_out():
     code = ("import sys, slice3d_tpu_torch, slice3d_tpu_torch.pipeline, "
             "slice3d_tpu_torch.convert, slice3d_tpu_torch.diffusion.sampler, "
-            "slice3d_tpu_torch.models.gtslice; "
+            "slice3d_tpu_torch.models.gtslice, slice3d_tpu_torch.train.train_ldm, "
+            "slice3d_tpu_torch.profile_training; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'slice3d_tpu' or m.startswith('slice3d_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -162,8 +163,12 @@ def test_weight_bridge_round_trip_generation(part):
     assert float(ldm.scale_factor) == 0.5
 
 
-@pytest.mark.parametrize("module", ["fused_encoder", "spatial_attention"])
-def test_kernel_entry_point_is_bound_once(module, monkeypatch):
+@pytest.mark.parametrize("module,entry,library", [
+    ("fused_encoder", "kernel", "s3d_fused_encoder"),
+    ("spatial_attention", "kernel", "s3d_spatial_attention"),
+    ("spatial_attention", "kernel_bwd", "s3d_spatial_attention_bwd")],
+    ids=["fused_encoder", "spatial_attention", "spatial_attention_bwd"])
+def test_kernel_entry_point_is_bound_once(module, entry, library, monkeypatch):
     """A kernel wrapper resolves its library on the first launch only: later
     launches never reach ``native`` (no compiler search, no locks)."""
     import importlib
@@ -176,10 +181,12 @@ def test_kernel_entry_point_is_bound_once(module, monkeypatch):
     def fake_build(name, sources, command):
         builds.append(name)
         return types.SimpleNamespace(s3d_fused_encoder_layer=lambda *args: 0,
-                                     s3d_spatial_attention=lambda *args: 0)
+                                     s3d_spatial_attention=lambda *args: 0,
+                                     s3d_spatial_attention_bwd=lambda *args: 0)
 
     monkeypatch.setattr(native, "build_library", fake_build)
     monkeypatch.setattr(native, "nvcc_path", lambda: "nvcc")
     monkeypatch.setattr(ops, "_KERNEL", None)
-    first = ops.kernel()
-    assert ops.kernel() is first and builds == [f"s3d_{module}"]
+    monkeypatch.setattr(ops, "_KERNEL_BWD", None, raising=False)
+    first = getattr(ops, entry)()
+    assert getattr(ops, entry)() is first and builds == [library]
