@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   3. each kernel against its plain PyTorch version at the paths' shapes,
      with times (CUDA events) beside the card's bound and a library call:
      fused_encoder_layer at N = 33,800 points, spatial_attention at
-     (8, 8, 4096, 24) and (8, 8, 1024, 48);
+     (8, 8, 4096, 24) and (8, 8, 1024, 48), fused_ffn at N = 439,400 and
+     33,800 rows (the split route's full and trimmed layers of one slab group);
   4. the regression path: ``Reconstructor.reconstruct`` on 3 seeded 128x128
      images (SliceNet, random seeded weights, bf16, res0 64 / up 2 / chunk
      32768), with every kernel's launch count read around that run;
@@ -23,8 +24,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      them is not counted);
   6. correctness on small inputs: kernel path vs plain path on the card, and
      the card's fp32 plain path vs the CPU's (which the CPU tests hold
-     against the JAX reference), for SliceNet, the sampler's atlas and
-     GTSlice;
+     against the JAX reference), for SliceNet (fused and split routes), the
+     sampler's atlas and GTSlice;
   7. spatial_attention's backward kernel against its plain version at the
      training path's shapes (through autograd), with its time beside the
      bound, the plain version's and scaled_dot_product_attention's backward;
@@ -35,16 +36,28 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      10 timed steps with the launch counts read around them (10 forward and
      10 backward attention launches per step), the losses and peak memory,
      then one step's gradients at batch 1 kernel path vs plain path (bf16)
-     and the fp32 plain path card vs CPU on the tiny configuration.
+     and the fp32 plain path card vs CPU on the tiny configuration;
+  9. the serving path: the port's ``Slice3DService`` (SliceNet, img 128, bf16,
+     seeded weights, res0 64 / up 2 / chunk 32768, ``mc_batch_size`` 4, an
+     80 ms window) over HTTP on 127.0.0.1, 8 seeded 128x128 RGBA PNG
+     requests at concurrency 8 (latency per request, p50, p90, requests per
+     second, ``reconstruct_batch`` calls, launch counts), then the same 8
+     images one at a time through ``reconstruct`` (batch 1) against the
+     batched answers;
+ 10. the split-encoder route: the same weights with ``route="split"`` on 2 of
+     the images, 0 encoder launches and 3 fused_ffn launches per head call.
 The last two lines are the kernels' JSON record and the run's status JSON.
 """
 
 from __future__ import annotations
 
+import ctypes
+import http.client
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -58,6 +71,21 @@ PEAK_BYTES = 3.35e12
 SFU_PER_CLOCK = 16 * 132
 N_POINTS = 8 * 65 * 65  # one coarse-level slab group: 8 z-slabs of 65^2
 TOL = dict(atol=2e-2, rtol=1e-2)  # bf16 outputs of LayerNorm: ~2.5 ulp
+# fused_ffn kernel vs plain: both round h and the output to bf16 from fp32 sums
+# taken in another order (readings on an NVIDIA H100 80GB HBM3 at 700 W, N =
+# 1,500 to 439,400: largest error 0.0156 = one bf16 ulp in [2, 4), outputs up
+# to 5)
+FFN_TOL = dict(atol=2e-2, rtol=1e-2)
+FFN_ROWS = (13 * N_POINTS, N_POINTS)  # layers 0-1 (13 tokens) and layer 2 (token 0)
+# serving: requests at mc_batch_size 4 in an 80 ms window, then the same images
+# at batch 1; the batched answers differ from the serial ones where bf16
+# convolutions at batch 4 round otherwise and move refinement mask points
+# (readings on an NVIDIA H100 80GB HBM3 at 700 W, n_points_evaluated and vertex
+# counts: largest relative difference 3.1e-3 over the 8 images, the same in
+# three calls; the tolerance is ~3x that)
+SERVE_REQUESTS, SERVE_BATCH, SERVE_WINDOW_MS = 8, 4, 80.0
+SERVE_POINT = dict(img_size=128, mc_res0=64, mc_up_steps=2, mc_chunk_size=32768)
+SERVE_RTOL = 1e-2
 # kernel vs plain spatial attention: the kernel rounds the unnormalised
 # exp(s - m) to bf16 and divides at the end, the plain version (like the TPU
 # kernel) normalises and then rounds, so they differ by bf16 rounding of the
@@ -127,19 +155,22 @@ def check_close(got: torch.Tensor, want: torch.Tensor, tol: dict, what: str) -> 
 
 def reset_counts() -> None:
     from slice3d_tpu_torch.ops import fused_encoder as fe
+    from slice3d_tpu_torch.ops import fused_ffn as ff
     from slice3d_tpu_torch.ops import spatial_attention as sa
 
     fe.launches = 0
+    ff.launches = 0
     sa.launches = 0
     sa.launches_bwd = 0
 
 
 def read_counts() -> dict:
     from slice3d_tpu_torch.ops import fused_encoder as fe
+    from slice3d_tpu_torch.ops import fused_ffn as ff
     from slice3d_tpu_torch.ops import spatial_attention as sa
 
-    return {"fused_encoder_layer": fe.launches, "spatial_attention": sa.launches,
-            "spatial_attention_bwd": sa.launches_bwd}
+    return {"fused_encoder_layer": fe.launches, "fused_ffn": ff.launches,
+            "spatial_attention": sa.launches, "spatial_attention_bwd": sa.launches_bwd}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -172,6 +203,7 @@ def phase_build():
     from slice3d_tpu_torch import native
     from slice3d_tpu_torch.mesh import load_library
     from slice3d_tpu_torch.ops import fused_encoder as fe
+    from slice3d_tpu_torch.ops import fused_ffn as ff
     from slice3d_tpu_torch.ops import spatial_attention as sa
 
     def timed(fn):
@@ -180,8 +212,9 @@ def phase_build():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    builds = {"fused_encoder": fe.kernel, "spatial_attention": sa.kernel,
-              "spatial_attention_bwd": sa.kernel_bwd, "host mesh library": load_library}
+    builds = {"fused_encoder": fe.kernel, "fused_ffn": ff.kernel,
+              "spatial_attention": sa.kernel, "spatial_attention_bwd": sa.kernel_bwd,
+              "host mesh library": load_library}
     with ThreadPoolExecutor(len(builds)) as pool:
         futs = {name: pool.submit(timed, fn) for name, fn in builds.items()}
         for name, fut in futs.items():
@@ -189,6 +222,9 @@ def phase_build():
     print(f"[build] all built in {time.perf_counter() - t0:.2f} s")
     for line in native.BUILD_LOG:
         print(line)
+    lib = ctypes.CDLL(os.path.join(native.BUILD_DIR, "libs3d_fused_ffn.so"))  # built above
+    print(f"[build] fused_ffn: {lib.s3d_fused_ffn_smem_bytes()} bytes of dynamic shared "
+          f"memory per block")
 
 
 def phase_kernels(model):
@@ -234,6 +270,53 @@ def phase_kernels(model):
               f"{max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP, "
               f"{nbytes / 1e6:.2f} MB)")
     del lib_layer
+    return modes
+
+
+def ffn_work(n: int, d: int = 128, f: int = 2048):
+    """(flops, bytes) of one FFN call: both products on the tensor cores, x
+    read and the output written once (bf16), the weights (bf16) and biases
+    (fp32) read once."""
+    return 4 * n * d * f, 2 * n * d * 2 + 2 * d * f * 2 + (f + d) * 4
+
+
+def phase_ffn(model):
+    """fused_ffn against its plain version at the split route's row counts,
+    on the model's FFN weights, with the cuBLAS sequence F.linear -> relu ->
+    F.linear (bf16) as the library time."""
+    from slice3d_tpu_torch.ops import fused_ffn as ff
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    layers = model.att_decoder.layers
+    modes = []
+    for n, layer in zip(FFN_ROWS, (layers[0], layers[2])):
+        w1, b1 = layer.linear1.weight, layer.linear1.bias
+        w2, b2 = layer.linear2.weight, layer.linear2.bias
+        # the FFN's input is a LayerNorm output: ~N(0, 1) per row
+        x = torch.randn((n, 128), generator=g, device="cuda").to(torch.bfloat16)
+        with torch.no_grad():
+            got = ff.fused_ffn(x, w1, b1, w2, b2)
+            torch.cuda.synchronize()
+            want = ff.fused_ffn_ref(x, w1, b1, w2, b2)
+            check(bool(torch.isfinite(got).all()), f"fused_ffn N={n}: non-finite output")
+            check_close(got, want, FFN_TOL, f"fused_ffn N={n}, kernel vs plain (bf16)")
+            max_err = (got.float() - want.float()).abs().max().item()
+            del want
+            ms = cuda_ms(lambda: ff.fused_ffn(x, w1, b1, w2, b2), 20)
+            plain_ms = cuda_ms(lambda: ff.fused_ffn_ref(x, w1, b1, w2, b2), 3)
+            lw1, lw2 = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
+            lb1, lb2 = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
+            library_ms = cuda_ms(lambda: torch.nn.functional.linear(
+                torch.relu(torch.nn.functional.linear(x, lw1, lb1)), lw2, lb2), 20)
+        flops, nbytes = ffn_work(n)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        modes.append({"n_rows": n, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                      "gflop": flops / 1e9, "mbytes": nbytes / 1e6})
+        print(f"[kernel] fused_ffn N={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"(F.linear -> relu -> F.linear, bf16) {library_ms:.4f} ms, bound "
+              f"{max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
     return modes
 
 
@@ -429,11 +512,9 @@ def phase_correctness(model, rec, feed):
         route = "lattice" if lattice else "gather"
         # 1. bf16 kernel path vs the bf16 plain path, same weights
         kern, _ = Reconstructor(model, lattice_dense=lattice, **small).build_grid(feed)
-        for layer in model.att_decoder.layers:
-            layer.fused = False
+        set_route(model, "plain")
         plain, _ = Reconstructor(model, lattice_dense=lattice, **small).build_grid(feed)
-        for layer in model.att_decoder.layers:
-            layer.fused = True
+        set_route(model, "fused")
         err_k = float(np.abs(kern - plain).max())
         print(f"[check] {route}: 17^3 logits, kernel path vs plain path (bf16): "
               f"max_abs_err {err_k:.6g} (tolerance 5e-2: bf16 rounding flips "
@@ -442,7 +523,7 @@ def phase_correctness(model, rec, feed):
 
         # 2. fp32 plain path: card vs CPU (the CPU tests hold it against JAX)
         torch.backends.cudnn.allow_tf32 = False
-        m32 = init_slicenet(0, fused=False)
+        m32 = init_slicenet(0, route="plain")
         cpu, _ = Reconstructor(m32, device="cpu", lattice_dense=lattice,
                                **small).build_grid(feed)
         gpu, _ = Reconstructor(m32, lattice_dense=lattice, **small).build_grid(feed)
@@ -453,7 +534,59 @@ def phase_correctness(model, rec, feed):
         check(err_f <= 1e-3, f"{route}: card and CPU fp32 paths disagree")
 
 
-def gtslice_threshold(model, feed) -> float:
+def set_route(model, route: str) -> None:
+    """Send the head's encoder layers to another route (same weights)."""
+    for layer in model.att_decoder.layers:
+        layer.route = route
+
+
+def phase_split_checks(model, feed):
+    """The split route on small inputs: kernel path (fused_ffn) vs its
+    plain path (fused_ffn_ref in the same layers) in bf16, and the fp32
+    split route on the card (the FFN's plain version: the kernel takes bf16
+    only) vs the CPU."""
+    from slice3d_tpu_torch.models import layers
+    from slice3d_tpu_torch.models.slicenet import init_slicenet
+    from slice3d_tpu_torch.ops import fused_ffn as ff
+    from slice3d_tpu_torch.pipeline import Reconstructor
+
+    small = dict(resolution0=16, upsampling_steps=0, chunk_size=4096)
+    set_route(model, "split")
+    m32 = init_slicenet(0, route="split")
+    try:
+        for lattice in (True, False):
+            route = "lattice" if lattice else "gather"
+            before = ff.launches
+            kern, _ = Reconstructor(model, lattice_dense=lattice, **small).build_grid(feed)
+            check(ff.launches > before, "the split route launched no fused_ffn kernel")
+            layers.fused_ffn = ff.fused_ffn_ref
+            try:
+                plain, _ = Reconstructor(model, lattice_dense=lattice, **small).build_grid(feed)
+                torch.backends.cudnn.allow_tf32 = False
+                # the Reconstructor refuses an fp32 kernel route on the card:
+                # build it on the plain route, then split with the FFN plain
+                set_route(m32, "plain")
+                rec32 = Reconstructor(m32, lattice_dense=lattice, **small)
+                set_route(m32, "split")
+                gpu, _ = rec32.build_grid(feed)
+            finally:
+                layers.fused_ffn = ff.fused_ffn
+                torch.backends.cudnn.allow_tf32 = True
+            cpu, _ = Reconstructor(m32, device="cpu", lattice_dense=lattice,
+                                   **small).build_grid(feed)
+            err_k = float(np.abs(kern - plain).max())
+            err_f = float(np.abs(cpu - gpu).max())
+            print(f"[check] split route, {route}: 17^3 logits, kernel path vs plain path "
+                  f"(bf16): max_abs_err {err_k:.6g} (tolerance 5e-2: bf16 rounding flips "
+                  f"through 3 layers and fc_out); fp32 card vs CPU: max_abs_err {err_f:.6g} "
+                  f"(tolerance 1e-3: fp32 summation order)")
+            check(err_k <= 5e-2, f"split {route}: kernel path disagrees with the plain path")
+            check(err_f <= 1e-3, f"split {route}: card and CPU fp32 paths disagree")
+    finally:
+        set_route(model, "fused")
+
+
+def probe_threshold(model, feed) -> float:
     """Iso level at the median coarse logit of a res0 16 probe: random
     weights then give a real surface and the refinement levels run."""
     from slice3d_tpu_torch.pipeline import Reconstructor
@@ -504,7 +637,7 @@ def phase_generation():
     _, proj = camera_matrices(0.0, 0.0, 1.2)
     feeds = [{"img_slices": slices_np[i], "trans_mat_wo_rot_tp": proj.astype(np.float32)}
              for i in range(GEN_BATCH)]
-    threshold = gtslice_threshold(gts, feeds[0])
+    threshold = probe_threshold(gts, feeds[0])
     print(f"[gen] GTSlice threshold {threshold:.6f}")
     rec = Reconstructor(gts, resolution0=64, upsampling_steps=2, chunk_size=32768,
                         threshold=threshold)
@@ -592,15 +725,13 @@ def phase_generation_checks(ldm, gts, views, feed):
     check_close(gpu, cpu, ATLAS_FP32_TOL, "atlas, fp32 card vs CPU (fp32 summation order)")
 
     small = dict(resolution0=16, upsampling_steps=0, chunk_size=4096)
-    g32 = init_gtslice(0, fused=False)
+    g32 = init_gtslice(0, route="plain")
     for lattice in (True, False):
         route = "lattice" if lattice else "gather"
         kern, _ = Reconstructor(gts, lattice_dense=lattice, **small).build_grid(feed)
-        for layer in gts.att_decoder.layers:
-            layer.fused = False
+        set_route(gts, "plain")
         plain, _ = Reconstructor(gts, lattice_dense=lattice, **small).build_grid(feed)
-        for layer in gts.att_decoder.layers:
-            layer.fused = True
+        set_route(gts, "fused")
         err = float(np.abs(kern - plain).max())
         tol = 5e-2 * max(1.0, float(np.abs(plain).max()))
         print(f"[check] GTSlice {route}: 17^3 logits, kernel path vs plain path (bf16): "
@@ -788,6 +919,198 @@ def phase_training_checks(trainer, state):
                 "(fp32 summation order)")
 
 
+def serving_pngs(n: int, seed: int = 12):
+    """``n`` seeded 128x128 RGBA PNGs (the port's own encoder): noise colours,
+    an opaque off-centre box of random size on a transparent background."""
+    from slice3d_tpu_torch.data.image import encode_png
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        arr = rng.integers(0, 256, (128, 128, 4), dtype=np.uint8)
+        arr[..., 3] = 0
+        y0, x0 = rng.integers(4, 40, 2)
+        h, w = rng.integers(48, 84, 2)
+        arr[y0:y0 + h, x0:x0 + w, 3] = 255
+        out.append(encode_png(arr))
+    return out
+
+
+def percentile(values, p: float) -> float:
+    """The service's own rule (``serving_stats``): the sorted value at
+    index int(p n)."""
+    v = sorted(values)
+    return v[min(int(p * len(v)), len(v) - 1)]
+
+
+def phase_serving(model):
+    """The port's service over HTTP in-process: 8 concurrent requests at
+    mc_batch_size 4, then the same images one at a time at batch 1."""
+    from http.server import ThreadingHTTPServer
+
+    from slice3d_tpu_torch import serve
+    from slice3d_tpu_torch.config import Options
+    from slice3d_tpu_torch.data.dataset import preprocess_image
+    from slice3d_tpu_torch.data.image import center_rgba, decode_png
+    from slice3d_tpu_torch.mesh import obj_string
+
+    bodies = serving_pngs(SERVE_REQUESTS)
+    proj = make_feeds(1)[0]["trans_mat_wo_rot_tp"]  # the service's identity camera
+    imgs = [preprocess_image(center_rgba(decode_png(b)), SERVE_POINT["img_size"], False)
+            for b in bodies]
+    # random weights: the iso level at the median coarse logit of the first
+    # image (a res0 16 probe on the same seeded weights), so surfaces exist
+    threshold = probe_threshold(model, {"img_input": imgs[0], "trans_mat_wo_rot_tp": proj})
+    opts = Options(name_model="slicenet", dtype="bfloat16", random_init=True,
+                   mc_batch_size=SERVE_BATCH, mc_threshold=threshold, **SERVE_POINT)
+    service = serve.build_service(opts, batch_window_ms=SERVE_WINDOW_MS)
+    check(all(torch.equal(a, b) for a, b in zip(service.recon.model.state_dict().values(),
+                                                 model.state_dict().values())),
+          "the service's seeded weights differ from the main path's")
+    t0 = time.perf_counter()
+    service.warmup()
+    warm_s = time.perf_counter() - t0
+    calls = []
+    batch_fn = service.recon.reconstruct_batch
+
+    def counted(feeds):
+        calls.append(len(feeds))
+        return batch_fn(feeds)
+
+    service.recon.reconstruct_batch = counted
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(service))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    answers = [None] * SERVE_REQUESTS
+
+    def request(i):  # OBJ text, stats in the header; parsed after all have ended
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=300)
+        t = time.perf_counter()
+        conn.request("POST", "/reconstruct", body=bodies[i])
+        resp = conn.getresponse()
+        payload = resp.read()
+        answers[i] = (resp.status, resp.getheader("X-Slice3D-Stats"), payload,
+                      time.perf_counter() - t)
+        conn.close()
+
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=request, args=(i,)) for i in range(SERVE_REQUESTS)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        check(not any(c.is_alive() for c in clients), "a request did not finish")
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "the HTTP server did not stop")
+    lat, batched = [], []
+    for i, (status, header, payload, dt) in enumerate(answers):
+        check(status == 200, f"request {i}: HTTP {status}: {payload[:200]!r}")
+        stats = json.loads(header)
+        verts = payload.count(b"\nv ") + payload.startswith(b"v ")
+        lat.append(dt)
+        batched.append((stats["n_points_evaluated"], verts))
+        print(f"[serve] request {i}: latency {dt:.4f} s, n_points_evaluated "
+              f"{stats['n_points_evaluated']}, vertices {verts}, OBJ {len(payload) / 1e6:.2f} "
+              f"MB; its batch: eval {stats['time_eval_points']:.4f} s, its marching "
+              f"{stats['time_marching']:.4f} s")
+    p50, p90 = percentile(lat, 0.5), percentile(lat, 0.9)
+    rps = SERVE_REQUESTS / wall
+    print(f"[serve] {SERVE_REQUESTS} requests at concurrency {SERVE_REQUESTS}, mc_batch_size "
+          f"{SERVE_BATCH}, window {SERVE_WINDOW_MS:g} ms: p50 {p50:.4f} s, p90 {p90:.4f} s, "
+          f"{rps:.4f} requests/s ({wall:.4f} s wall); reconstruct_batch calls "
+          f"{len(calls)} of sizes {calls}; warm-up {warm_s:.4f} s; launches {counts}")
+    check(counts["fused_encoder_layer"] > 0, "the serving path launched no fused_encoder_layer")
+    check(sum(calls) == SERVE_BATCH * len(calls) and len(calls) < SERVE_REQUESTS,
+          f"requests were not batched: {calls}")
+
+    # the first 4 images as one batch without HTTP, and the OBJ text of a mesh
+    feeds = [{"img_input": img, "trans_mat_wo_rot_tp": proj} for img in imgs]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    direct = batch_fn(feeds[:SERVE_BATCH])
+    direct_s = time.perf_counter() - t
+    t = time.perf_counter()
+    text = obj_string(direct[0][0])
+    obj_s = time.perf_counter() - t
+    print(f"[serve] reconstruct_batch of requests 0-{SERVE_BATCH - 1} without HTTP: "
+          f"{direct_s:.4f} s (eval {direct[0][1]['time_eval_points']:.4f} s, marching "
+          f"{sum(st['time_marching'] for _, st in direct):.4f} s for {SERVE_BATCH}); "
+          f"obj_string of request 0's mesh: {obj_s:.4f} s for {len(text) / 1e6:.2f} MB")
+    del direct, text
+
+    # the same images one at a time (batch 1) through the same Reconstructor
+    serial, serial_lat = [], []
+    for feed in feeds:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mesh, stats = service.recon.reconstruct(feed)
+        serial_lat.append(time.perf_counter() - t)
+        serial.append((stats["n_points_evaluated"], len(mesh.vertices)))
+    worst = 0.0
+    for i, ((bn, bv), (sn, sv)) in enumerate(zip(batched, serial)):
+        rel = max(abs(bn - sn) / sn, abs(bv - sv) / max(sv, 1))
+        worst = max(worst, rel)
+        print(f"[serve] request {i}: batched n_points {bn} / vertices {bv}, batch 1 {sn} / "
+              f"{sv} ({serial_lat[i]:.4f} s), relative difference {rel:.6g}")
+    print(f"[check] serving: batched (B {SERVE_BATCH}) vs batch-1 answers, largest relative "
+          f"difference of n_points_evaluated and vertex counts {worst:.6g} (tolerance "
+          f"{SERVE_RTOL}: bf16 convolutions at batch 4 round otherwise)")
+    check(worst <= SERVE_RTOL, "batched and batch-1 answers disagree")
+    check(all(n > (opts.mc_res0 + 1) ** 3 for n, _ in batched),
+          "the refinement levels did not run")
+    result = {"p50_s": p50, "p90_s": p90, "requests_per_s": rps, "wall_s": wall,
+              "latency_s": lat, "reconstruct_batch_calls": calls,
+              "serial_latency_s": serial_lat, "batched_vs_serial_rel": worst,
+              "warmup_s": warm_s, "threshold": threshold, "direct_batch_s": direct_s,
+              "obj_string_s": obj_s}
+    return result, counts, proj, imgs[:2]
+
+
+def phase_split(proj, imgs, threshold):
+    """The same seeded weights on the split-encoder route: 2 requests at
+    the serving point, the launch counts read around them."""
+    from slice3d_tpu_torch.models.slicenet import init_slicenet
+    from slice3d_tpu_torch.pipeline import Reconstructor
+
+    model = init_slicenet(seed=0, dtype=torch.bfloat16, route="split").to("cuda")
+    rec = Reconstructor(model, resolution0=SERVE_POINT["mc_res0"],
+                        upsampling_steps=SERVE_POINT["mc_up_steps"],
+                        chunk_size=SERVE_POINT["mc_chunk_size"], threshold=threshold)
+    heads = []
+    hook = model.att_decoder.register_forward_hook(lambda *args: heads.append(1))
+    rec.reconstruct({"img_input": imgs[0], "trans_mat_wo_rot_tp": proj})  # warm-up
+    heads.clear()
+    torch.cuda.synchronize()
+    reset_counts()
+    lat = []
+    for i, img in enumerate(imgs):
+        t = time.perf_counter()
+        mesh, stats = rec.reconstruct({"img_input": img, "trans_mat_wo_rot_tp": proj})
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+        print(f"[split] request {i}: latency {lat[-1]:.4f} s, n_points_evaluated "
+              f"{stats['n_points_evaluated']}, vertices {len(mesh.vertices)}")
+        check(not mesh.is_empty and bool(np.isfinite(mesh.vertices).all()),
+              "split route: empty mesh or non-finite vertices")
+    counts = read_counts()
+    hook.remove()
+    print(f"[split] launches over {len(imgs)} requests: {counts}; head calls {len(heads)} "
+          f"({counts['fused_ffn'] / max(len(heads), 1):g} fused_ffn launches per head call)")
+    check(counts["fused_encoder_layer"] == 0, "the split route launched the encoder kernel")
+    check(counts["fused_ffn"] == 3 * len(heads) and heads,
+          "the split route did not launch fused_ffn exactly 3 times per head call")
+    return {"latency_s": lat, "head_calls": len(heads)}, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -811,19 +1134,25 @@ def main() -> int:
     phase_build()
     model = init_slicenet(seed=0, dtype=torch.bfloat16).to("cuda")
     modes = phase_kernels(model)
+    ffn_modes = phase_ffn(model)
     attn_modes = phase_attention(clock * 1e6)
     main_counts, rec, feeds = phase_main_path(model)
     gen, ldm, gts, views, gen_feeds = phase_generation()
     phase_correctness(model, rec, feeds[0])
+    phase_split_checks(model, feeds[0])
     phase_generation_checks(ldm, gts, views, gen_feeds[0])
     del ldm, gts, model, rec
     bwd_modes = phase_attention_bwd(clock * 1e6)
     train, trainer, state = phase_training()
     phase_training_checks(trainer, state)
+    del trainer, state
+    model = init_slicenet(seed=0, dtype=torch.bfloat16).to("cuda")
+    serving, serve_counts, proj, imgs = phase_serving(model)
+    split, split_counts = phase_split(proj, imgs, serving["threshold"])
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"regression": main_counts, "generation": gen["counts"],
-               "training": train["counts"]}
+               "training": train["counts"], "serving": serve_counts, "split": split_counts}
     full = modes[0]
     encoder = {"name": "fused_encoder_layer", "route": "cuda",
                "source": "slice3d_tpu_torch/csrc/fused_encoder.cu",
@@ -860,9 +1189,20 @@ def main() -> int:
                      "bound_ms": bwd1["bound_ms"],
                      "bound_by": "bytes" if bwd1["bound_by"] == "bytes" else "operations",
                      "library_ms": bwd1["library_ms"], "modes": bwd_modes}
+    full_ffn = ffn_modes[0]
+    ffn = {"name": "fused_ffn", "route": "cuda", "source": "slice3d_tpu_torch/csrc/fused_ffn.cu",
+           "replaces": "slice3d_tpu/ops/pallas_ffn.py:49",
+           "launches": sum(c["fused_ffn"] for c in by_path.values()),
+           "launches_by_path": {k: c["fused_ffn"] for k, c in by_path.items()},
+           "max_abs_err": max(m["max_abs_err"] for m in ffn_modes),
+           "tol": f"|k-p| <= {FFN_TOL['atol']} + {FFN_TOL['rtol']}*|p|",
+           "ms": full_ffn["ms"], "kernel_ms": full_ffn["ms"], "plain_ms": full_ffn["plain_ms"],
+           "bound_ms": full_ffn["bound_ms"], "bound_by": full_ffn["bound_by"],
+           "library_ms": full_ffn["library_ms"], "modes": ffn_modes}
     print(json.dumps({"generation": {k: v for k, v in gen.items() if k != "counts"},
-                      "training": {k: v for k, v in train.items() if k != "counts"}}))
-    print(json.dumps({"kernels": [encoder, attention, attention_bwd]}))
+                      "training": {k: v for k, v in train.items() if k != "counts"},
+                      "serving": serving, "split": split}))
+    print(json.dumps({"kernels": [encoder, attention, attention_bwd, ffn]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["intrinsics", "blender_rt", "canonical_rot4", "camera_matrices"]
+__all__ = ["intrinsics", "blender_rt", "canonical_rot4", "camera_matrices",
+           "sdf_sample_transform"]
 
 FOCAL_MM = 35.0
 SENSOR_MM = 32.0
@@ -66,3 +67,18 @@ def camera_matrices(az_meta: float, el_meta: float, distance: float):
     # rotation-free projection: only the constant translation column stays
     tmp = np.concatenate([np.eye(3), rot_full[:, 3:4]], axis=1)
     return obj_rot_mat, (k @ tmp).T
+
+
+def sdf_sample_transform(points: np.ndarray, sdf: np.ndarray, scale: float, offset) -> tuple:
+    """Apply the per-object random normalization recorded at render time.
+
+    The renderer scaled the object by ``scale`` and shifted it by ``offset``
+    (Blender frame); SDF samples live in the unscaled frame and were
+    extracted at iso-level 0.003 (reference: reg_slices/src/datasets.py:146-148).
+    Returns the rescaled (points, sdf).
+    """
+    offset = np.asarray(offset, dtype=np.float64)
+    off = np.array([offset[0], offset[2], -offset[1]])
+    pts = points * scale + off
+    vals = (sdf - 0.003) * scale
+    return pts, vals

@@ -33,7 +33,8 @@
 //   * the FFN streams W1/W2 in 64-wide F-tiles through a double-buffered
 //     cp.async ring in the same shared memory, so each weight byte fetched
 //     from L2 serves 128 rows, and the (rows, 2048) activation lives only in
-//     registers (the accumulator layout of one mma is the A layout of the next).
+//     registers (the accumulator layout of one mma is the A layout of the next):
+//     the F-tile loop of csrc/ffn_tile.cuh, shared with csrc/fused_ffn.cu.
 //
 // Only bf16 activations are taken: an fp32 input has no instantiation here and
 // the Python wrapper raises for it.
@@ -45,26 +46,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ffn_tile.cuh"
+
 namespace {
 
-constexpr int D = 128;            // model width
+using namespace s3d;  // D, FT, LDW, STAGE, the mma/ldmatrix/cp.async helpers
+
 constexpr int NH = 4;             // heads
 constexpr int DH = 32;            // head width
 constexpr int TP = 16;            // padded tokens per point (one m16 tile)
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int ROWS = WARPS * 16;  // FFN rows per block
-constexpr int FT = 64;            // FFN F-tile
 
-constexpr int LDW = D + 8;        // padded row of a (., 128) bf16 tile
 constexpr int LDKV = DH + 8;      // padded row of a per-warp k/v tile
-constexpr int LDW2 = FT + 8;      // padded row of a (128, FT) W2 tile
 
 // shared memory layout, in bf16 elements
 constexpr int SM_WQKV = 0;                          // (384, LDW)
 constexpr int SM_WO = SM_WQKV + 3 * D * LDW;        // (128, LDW)
 constexpr int SM_WEND = SM_WO + D * LDW;            // end of the weight area
-constexpr int STAGE = FT * LDW + D * LDW2;          // one FFN stage: W1 + W2 tile
 constexpr int SM_X = SM_WEND;                       // (WARPS, 16, LDW)
 constexpr int SM_KV = SM_X + WARPS * TP * LDW;      // (WARPS, 2, 16, LDKV)
 constexpr int SM_H1 = SM_KV + WARPS * 2 * TP * LDKV;  // (ROWS, LDW)
@@ -72,61 +72,6 @@ constexpr int SM_TOTAL = SM_H1 + ROWS * LDW;
 constexpr size_t SMEM_BYTES = size_t(SM_TOTAL) * 2;
 static_assert(2 * STAGE <= SM_WEND, "FFN ring must fit in the weight area");
 static_assert(SMEM_BYTES <= 232448, "shared memory over the per-block limit");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                          uint32_t& r3, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_u32(p)));
-}
-
-// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
-}
-
-// A fragments (16 rows x 128 cols) of a row-major (16, LDW) bf16 tile.
-__device__ __forceinline__ void load_a128(uint32_t (*a)[4], const __nv_bfloat16* tile,
-                                          int lane) {
-  const __nv_bfloat16* p = tile + (lane & 15) * LDW + (lane >> 4) * 8;
-#pragma unroll
-  for (int k = 0; k < D / 16; ++k) ldsm_x4(a[k][0], a[k][1], a[k][2], a[k][3], p + 16 * k);
-}
 
 // acc (16 x 32, four n8 tiles) += A (16 x 128) * W[n0:n0+32, :]^T, W row-major (., LDW)
 __device__ __forceinline__ void gemm_n32(float (*acc)[4], const uint32_t (*a)[4],
@@ -194,20 +139,6 @@ struct Params {
   __nv_bfloat16* out;         // (N, T or 1, 128)
   int n, t, f, head_tokens;
 };
-
-__device__ __forceinline__ void stage_ffn(__nv_bfloat16* dst, const Params& p, int f0,
-                                          int tid) {
-  // W1 rows f0 .. f0+FT (16 chunks of 16 B each), then W2[:, f0:f0+FT] (8 chunks)
-  for (int i = tid; i < FT * 16; i += THREADS) {
-    const int r = i >> 4, c = (i & 15) * 8;
-    cp_async16(dst + r * LDW + c, p.w1 + size_t(f0 + r) * D + c);
-  }
-  __nv_bfloat16* w2s = dst + FT * LDW;
-  for (int i = tid; i < D * (FT / 8); i += THREADS) {
-    const int r = i / (FT / 8), c = (i % (FT / 8)) * 8;
-    cp_async16(w2s + r * LDW2 + c, p.w2 + size_t(r) * p.f + f0 + c);
-  }
-}
 
 __global__ void __launch_bounds__(THREADS, 1) encoder_layer_kernel(Params p) {
   extern __shared__ __align__(16) __nv_bfloat16 sm[];
@@ -410,68 +341,13 @@ __global__ void __launch_bounds__(THREADS, 1) encoder_layer_kernel(Params p) {
   __syncthreads();  // attention weights are dead; the FFN ring reuses them
 
   // ---- FFN: out = h1 W1^T -> relu -> W2^T, streamed over F-tiles -----------
-  const int n_tiles = p.f / FT;
-  stage_ffn(sm, p, 0, tid);
-  cp_async_commit();
-  if (n_tiles > 1) stage_ffn(sm + STAGE, p, FT, tid);
-  cp_async_commit();
-
   uint32_t ha[D / 16][4];
   load_a128(ha, h1s + warp * TP * LDW, lane);
 
   float out[16][4];
 #pragma unroll
   for (int j = 0; j < 16; ++j) out[j][0] = out[j][1] = out[j][2] = out[j][3] = 0.f;
-
-  const int brow = (lane & 7) + ((lane >> 4) << 3);
-  const int bcol = ((lane >> 3) & 1) * 8;
-#pragma unroll 1
-  for (int it = 0; it < n_tiles; ++it) {
-    cp_async_wait<1>();
-    __syncthreads();
-    const __nv_bfloat16* w1s = sm + (it & 1) * STAGE;
-    const __nv_bfloat16* w2s = w1s + FT * LDW;
-    const int f0 = it * FT;
-
-    float hid[FT / 8][4];
-#pragma unroll
-    for (int j = 0; j < FT / 8; ++j) hid[j][0] = hid[j][1] = hid[j][2] = hid[j][3] = 0.f;
-#pragma unroll
-    for (int k = 0; k < D / 16; ++k) {
-#pragma unroll
-      for (int j = 0; j < FT / 16; ++j) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(b0, b1, b2, b3, w1s + (16 * j + brow) * LDW + 16 * k + bcol);
-        mma(hid[2 * j], ha[k], b0, b1);
-        mma(hid[2 * j + 1], ha[k], b2, b3);
-      }
-    }
-    // relu(. + b1) rounded to bf16: accumulator layout -> A fragments
-    uint32_t fa[FT / 16][4];
-#pragma unroll
-    for (int j = 0; j < FT / 8; ++j) {
-      const int c = f0 + 8 * j + 2 * t4;
-      const float bb0 = __ldg(p.b1 + c), bb1 = __ldg(p.b1 + c + 1);
-      fa[j >> 1][(j & 1) * 2 + 0] =
-          pack_bf16(fmaxf(hid[j][0] + bb0, 0.f), fmaxf(hid[j][1] + bb1, 0.f));
-      fa[j >> 1][(j & 1) * 2 + 1] =
-          pack_bf16(fmaxf(hid[j][2] + bb0, 0.f), fmaxf(hid[j][3] + bb1, 0.f));
-    }
-#pragma unroll
-    for (int k = 0; k < FT / 16; ++k) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(b0, b1, b2, b3, w2s + (16 * j + brow) * LDW2 + 16 * k + bcol);
-        mma(out[2 * j], fa[k], b0, b1);
-        mma(out[2 * j + 1], fa[k], b2, b3);
-      }
-    }
-    __syncthreads();  // everyone is done with this stage
-    if (it + 2 < n_tiles) stage_ffn(sm + (it & 1) * STAGE, p, f0 + 2 * FT, tid);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
+  ffn_accumulate<THREADS>(out, ha, sm, p.w1, p.b1, p.w2, p.f, tid, lane);
 
   // out = LN2(h1 + ff + b2)
   const __nv_bfloat16* hrow = h1s + warp * TP * LDW;

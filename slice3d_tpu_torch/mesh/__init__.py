@@ -1,4 +1,5 @@
-"""Host-side mesh stage: masked grid refinement and surface-nets extraction.
+"""Host-side mesh stage: masked grid refinement, surface-nets extraction and
+OBJ text.
 
 The native kernels live in ``native/mesh_native.cpp`` and are built with g++
 on first use into the package's git-ignored build directory.
@@ -14,7 +15,8 @@ import numpy as np
 
 from ..native import build_library
 
-__all__ = ["Mesh", "isosurface", "refine_level", "load_library"]
+__all__ = ["Mesh", "isosurface", "refine_level", "obj_string", "export_obj",
+           "load_library"]
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native",
                     "mesh_native.cpp")
@@ -50,6 +52,8 @@ def load_library() -> ctypes.CDLL:
             _F32P, i64, ctypes.c_float, i64, _F32P, ctypes.POINTER(_I32P), _I64P,
         ]
         lib.s3d_free.argtypes = [ctypes.c_void_p]
+        lib.s3d_obj_serialize.restype = i64
+        lib.s3d_obj_serialize.argtypes = [_F32P, i64, _I64P, i64, ctypes.c_char_p, i64]
     return lib
 
 
@@ -102,3 +106,35 @@ def refine_level(grid: np.ndarray, threshold: float, dilate: int = 1):
     finally:
         lib.s3d_free(idx_p)
     return fine, idx
+
+
+def obj_string(mesh: Mesh) -> str:
+    """The mesh as Wavefront OBJ text (1-indexed faces), formatted natively;
+    byte-identical to :func:`obj_string_py`."""
+    nv, nf = len(mesh.vertices), len(mesh.faces)
+    if nv == 0:
+        return ""
+    lib = load_library()
+    v = np.ascontiguousarray(mesh.vertices, np.float32)
+    f = np.ascontiguousarray(mesh.faces, np.int64)
+    # "v " + 3 x (sign, digits, '.', 6 decimals) + separators: <= 64 B a row
+    cap = 64 * (nv + nf) + 16
+    buf = ctypes.create_string_buffer(cap)
+    n = lib.s3d_obj_serialize(v.ctypes.data_as(_F32P), nv, f.ctypes.data_as(_I64P), nf,
+                              buf, cap)
+    if n < 0:  # a coordinate too wide for the row budget
+        return obj_string_py(mesh)
+    return buf.raw[:n].decode("ascii")
+
+
+def obj_string_py(mesh: Mesh) -> str:
+    """The Python formatter the native serializer reproduces."""
+    rows = [f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n" for v in mesh.vertices]
+    rows += [f"f {t[0]} {t[1]} {t[2]}\n" for t in np.asarray(mesh.faces) + 1]
+    return "".join(rows)
+
+
+def export_obj(mesh: Mesh, path: str) -> None:
+    """Write the mesh as Wavefront OBJ (1-indexed faces)."""
+    with open(path, "w") as f:
+        f.write(obj_string(mesh))

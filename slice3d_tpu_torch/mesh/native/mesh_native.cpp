@@ -3,10 +3,12 @@
 //   * s3d_refine_level  — one coarse->fine level of dense masked refinement
 //                         (active cells, trilinear 2x upsample, indices of the
 //                         fine lattice points to evaluate);
-//   * s3d_isosurface_sn — surface-nets isosurface extraction.
+//   * s3d_isosurface_sn — surface-nets isosurface extraction;
+//   * s3d_obj_serialize — Wavefront OBJ text of a mesh.
 // C interface over flat buffers; outputs are malloc'd, freed by s3d_free.
 
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <cmath>
@@ -354,6 +356,34 @@ int s3d_isosurface_sn(const float* grid, int64_t nx, int64_t ny, int64_t nz,
   *out_nv = nv;
   *out_nf = nf;
   return 0;
+}
+
+
+// Wavefront OBJ text: "v %.6f %.6f %.6f\n" rows, then 1-indexed
+// "f %lld %lld %lld\n" rows, byte-identical to the Python formatter
+// (slice3d_tpu_torch/mesh/__init__.py::obj_string_py).  Writes at most `cap`
+// bytes and returns the count, or -1 if a row would not fit (the caller then
+// formats in Python).
+int64_t s3d_obj_serialize(const float* verts, int64_t nv, const int64_t* faces,
+                          int64_t nf, char* out, int64_t cap) {
+  int64_t at = 0;
+  for (int64_t i = 0; i < nv; ++i) {
+    if (cap - at < 64) return -1;
+    int n = std::snprintf(out + at, static_cast<size_t>(cap - at), "v %.6f %.6f %.6f\n",
+                          verts[3 * i], verts[3 * i + 1], verts[3 * i + 2]);
+    if (n < 0 || n >= cap - at) return -1;
+    at += n;
+  }
+  for (int64_t i = 0; i < nf; ++i) {
+    if (cap - at < 64) return -1;
+    int n = std::snprintf(out + at, static_cast<size_t>(cap - at), "f %lld %lld %lld\n",
+                          static_cast<long long>(faces[3 * i] + 1),
+                          static_cast<long long>(faces[3 * i + 1] + 1),
+                          static_cast<long long>(faces[3 * i + 2] + 1));
+    if (n < 0 || n >= cap - at) return -1;
+    at += n;
+  }
+  return at;
 }
 
 }  // extern "C"

@@ -29,13 +29,13 @@ class GTSliceModel(SDFTransformerHead):
     """``dtype`` is the compute dtype (None: the input's); parameters stay
     fp32 and are cast at use."""
 
-    def __init__(self, n_slices: int = 12, fused: bool = True,
+    def __init__(self, n_slices: int = 12, route: str = "fused",
                  dtype: Optional[torch.dtype] = None):
         pts_feat_extractor = relu_mlp(3, (32, 64, 128))
         fc_local = relu_mlp(C_LOCAL, (128, 128))
         super().__init__({"pts_feat_extractor": pts_feat_extractor, "fc_local": fc_local},
                          point_net=pts_feat_extractor, local_first=fc_local[0],
-                         local_rest=fc_local[1:], fused=fused)
+                         local_rest=fc_local[1:], route=route)
         self.n_slices = n_slices
         self.dtype = dtype
         self.img_encoder = VGG16BNBackbone(REF_ENCODER_BLOCKS)
@@ -54,11 +54,14 @@ class GTSliceModel(SDFTransformerHead):
         packed = pack_planes(self.fold_pyramids(self.encode(img_slices)), self.n_slices)
         return [p.contiguous() for p in packed]
 
-    def query_folded(self, packed, qry: torch.Tensor,
-                     trans_mat_tp: torch.Tensor) -> torch.Tensor:
-        """qry (B, M, 3) camera-aligned -> sdf (B, M) over folded planes."""
+    def query_folded(self, packed, qry: torch.Tensor, trans_mat_tp: torch.Tensor,
+                     obj_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """qry (b, M, 3) camera-aligned -> sdf (b, M) over folded planes;
+        ``obj_index`` (b,) maps each query row to a plane set of the batch
+        (default: row i to set i)."""
         uv = project_points(qry, trans_mat_tp)
-        return self.from_folded(qry, sample_packed_sum(packed, uv, self.n_slices))
+        sampled = sample_packed_sum(packed, uv, self.n_slices, obj_index=obj_index)
+        return self.from_folded(qry, sampled)
 
     def query_presampled(self, qry: torch.Tensor, sampled: torch.Tensor) -> torch.Tensor:
         """Head only, on folded features sampled elsewhere (the lattice-slab
@@ -67,10 +70,10 @@ class GTSliceModel(SDFTransformerHead):
 
 
 def init_gtslice(seed: int = 0, generator: Optional[torch.Generator] = None, *,
-                 n_slices: int = 12, fused: bool = True,
+                 n_slices: int = 12, route: str = "fused",
                  dtype: Optional[torch.dtype] = None) -> GTSliceModel:
     """A GTSlice with every weight and BatchNorm statistic drawn from
     ``generator`` (seeded with ``seed`` when not given; see
     ``random_init_``), in eval mode on the CPU."""
     g = generator if generator is not None else torch.Generator().manual_seed(seed)
-    return random_init_(GTSliceModel(n_slices, fused=fused, dtype=dtype), g)
+    return random_init_(GTSliceModel(n_slices, route=route, dtype=dtype), g)

@@ -16,9 +16,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_encoder import fused_encoder_layer, fused_encoder_layer_ref
+from ..ops.fused_ffn import fused_ffn
 
 __all__ = ["Conv2d", "ConvTranspose2d", "Linear", "BatchNorm2d", "GroupNorm",
-           "TransformerEncoderLayer", "TransformerEncoder"]
+           "TransformerEncoderLayer", "TransformerEncoder", "ROUTES"]
 
 
 class Conv2d(nn.Conv2d):
@@ -83,22 +84,80 @@ class _SelfAttention(nn.Module):
         self.out_proj = nn.Linear(d_model, d_model)
 
 
+def _layer_norm(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """LayerNorm (eps 1e-5) in v's dtype, op for op as the JAX layer's
+    ``_layer_norm`` with its compute dtype."""
+    mu = v.mean(-1, keepdim=True)
+    var = ((v - mu) ** 2).mean(-1, keepdim=True)
+    return (v - mu) * torch.rsqrt(var + 1e-5) * w.to(v.dtype) + b.to(v.dtype)
+
+
+def split_encoder_layer(x: torch.Tensor, params, *, n_heads: int = 4,
+                        head_tokens: int = 0) -> torch.Tensor:
+    """The split-encoder route: x (..., T, D) -> (..., T_out, D), T_out =
+    ``head_tokens or T``, in x's dtype.  Op for op the JAX layer with
+    ``fused_ffn=True`` and the whole-layer kernel switched off
+    (``slice3d_tpu/models/layers.py:184-211``): qkv; logits in x's dtype,
+    then cast to fp32 and scaled; fp32 softmax rounded to x's dtype; the
+    attention output and out-proj; residual + LayerNorm in x's dtype; the FFN
+    through ``fused_ffn`` (the kernel on the card); residual + LayerNorm."""
+    dt = x.dtype
+    d = x.shape[-1]
+    dh = d // n_heads
+
+    def linear(a, name):
+        return (torch.matmul(a, params[name + "weight"].to(dt).t())
+                + params[name + "bias"].to(dt))
+
+    qkv = linear(x, "self_attn.in_proj_")
+    q, k, v = qkv.split(d, dim=-1)
+    if head_tokens:
+        q = q[..., :head_tokens, :]
+        x = x[..., :head_tokens, :]
+
+    def heads(t):  # (..., T, D) -> (..., H, T, Dh)
+        return t.reshape(t.shape[:-1] + (n_heads, dh)).transpose(-2, -3)
+
+    q, k, v = heads(q), heads(k), heads(v)
+    scale = (1.0 / torch.sqrt(torch.tensor(float(dh)))).item()  # 1/sqrt(dh) in fp32
+    logits = torch.matmul(q, k.transpose(-1, -2)).to(torch.float32) * scale
+    probs = torch.softmax(logits, dim=-1).to(dt)
+    attn = torch.matmul(probs, v).transpose(-2, -3)  # (..., T, H, Dh)
+    attn = linear(attn.reshape(attn.shape[:-2] + (d,)), "self_attn.out_proj.")
+    x = _layer_norm(x + attn, params["norm1.weight"], params["norm1.bias"])
+    ff = fused_ffn(x, params["linear1.weight"], params["linear1.bias"],
+                   params["linear2.weight"], params["linear2.bias"])
+    return _layer_norm(x + ff, params["norm2.weight"], params["norm2.bias"])
+
+
+# the encoder layer's routes: the whole-layer kernel, the JAX package's
+# split-encoder fallback (attention as plain ops, the FFN kernel), the plain
+# version of the whole layer
+_ROUTE_FNS = {"fused": fused_encoder_layer, "split": split_encoder_layer,
+              "plain": fused_encoder_layer_ref}
+ROUTES = tuple(_ROUTE_FNS)
+
+
 class TransformerEncoderLayer(nn.Module):
     """Post-LN encoder layer with ``nn.TransformerEncoderLayer``'s defaults
     (ReLU, LayerNorm eps 1e-5), inference only, input (B, M, T, D).
 
     ``head_tokens`` keeps only the first tokens after attention (the head's
-    last layer reads token 0 alone).  ``fused`` sends a CUDA input to the
-    hand-written kernel; otherwise, and for a CPU input, the plain version
-    runs.
+    last layer reads token 0 alone).  ``route`` picks how it runs: ``"fused"``
+    sends a CUDA input to the whole-layer kernel, ``"split"`` runs attention
+    as plain ops and the FFN through the ``fused_ffn`` kernel, ``"plain"``
+    runs the whole layer's plain version; a CPU input takes the kernels'
+    plain versions on every route.
     """
 
     def __init__(self, d_model: int = 128, n_heads: int = 4, d_ff: int = 2048,
-                 head_tokens: int = 0, fused: bool = True):
+                 head_tokens: int = 0, route: str = "fused"):
         super().__init__()
         self.n_heads = n_heads
         self.head_tokens = head_tokens
-        self.fused = fused
+        if route not in _ROUTE_FNS:
+            raise ValueError(f"unknown encoder route {route!r}: expected one of {ROUTES}")
+        self.route = route
         self.self_attn = _SelfAttention(d_model)
         self.linear1 = nn.Linear(d_model, d_ff)
         self.linear2 = nn.Linear(d_ff, d_model)
@@ -107,21 +166,20 @@ class TransformerEncoderLayer(nn.Module):
         nn.init.xavier_uniform_(self.self_attn.in_proj_weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        params = dict(self.named_parameters())
-        fn = fused_encoder_layer if self.fused else fused_encoder_layer_ref
-        return fn(x, params, n_heads=self.n_heads, head_tokens=self.head_tokens)
+        return _ROUTE_FNS[self.route](x, dict(self.named_parameters()), n_heads=self.n_heads,
+                                      head_tokens=self.head_tokens)
 
 
 class TransformerEncoder(nn.Module):
     """Stack of post-LN layers; the last keeps ``final_head_tokens`` tokens."""
 
     def __init__(self, num_layers: int = 3, d_model: int = 128, n_heads: int = 4,
-                 d_ff: int = 2048, final_head_tokens: int = 0, fused: bool = True):
+                 d_ff: int = 2048, final_head_tokens: int = 0, route: str = "fused"):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d_model, n_heads, d_ff,
                                     final_head_tokens if i + 1 == num_layers else 0,
-                                    fused)
+                                    route)
             for i in range(num_layers))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

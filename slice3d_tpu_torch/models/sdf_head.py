@@ -18,7 +18,7 @@ point, and the rest of the local transform runs after sampling.
 
 from __future__ import annotations
 
-from typing import List, Mapping, Sequence
+from typing import List, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
@@ -45,18 +45,26 @@ def pack_planes(planes: Sequence[torch.Tensor], n_slices: int) -> List[torch.Ten
 
 
 def sample_packed_sum(packed: Sequence[torch.Tensor], uv: torch.Tensor, n_slices: int,
+                      obj_index: Optional[torch.Tensor] = None,
                       hat_max_rows: int = HAT_MAX_ROWS) -> torch.Tensor:
-    """Bilinearly sample packed planes [(B, h, w, S*d)] at uv (B, M, 2) in
+    """Bilinearly sample packed planes [(B, h, w, S*d)] at uv (b, M, 2) in
     [-1, 1] (align_corners=True, zero padding) and sum the levels.
-    Returns (B, M, S, d)."""
+    Returns (b, M, S, d).
+
+    ``obj_index`` (b,) int64 selects the plane set each uv row samples
+    (default: row i samples set i, b == B); the batched pipeline walks one
+    object's chunk at a time against the stacked planes of its batch.  The
+    gather levels fold the selection into the flat row index, so no plane is
+    copied."""
     b, m, _ = uv.shape
     x = uv[..., 0].to(torch.float32)
     y = uv[..., 1].to(torch.float32)
-    total, rest = hat_sample_sum(packed, uv, max_rows=hat_max_rows)
+    total, rest = hat_sample_sum(packed, uv, obj_index=obj_index, max_rows=hat_max_rows)
+    sel = torch.arange(b, device=uv.device) if obj_index is None else obj_index
     for plane in rest:
-        _, h, w, sd = plane.shape
-        flat_plane = plane.reshape(b * h * w, sd)
-        base = (torch.arange(b, device=uv.device) * (h * w))[:, None]
+        bp, h, w, sd = plane.shape
+        flat_plane = plane.reshape(bp * h * w, sd)
+        base = (sel * (h * w))[:, None]
         px = (x + 1.0) * 0.5 * (w - 1)
         py = (y + 1.0) * 0.5 * (h - 1)
         x0 = torch.floor(px)
@@ -98,17 +106,18 @@ class SDFTransformerHead(nn.Module):
     in that order, at the top of the model's ``state_dict``); ``point_net``
     embeds the query point, ``local_first`` is the local transform's first
     Linear (folded into the planes) and ``local_rest`` the rest of it, run
-    after sampling.
+    after sampling.  ``route`` is the encoder layers' route (``"fused"``,
+    ``"split"`` or ``"plain"``, see ``layers.TransformerEncoderLayer``).
     """
 
     def __init__(self, nets: Mapping[str, nn.Module], point_net: nn.Module,
                  local_first: nn.Linear, local_rest: nn.Module, d_model: int = 128,
-                 n_layers: int = 3, n_heads: int = 4, fused: bool = True):
+                 n_layers: int = 3, n_heads: int = 4, route: str = "fused"):
         super().__init__()
         for name, net in nets.items():
             self.add_module(name, net)
         self.att_decoder = TransformerEncoder(n_layers, d_model, n_heads,
-                                              final_head_tokens=1, fused=fused)
+                                              final_head_tokens=1, route=route)
         self.fc_out = nn.Sequential(Linear(d_model, 1))
         # the roles, kept out of the module tree: their parameters are
         # registered above under the reference's names

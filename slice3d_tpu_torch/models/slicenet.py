@@ -28,11 +28,11 @@ class SliceNetModel(SDFTransformerHead):
     """``dtype`` is the compute dtype (None: the input's); parameters stay
     fp32 and are cast at use."""
 
-    def __init__(self, n_slices: int = 12, fused: bool = True,
+    def __init__(self, n_slices: int = 12, route: str = "fused",
                  dtype: Optional[torch.dtype] = None):
         fc_p, fc_s = Linear(3, 128), Linear(992, 128)
         super().__init__({"fc_p": fc_p, "fc_s": fc_s}, point_net=fc_p, local_first=fc_s,
-                         local_rest=nn.Identity(), fused=fused)
+                         local_rest=nn.Identity(), route=route)
         self.n_slices = n_slices
         self.dtype = dtype
         self.slices_generator = SliceUNet(n_slices)
@@ -53,11 +53,14 @@ class SliceNetModel(SDFTransformerHead):
         packed = pack_planes(self.fold_pyramids(pyramids), self.n_slices)
         return [p.contiguous() for p in packed], slices_rec
 
-    def query_folded(self, packed, qry: torch.Tensor,
-                     trans_mat_tp: torch.Tensor) -> torch.Tensor:
-        """qry (B, M, 3) camera-aligned -> sdf (B, M) over folded planes."""
+    def query_folded(self, packed, qry: torch.Tensor, trans_mat_tp: torch.Tensor,
+                     obj_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """qry (b, M, 3) camera-aligned -> sdf (b, M) over folded planes;
+        ``obj_index`` (b,) maps each query row to a plane set of the batch
+        (default: row i to set i)."""
         uv = project_points(qry, trans_mat_tp)
-        return self.from_folded(qry, sample_packed_sum(packed, uv, self.n_slices))
+        sampled = sample_packed_sum(packed, uv, self.n_slices, obj_index=obj_index)
+        return self.from_folded(qry, sampled)
 
     def query_presampled(self, qry: torch.Tensor, sampled: torch.Tensor) -> torch.Tensor:
         """Head only, on folded features sampled elsewhere (the lattice-slab
@@ -67,7 +70,7 @@ class SliceNetModel(SDFTransformerHead):
 
 @torch.no_grad()
 def init_slicenet(seed: int = 0, generator: Optional[torch.Generator] = None, *,
-                  n_slices: int = 12, fused: bool = True,
+                  n_slices: int = 12, route: str = "fused",
                   dtype: Optional[torch.dtype] = None) -> SliceNetModel:
     """A SliceNet with random weights drawn from ``generator`` (seeded with
     ``seed`` when not given), in eval mode on the CPU.
@@ -77,7 +80,7 @@ def init_slicenet(seed: int = 0, generator: Optional[torch.Generator] = None, *,
     with zero biases; BatchNorm and LayerNorm keep their identity init.
     """
     g = generator if generator is not None else torch.Generator().manual_seed(seed)
-    model = SliceNetModel(n_slices, fused=fused, dtype=dtype)
+    model = SliceNetModel(n_slices, route=route, dtype=dtype)
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = mod.weight

@@ -36,14 +36,15 @@ def nvcc_path() -> str:
                        "the port's kernels")
 
 
-def build_library(name: str, sources: Sequence[str],
-                  command: Sequence[str]) -> ctypes.CDLL:
+def build_library(name: str, sources: Sequence[str], command: Sequence[str],
+                  headers: Sequence[str] = ()) -> ctypes.CDLL:
     """Compile ``sources`` into ``_build/lib<name>.so`` (if stale) and load it.
 
     ``command`` is the compiler invocation without its output and sources;
-    ``-o <lib> <sources>`` are appended.  The library is written under a
-    temporary name and renamed, so a concurrent loader never sees a partial
-    file.
+    ``-o <lib> <sources>`` are appended.  ``headers`` are the sources' own
+    includes: a newer one makes the library stale too.  The library is
+    written under a temporary name and renamed, so a concurrent loader never
+    sees a partial file.
     """
     with _LOCK:
         lock = _LOCKS.setdefault(name, threading.Lock())
@@ -54,7 +55,7 @@ def build_library(name: str, sources: Sequence[str],
         os.makedirs(BUILD_DIR, exist_ok=True)
         path = os.path.join(BUILD_DIR, f"lib{name}.so")
         stale = not os.path.exists(path) or any(
-            os.path.getmtime(path) < os.path.getmtime(s) for s in sources)
+            os.path.getmtime(path) < os.path.getmtime(s) for s in (*sources, *headers))
         if stale:
             tmp = f"{path}.{os.getpid()}.tmp"
             proc = subprocess.run(list(command) + ["-o", tmp, *sources],

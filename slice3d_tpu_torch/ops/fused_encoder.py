@@ -30,8 +30,9 @@ import torch
 
 __all__ = ["fused_encoder_layer", "fused_encoder_layer_ref", "launches"]
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "fused_encoder.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+_SRC = os.path.join(_CSRC, "fused_encoder.cu")
+_HDR = os.path.join(_CSRC, "ffn_tile.cuh")  # the FFN loop, shared with fused_ffn.cu
 
 # kernel launches made through fused_encoder_layer (see chip_smoke.py)
 launches = 0
@@ -104,7 +105,7 @@ def kernel():
         lib = build_library(
             "s3d_fused_encoder", [_SRC],
             [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"])
+             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"], headers=[_HDR])
         fn = lib.s3d_fused_encoder_layer
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -138,8 +139,8 @@ def fused_encoder_layer(x: torch.Tensor, params: Mapping[str, torch.Tensor], *,
                                     or any(p.requires_grad for p in params.values())):
         raise RuntimeError("fused_encoder_layer kernel is inference only (it has no "
                            "backward, like the TPU kernel it replaces): run it under "
-                           "torch.no_grad(), or build the layer with fused=False to "
-                           "train through the plain version")
+                           "torch.no_grad(), or build the layer with route='plain' "
+                           "to train through the plain version")
     b, m, t, d = x.shape
     f = params["linear1.weight"].shape[0]
     if x.dtype != torch.bfloat16:

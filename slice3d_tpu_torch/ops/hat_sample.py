@@ -37,12 +37,14 @@ def hat_sample_level(plane: torch.Tensor, px: torch.Tensor,
 
 
 def hat_sample_sum(planes: Sequence[torch.Tensor], uv: torch.Tensor,
-                   max_rows: int = 2048
+                   obj_index: Optional[torch.Tensor] = None, max_rows: int = 2048
                    ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor]]:
     """Sum of bilinear samples over the levels with ``h * w <= max_rows``.
 
-    planes: [(B, h, w, C)]; uv (B, M, 2) in [-1, 1].  Returns (total (B, M, C)
-    or None, the planes left for the gather path).
+    planes: [(B, h, w, C)]; uv (b, M, 2) in [-1, 1].  ``obj_index`` (b,)
+    selects the plane set each uv row samples (default: row i samples set i,
+    b == B).  Returns (total (b, M, C) or None, the planes left for the
+    gather path).
     """
     x = uv[..., 0].to(torch.float32)
     y = uv[..., 1].to(torch.float32)
@@ -53,6 +55,8 @@ def hat_sample_sum(planes: Sequence[torch.Tensor], uv: torch.Tensor,
         if h * w > max_rows:
             rest.append(plane)
             continue
+        if obj_index is not None:  # a small level: the copy is cheap
+            plane = plane.index_select(0, obj_index)
         s = hat_sample_level(plane, (x + 1.0) * 0.5 * (w - 1), (y + 1.0) * 0.5 * (h - 1))
         total = s if total is None else total + s
     return total, rest

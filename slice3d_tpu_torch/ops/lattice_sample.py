@@ -11,7 +11,7 @@ weights ``A[(i, col)] = relu(1 - |p_i - col|)`` (the separable form of
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Union
 
 import numpy as np
 import torch
@@ -34,19 +34,23 @@ def projection_is_separable(trans_mat_tp: np.ndarray, atol: float = 1e-6) -> boo
 
 
 def lattice_sample_sum(packed: Sequence[torch.Tensor], u_nodes: torch.Tensor,
-                       v_nodes: torch.Tensor, n_slices: int) -> torch.Tensor:
-    """Sample every level of ONE object's packed planes on G tensor grids
+                       v_nodes: torch.Tensor, n_slices: int,
+                       obj_index: Union[int, torch.Tensor] = 0) -> torch.Tensor:
+    """Sample every level of one object's packed planes on G tensor grids
     and sum the levels (the shared-plane slab-group mode).
 
-    packed: [(1, h, w, S*d)] folded planes; u_nodes (G, Nx) and v_nodes
-    (G, Ny) normalized [-1, 1] coords, one row per slab.  Returns
-    (G, Ny, Nx, S, d): the values ``sample_packed_sum`` gives for the slab
-    points, up to float reassociation.
+    packed: [(B, h, w, S*d)] folded planes of a batch; the scalar
+    ``obj_index`` names the object whose plane set every node row samples.
+    u_nodes (G, Nx) and v_nodes (G, Ny) are normalized [-1, 1] coords, one
+    row per slab.  Returns (G, Ny, Nx, S, d): the values
+    ``sample_packed_sum`` gives for the slab points, up to float
+    reassociation.
     """
+    obj = int(obj_index)
     total = None
     for plane in packed:
-        if plane.shape[0] != 1:
-            raise ValueError("lattice_sample_sum samples one object's planes")
+        if not 0 <= obj < plane.shape[0]:
+            raise ValueError(f"obj_index {obj} outside the batch of {plane.shape[0]}")
         _, h, w, sd = plane.shape
         px = (u_nodes.to(torch.float32) + 1.0) * 0.5 * (w - 1)
         py = (v_nodes.to(torch.float32) + 1.0) * 0.5 * (h - 1)
@@ -54,7 +58,7 @@ def lattice_sample_sum(packed: Sequence[torch.Tensor], u_nodes: torch.Tensor,
         a_v = hat_matrix_1d(py, h, plane.dtype)  # (G, Ny, h)
         g, ny = a_v.shape[:2]
         # rows first: all G slabs' hat rows against the one plane
-        tmp = torch.matmul(a_v.reshape(g * ny, h), plane[0].reshape(h, w * sd))
+        tmp = torch.matmul(a_v.reshape(g * ny, h), plane[obj].reshape(h, w * sd))
         s = torch.matmul(a_u[:, None], tmp.reshape(g, ny, w, sd))  # (G, Ny, Nx, sd)
         total = s if total is None else total + s
     g, ny, nx = total.shape[:3]

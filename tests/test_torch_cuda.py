@@ -10,8 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from slice3d_tpu_torch import camera
+from slice3d_tpu_torch.models import layers
+from slice3d_tpu_torch.models.slicenet import init_slicenet
 from slice3d_tpu_torch.ops import fused_encoder as fe
+from slice3d_tpu_torch.ops import fused_ffn as ff
 from slice3d_tpu_torch.ops import spatial_attention as sa
+from slice3d_tpu_torch.pipeline import Reconstructor
 
 D, F = 128, 2048
 # kernel vs plain spatial attention: bf16 rounding of the probabilities
@@ -158,3 +163,83 @@ def test_fused_encoder_kernel_refuses_autograd(card):
         fe.fused_encoder_layer(x, params)
     with torch.no_grad():
         assert fe.fused_encoder_layer(x, params).shape == (1, 4, 13, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 2000], ids=["one", "ragged", "many"])
+def test_fused_ffn_matches_plain(card, n):
+    """bf16 kernel vs the plain version on the same bf16 inputs: both round
+    h and the output to bf16 from fp32 sums, in another order (a flip of an
+    output in [2, 4) is 2^-6: hence rtol)."""
+    params = layer_params(50, card)
+    x = torch.from_numpy(np.random.default_rng(n).normal(size=(3, n, D)).astype(np.float32))
+    x = x.to(card).to(torch.bfloat16)
+    args = [params[k] for k in ("linear1.weight", "linear1.bias", "linear2.weight",
+                                "linear2.bias")]
+    before = ff.launches
+    got = ff.fused_ffn(x, *args)
+    torch.cuda.synchronize()
+    assert ff.launches == before + 1
+    want = ff.fused_ffn_ref(x, *args)
+    assert got.shape == want.shape == (3, n, D) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_fused_ffn_rejects_what_it_does_not_take(card):
+    params = layer_params(51, card)
+    args = [params[k] for k in ("linear1.weight", "linear1.bias", "linear2.weight",
+                                "linear2.bias")]
+    x = torch.zeros((4, D), device=card)
+    with pytest.raises(TypeError):  # fp32 has no instantiation
+        ff.fused_ffn(x, *args)
+    with pytest.raises(ValueError):  # F not a multiple of 64
+        ff.fused_ffn(x.to(torch.bfloat16), args[0][:100], args[1][:100], args[2][:, :100],
+                     args[3])
+    with pytest.raises(ValueError):  # a weight on the CPU
+        ff.fused_ffn(x.to(torch.bfloat16), args[0].cpu(), *args[1:])
+    with pytest.raises(RuntimeError, match="inference only"):
+        ff.fused_ffn(x.to(torch.bfloat16), args[0].requires_grad_(), *args[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_tokens", [0, 1])
+def test_split_route_on_the_card(card, head_tokens, monkeypatch):
+    """The split layer launches the FFN kernel once and no encoder kernel,
+    and agrees with itself on the FFN's plain version within bf16 flips of
+    the LayerNorm outputs."""
+    layer = layers.TransformerEncoderLayer(D, 4, F, head_tokens=head_tokens, route="split")
+    layer.load_state_dict({k: v.cpu() for k, v in layer_params(52, card).items()})
+    layer = layer.to(card)
+    x = torch.from_numpy(np.random.default_rng(9).normal(size=(2, 300, 13, D))
+                         .astype(np.float32)).to(card).to(torch.bfloat16)
+    before = (fe.launches, ff.launches)
+    with torch.no_grad():
+        got = layer(x)
+        torch.cuda.synchronize()
+        assert (fe.launches, ff.launches) == (before[0], before[1] + 1)
+        monkeypatch.setattr(layers, "fused_ffn", ff.fused_ffn_ref)
+        want = layer(x)
+    assert got.shape == want.shape == (2, 300, head_tokens or 13, D)
+    torch.testing.assert_close(got.float(), want.float(), atol=5e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_batched_reconstruction_on_the_card(card):
+    """B = 2 through the fused kernel: each object's field is that of a
+    batch-1 run, within bf16 rounding flips, and every chunk launched it."""
+    model = init_slicenet(0, dtype=torch.bfloat16)
+    rng = np.random.default_rng(4)
+    _, proj = camera.camera_matrices(0.0, 0.0, 1.2)
+    feeds = [{"img_input": rng.uniform(-1, 1, (64, 64, 3)).astype(np.float32),
+              "trans_mat_wo_rot_tp": proj.astype(np.float32)} for _ in range(2)]
+    kw = dict(resolution0=16, upsampling_steps=1, chunk_size=4096)
+    before = fe.launches
+    grids, stats = Reconstructor(model, batch_size=2, **kw).build_grids(feeds)
+    assert fe.launches > before
+    for feed, grid, st in zip(feeds, grids, stats):
+        one, one_stats = Reconstructor(model, **kw).build_grid(feed)
+        assert grid.shape == one.shape == (33, 33, 33) and np.isfinite(grid).all()
+        assert abs(st["n_points_evaluated"] - one_stats["n_points_evaluated"]) \
+            <= 0.01 * one_stats["n_points_evaluated"]
+        np.testing.assert_allclose(grid, one, atol=5e-2, rtol=0)

@@ -70,8 +70,8 @@ def test_encoder_layer_matches_pallas_interpret(monkeypatch, head_tokens):
     np.testing.assert_array_equal(wrapped.numpy(), ref.numpy())
     assert fe.launches == before
 
-    for fused in (True, False):
-        layer = TransformerEncoderLayer(D, 4, F, head_tokens=head_tokens, fused=fused)
+    for route in ("fused", "plain"):
+        layer = TransformerEncoderLayer(D, 4, F, head_tokens=head_tokens, route=route)
         layer.load_state_dict(params)
         with torch.no_grad():
             got = layer(torch.from_numpy(x))

@@ -38,7 +38,10 @@ def test_import_leaves_jax_out():
     code = ("import sys, slice3d_tpu_torch, slice3d_tpu_torch.pipeline, "
             "slice3d_tpu_torch.convert, slice3d_tpu_torch.diffusion.sampler, "
             "slice3d_tpu_torch.models.gtslice, slice3d_tpu_torch.train.train_ldm, "
-            "slice3d_tpu_torch.profile_training; "
+            "slice3d_tpu_torch.profile_training, slice3d_tpu_torch.serve, "
+            "slice3d_tpu_torch.reconstruct, slice3d_tpu_torch.config, "
+            "slice3d_tpu_torch.data.dataset, slice3d_tpu_torch.data.image, "
+            "slice3d_tpu_torch.models.build, slice3d_tpu_torch.ops.fused_ffn; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'slice3d_tpu' or m.startswith('slice3d_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -62,6 +65,10 @@ def test_no_jax_or_reference_imports(where):
     if where == "package":
         files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
                  if f.endswith(".py")]
+        rel = {os.path.relpath(f, PKG) for f in files}
+        assert {"serve.py", "reconstruct.py", "config.py", os.path.join("data", "image.py"),
+                os.path.join("data", "dataset.py"), os.path.join("ops", "fused_ffn.py"),
+                os.path.join("models", "build.py")} <= rel
     else:
         files = [os.path.join(ROOT, "chip_smoke.py")]
     assert files
@@ -165,9 +172,10 @@ def test_weight_bridge_round_trip_generation(part):
 
 @pytest.mark.parametrize("module,entry,library", [
     ("fused_encoder", "kernel", "s3d_fused_encoder"),
+    ("fused_ffn", "kernel", "s3d_fused_ffn"),
     ("spatial_attention", "kernel", "s3d_spatial_attention"),
     ("spatial_attention", "kernel_bwd", "s3d_spatial_attention_bwd")],
-    ids=["fused_encoder", "spatial_attention", "spatial_attention_bwd"])
+    ids=["fused_encoder", "fused_ffn", "spatial_attention", "spatial_attention_bwd"])
 def test_kernel_entry_point_is_bound_once(module, entry, library, monkeypatch):
     """A kernel wrapper resolves its library on the first launch only: later
     launches never reach ``native`` (no compiler search, no locks)."""
@@ -178,9 +186,10 @@ def test_kernel_entry_point_is_bound_once(module, entry, library, monkeypatch):
     ops = importlib.import_module(f"slice3d_tpu_torch.ops.{module}")
     builds = []
 
-    def fake_build(name, sources, command):
+    def fake_build(name, sources, command, headers=()):
         builds.append(name)
         return types.SimpleNamespace(s3d_fused_encoder_layer=lambda *args: 0,
+                                     s3d_fused_ffn=lambda *args: 0,
                                      s3d_spatial_attention=lambda *args: 0,
                                      s3d_spatial_attention_bwd=lambda *args: 0)
 
