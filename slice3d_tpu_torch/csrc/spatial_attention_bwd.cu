@@ -1,9 +1,9 @@
 // Softmax attention over the LDM UNet's flattened feature maps: backward (bf16).
 //
 // Replaces the TPU kernel slice3d_tpu/ops/pallas_attention.py::_attention_backward
-// (body _attn_bwd_kernel).  For every (batch, head), from q, k, v, the forward's
-// output o and the row log-sum-exp L it saved (csrc/spatial_attention.cu), and
-// the output's gradient do, all (B, H, T, DH):
+// (pallas_call at :150, body _attn_bwd_kernel).  For every (batch, head), from
+// q, k, v, the forward's output o and the row log-sum-exp L it saved
+// (csrc/spatial_attention.cu), and the output's gradient do, all (B, H, T, DH):
 //
 //   P  = softmax(q k^T * scale)              recomputed, P = exp2(S c - L)
 //   dP = do v^T                                fp32
@@ -12,196 +12,101 @@
 //
 // The TPU kernel holds a 128 x T block of fp32 P, dP and dS in VMEM (6 MB at
 // T = 4096) and sums rowsum(dP * P); a Hopper block has 227 KB of shared
-// memory.  This one streams 64-row tiles and never forms anything (T, T)-shaped:
-// D = rowsum(do * o), equal to rowsum(dP * P) in exact arithmetic, comes from
-// a small pre-pass, and the saved L gives P without a second softmax.  o is
-// bf16, so D differs from the TPU kernel's by o's rounding; the plain version
-// (spatial_attention_bwd_ref) follows the TPU kernel and chip_smoke.py states
-// the tolerance between them.
+// memory.  This one streams 64-query tiles and never forms anything
+// (T, T)-shaped: D = rowsum(do * o), equal to rowsum(dP * P) in exact
+// arithmetic, comes from a small pre-pass, and the saved L gives P without a
+// second softmax.  o is bf16, so D differs from the TPU kernel's by o's
+// rounding; the plain version (spatial_attention_bwd_ref) follows the TPU
+// kernel and chip_smoke.py states the tolerance between them.
 //
-// What bounds it: 10 * T^2 * DH flops on the tensor cores per (batch, head)
-// and one exponential per logit on the special function units (16 exp2 per
-// clock per SM).  At the UNet's head widths (DH 24 at T 4096, DH 48 at T 1024)
-// the two take about as long; the bytes (q, k, v, o, do read, dq, dk, dv
-// written once: 0.1 GB at the ds 1 block) are an order of magnitude less.
+// What bounds it on the H100: 10 T^2 DH flops per (batch, head) on the tensor
+// cores (five products; 0.26 ms for the ds 1 block (8, 8, 4096, 24), and DH 24
+// runs two of them to depth 32) and one exponential per logit on the special
+// function units (16 ex2 per clock per SM: 0.26 ms at ds 1 and 1980 MHz).  The
+// bytes (q, k, v, o, do read, dq, dk, dv written once: 0.1 GB at ds 1) are an
+// order of magnitude less.  The design this one replaced ran two passes (dk/dv
+// keys-major, dq queries-major) that recomputed S and dP each: 7 products, two
+// exponentials per logit (0.51 ms of ex2 at ds 1), ~3.3 GB of L2 traffic, all
+// on mma.sync.
 //
-// Design (simple and right first; wgmma/TMA and a single pass with atomics are
-// later work).  Three kernels on the caller's stream:
+// Design: one pass over key blocks, and two small kernels around it:
 //   * delta: D = rowsum(do * o) in fp32, one thread per row;
-//   * dk/dv: a block of 4 warps owns 64 keys of one (batch, head), each warp 16
-//     keys, kept as bf16 A fragments of K and V in registers; the 64-query tiles
-//     of Q, dO, L and D stream through a double-buffered cp.async ring in
-//     static shared memory.  Per tile, S^T = K Q^T and dP^T = V dO^T on
-//     mma.sync m16n8k16 (bf16 in, fp32 accumulate; DH 24 padded to 32 with zero
-//     columns in shared memory), P^T and dS^T in registers, repacked as bf16 A
-//     fragments for dV += P^T dO and dK += dS^T Q, whose B fragments come from
-//     ldmatrix.trans of the dO and Q tiles;
-//   * dq: a block owns 64 queries (Q, dO as A fragments, L and D per row in
-//     registers) and streams 64-key tiles of K and V: S = Q K^T, dP = dO V^T,
-//     dS, then dQ += dS K with K's B fragments from ldmatrix.trans.
-// The two passes recompute S and dP each (7 products instead of 5, and two
-// exponentials per logit) so that no block adds into another's output: no
-// atomics, and the result does not depend on the order the blocks run in.
+//   * main: a block owns 128 keys of one (batch, head) and runs 3
+//     warpgroups.  K and V stay in shared memory (loaded once by TMA) and
+//     64-query tiles of Q, dO, L and D stream through a 5-stage TMA / mbarrier
+//     ring, one swizzled box a tile (attention_sm90.cuh).
+//     - Two consumer warpgroups own 64 keys each.  Per tile: S^T = K Q^T and
+//       dP^T = V dO^T on wgmma m64n64k16 (operands in shared memory; DH 24
+//       runs to depth 32 on the zero columns TMA fills), P^T = exp2(S^T c - L)
+//       with one FFMA and one ex2 per logit, dS^T = P^T (dP^T - D) scale
+//       rounded to bf16, then dV += P^T dO and dK += dS^T Q on wgmma with
+//       P^T / dS^T from registers (RS) and dO / Q as MN-major operands: dk, dv
+//       stay in registers for the whole pass.  Each stores its half of dS^T
+//       into shared memory (two buffers) and goes on to the next tile.
+//     - The third warpgroup (setmaxnreg 56 against the consumers' 224): one
+//       of its threads issues every load; all of it runs dQ = dS K over the
+//       128 keys per tile (wgmma, both operands MN-major) and adds the fp32
+//       (64 x DH) partial into the dq_accum scratch with one TMA bulk
+//       reduce-add.  So the consumers never wait for each other, and wait
+//       for dQ only when they run two tiles ahead of it.
+//     5 products, one exponential per logit.  Each block starts at another
+//     query tile, so the blocks of one head do not add into the same rows at
+//     once;
+//   * dq: dq_accum (fp32) rounded to bf16.
+// dk and dv do not depend on the order the blocks run in; dq does: its fp32
+// sum over the key blocks is taken in the order the reduce-adds reach L2, so
+// two runs may differ in its last bf16 bit (tests/test_torch_cuda.py bounds
+// that).  The wrapper allocates delta and dq_accum (zeroed); the kernels
+// allocate nothing.
+// Registers and shared memory (ptxas -v on the H100, sm_90a): 168 registers
+// a thread at launch (setmaxnreg then moves them), no spills; dynamic shared
+// memory 108,664 B at DH 24 and 178,296 B at DH 48.  What still holds it back
+// is in PERF.md.
 //
-// Only bf16 with T a multiple of 64 and DH 24 or 48 (the UNet's) is taken; the
-// Python wrapper (slice3d_tpu_torch/ops/spatial_attention.py) raises on
-// anything else.  Plain C interface, built with nvcc into a shared library and
-// bound with ctypes.
+// Only bf16 with T a multiple of 128 and DH 24 or 48 (the UNet's), every
+// tensor 16-byte aligned, is taken; the Python wrapper
+// (slice3d_tpu_torch/ops/spatial_attention.py) raises on anything else.  Plain
+// C interface, built with nvcc into a shared library and bound with ctypes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_sm90.cuh"
+
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int BT = WARPS * 16;  // rows per block (keys or queries) and per tile
+using namespace s3d_attn;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+constexpr int BKEYS = 128;  // keys per block (64 per consumer warpgroup)
+constexpr int BQT = 64;     // queries per streamed tile
+constexpr int STAGES = 5;   // Q / dO / L / D ring depth
+// 2 consumer warpgroups, setmaxnreg 56 / 224; 168 registers a thread at
+// launch, one block an SM
+using WS = WarpSpecialised<2, 56, 224>;
+constexpr int THREADS = WS::THREADS;
+constexpr int DQ_WG = 2;       // the warpgroup that loads the tiles and runs dQ
+constexpr int BAR_DQ = 1;      // named barrier 1: the dQ warpgroup's partial
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm volatile("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy a (BT, DH) bf16 tile from global memory into a (BT, LD) shared tile
-// (16-byte chunks; the padding columns are left alone).
-template <int DH, int LD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int tid) {
-  constexpr int CH = DH / 8;  // 16-byte chunks per row
-  for (int i = tid; i < BT * CH; i += THREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    cp_async16(dst + r * LD + c, src + size_t(r) * DH + c);
-  }
-}
-
-// Copy BT fp32 values (16 chunks of 16 bytes).
-__device__ __forceinline__ void load_row_values(float* dst, const float* src, int tid) {
-  if (tid < BT / 4) cp_async16(dst + 4 * tid, src + 4 * tid);
-}
-
-// Zero the padding columns DH .. LD-1 of a (BT, LD) shared tile.
-template <int DH, int LD>
-__device__ __forceinline__ void zero_pad(__nv_bfloat16* tile, int tid) {
-  for (int i = tid; i < BT * (LD - DH); i += THREADS) {
-    tile[(i / (LD - DH)) * LD + DH + i % (LD - DH)] = __float2bfloat16(0.f);
-  }
-}
-
-// A fragments (16 rows x DP) of a warp's 16 rows of a (BT, LD) shared tile.
-template <int KS, int LD>
-__device__ __forceinline__ void load_a(uint32_t (*a)[4], const __nv_bfloat16* tile,
-                                       int warp, int lane) {
-  const __nv_bfloat16* p = tile + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) ldsm_x4(a[kk], p + 16 * kk);
-}
-
-// acc (16 x 64, fp32) = A (16 x DP) times the (64, LD) tile's rows transposed:
-// the tile's rows are the n dimension (non-transposed ldmatrix).
-template <int KS, int LD>
-__device__ __forceinline__ void mma_rows(float (*acc)[4], const uint32_t (*a)[4],
-                                         const __nv_bfloat16* tile, int lane) {
-  const int brow = (lane & 7) + ((lane >> 4) << 3);
-  const int bcol = ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int j = 0; j < BT / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-    for (int j = 0; j < BT / 16; ++j) {
-      uint32_t b[4];
-      ldsm_x4(b, tile + (16 * j + brow) * LD + 16 * kk + bcol);
-      mma(acc[2 * j], a[kk], b[0], b[1]);
-      mma(acc[2 * j + 1], a[kk], b[2], b[3]);
-    }
-  }
-}
-
-// out (16 x DH, fp32) += X (16 x 64, the accumulators x rounded to bf16 A
-// fragments) times the (64, LD) tile: the tile's rows are the k dimension
-// (transposed ldmatrix).
-template <int NT, int LD>
-__device__ __forceinline__ void mma_cols(float (*out)[4], const float (*x)[4],
-                                         const __nv_bfloat16* tile, int lane) {
-  const int vrow = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int vcol = (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-#pragma unroll
-    for (int jj = 0; jj < (NT + 1) / 2; ++jj) {
-      uint32_t b[4];
-      ldsm_x4_t(b, tile + (16 * kk + vrow) * LD + 16 * jj + vcol);
-      mma(out[2 * jj], a, b[0], b[1]);
-      if (2 * jj + 1 < NT) mma(out[2 * jj + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// Write a warp's 16 x DH fp32 accumulators as bf16 rows starting at row0.
-template <int NT, int DH>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (*acc)[4],
-                                           int row0, int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    __nv_bfloat16* p = dst + size_t(row0 + g + 8 * half) * DH;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      *reinterpret_cast<uint32_t*>(p + 8 * j + 2 * t4) =
-          pack_bf16(acc[j][2 * half], acc[j][2 * half + 1]);
-    }
-  }
-}
+template <int DH>
+struct Bwd {
+  using R = HeadRows<DH>;
+  static constexpr int KV_BYTES = BKEYS * R::ROW;
+  static constexpr int T_BYTES = BQT * R::ROW;  // a Q or dO tile
+  static constexpr int STAGE_BYTES = (2 * T_BYTES + 2 * BQT * 4 + 1023) / 1024 * 1024;
+  static constexpr int DS_BYTES = (BQT / 8) * BKEYS * 16;  // dS, MN-major: slabs of 8 queries
+  static constexpr int DQ_BYTES = BQT * DH * 4;            // the fp32 dq partial of a tile
+  static constexpr int OFF_V = KV_BYTES;
+  static constexpr int OFF_STAGE = 2 * KV_BYTES;
+  static constexpr int OFF_DS = OFF_STAGE + STAGES * STAGE_BYTES;
+  static constexpr int OFF_DQ = OFF_DS + 2 * DS_BYTES;
+  static constexpr int OFF_BAR = OFF_DQ + 2 * DQ_BYTES;
+  static constexpr int N_BARS = 2 * STAGES + 5;  // full, empty, kv, ds_full[2], ds_empty[2]
+  static constexpr int SMEM = OFF_BAR + N_BARS * 8 + 1024;  // + alignment slack
+  static constexpr uint32_t KV_TX = 2 * KV_BYTES;
+  static constexpr uint32_t TILE_TX = 2 * T_BYTES + 2 * BQT * 4;
+};
 
 // D = rowsum(do * o) in fp32, one thread per row.
 template <int DH>
@@ -221,241 +126,280 @@ __global__ void attention_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
   delta[r] = s;
 }
 
-// dk, dv for 64 keys of one (batch, head) per block.
-template <int DH>
-__global__ void __launch_bounds__(THREADS) attention_bwd_dkdv_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int t, float scale,
-    float scale_log2) {
-  constexpr int DP = (DH + 15) / 16 * 16;  // k-padded width of the head dim
-  constexpr int LD = DP + 8;                // shared row stride (bank-conflict free)
-  constexpr int KS = DP / 16;
-  constexpr int NT = DH / 8;
-  constexpr int NS = BT / 8;
-  __shared__ __align__(16) __nv_bfloat16 ks[BT * LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[BT * LD];
-  __shared__ __align__(16) __nv_bfloat16 qs[2][BT * LD];
-  __shared__ __align__(16) __nv_bfloat16 dos[2][BT * LD];
-  __shared__ __align__(16) float ls[2][BT];
-  __shared__ __align__(16) float dls[2][BT];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int t4 = lane & 3;
-  const int n_blocks = t / BT;
-  const int bh = blockIdx.x / n_blocks;
-  const int k0 = (blockIdx.x % n_blocks) * BT;
-  const size_t base = size_t(bh) * t;
-  const __nv_bfloat16* qg = q + base * DH;
-  const __nv_bfloat16* dog = dout + base * DH;
-  const float* lg = lse + base;
-  const float* dg = delta + base;
-
-  zero_pad<DH, LD>(ks, tid);
-  zero_pad<DH, LD>(vs, tid);
-  zero_pad<DH, LD>(qs[0], tid);
-  zero_pad<DH, LD>(qs[1], tid);
-  zero_pad<DH, LD>(dos[0], tid);
-  zero_pad<DH, LD>(dos[1], tid);
-  load_tile<DH, LD>(ks, k + (base + k0) * DH, tid);
-  load_tile<DH, LD>(vs, v + (base + k0) * DH, tid);
-  const int n_tiles = t / BT;
-  for (int s = 0; s < 2; ++s) {
-    if (s < n_tiles) {
-      load_tile<DH, LD>(qs[s], qg + size_t(s) * BT * DH, tid);
-      load_tile<DH, LD>(dos[s], dog + size_t(s) * BT * DH, tid);
-      load_row_values(ls[s], lg + s * BT, tid);
-      load_row_values(dls[s], dg + s * BT, tid);
-    }
-    cp_async_commit();
-  }
-
-  uint32_t ka[KS][4], va[KS][4];
-  float dk_acc[NT][4], dv_acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-  }
-
-#pragma unroll 1
-  for (int it = 0; it < n_tiles; ++it) {
-    cp_async_wait<1>();
-    __syncthreads();
-    if (it == 0) {
-      load_a<KS, LD>(ka, ks, warp, lane);
-      load_a<KS, LD>(va, vs, warp, lane);
-    }
-    const __nv_bfloat16* qt = qs[it & 1];
-    const __nv_bfloat16* dt = dos[it & 1];
-    const float* lt = ls[it & 1];
-    const float* dlt = dls[it & 1];
-
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x the tile's 64 queries
-    float s[NS][4], dp[NS][4];
-    mma_rows<KS, LD>(s, ka, qt, lane);
-    mma_rows<KS, LD>(dp, va, dt, lane);
-
-    // P^T = exp2(S^T c - L) and dS^T = P^T (dP^T - D) scale; accumulator
-    // element 2 half + e is key g + 8 half, query 8 j + 2 t4 + e
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float l = lt[8 * j + 2 * t4 + e], d = dlt[8 * j + 2 * t4 + e];
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int i = 2 * half + e;
-          const float p = exp2_approx(s[j][i] * scale_log2 - l);
-          s[j][i] = p;
-          dp[j][i] = p * (dp[j][i] - d) * scale;
-        }
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q over the tile's queries
-    mma_cols<NT, LD>(dv_acc, s, dt, lane);
-    mma_cols<NT, LD>(dk_acc, dp, qt, lane);
-
-    __syncthreads();  // everyone is done with this stage
-    if (it + 2 < n_tiles) {
-      const int s2 = it + 2;
-      load_tile<DH, LD>(qs[it & 1], qg + size_t(s2) * BT * DH, tid);
-      load_tile<DH, LD>(dos[it & 1], dog + size_t(s2) * BT * DH, tid);
-      load_row_values(ls[it & 1], lg + s2 * BT, tid);
-      load_row_values(dls[it & 1], dg + s2 * BT, tid);
-    }
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-
-  const int row0 = k0 + warp * 16;
-  store_rows<NT, DH>(dk + base * DH, dk_acc, row0, lane);
-  store_rows<NT, DH>(dv + base * DH, dv_acc, row0, lane);
+// dq = bf16(dq_accum), four values a thread.
+__global__ void attention_bwd_dq_kernel(const float4* __restrict__ acc,
+                                        uint2* __restrict__ dq, size_t n4) {
+  const size_t i = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const float4 x = acc[i];
+  dq[i] = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
 }
 
-// dq for 64 queries of one (batch, head) per block.
 template <int DH>
-__global__ void __launch_bounds__(THREADS) attention_bwd_dq_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(THREADS, 1) attention_bwd_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dq, int t, float scale, float scale_log2) {
-  constexpr int DP = (DH + 15) / 16 * 16;
-  constexpr int LD = DP + 8;
-  constexpr int KS = DP / 16;
-  constexpr int NT = DH / 8;
-  constexpr int NS = BT / 8;
-  __shared__ __align__(16) __nv_bfloat16 qs[BT * LD];
-  __shared__ __align__(16) __nv_bfloat16 dos[BT * LD];
-  __shared__ __align__(16) __nv_bfloat16 ks[2][BT * LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[2][BT * LD];
+    float* __restrict__ dq_accum, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int t, float c, float scale) {
+  using C = Bwd<DH>;
+  using R = typename C::R;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ks = smem;
+  uint8_t* vs = smem + C::OFF_V;
+  uint8_t* stages = smem + C::OFF_STAGE;  // per stage: Q tile, dO tile, L, D
+  uint8_t* dss = smem + C::OFF_DS;        // dS of two tiles
+  float* dqs = reinterpret_cast<float*>(smem + C::OFF_DQ);  // dq partials of two tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kvbar = empty + STAGES;
+  uint64_t* ds_full = kvbar + 1;     // [2]: both consumers stored dS
+  uint64_t* ds_empty = ds_full + 2;  // [2]: the dQ product read it
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2;
-  const int n_blocks = t / BT;
-  const int bh = blockIdx.x / n_blocks;
-  const int q0 = (blockIdx.x % n_blocks) * BT;
-  const size_t base = size_t(bh) * t;
-  const __nv_bfloat16* kg = k + base * DH;
-  const __nv_bfloat16* vg = v + base * DH;
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t4 = lane & 3;
+  const bool leader = (tid & 127) == 0;
+  const int n_kblocks = t / BKEYS;
+  const int bh = blockIdx.x / n_kblocks;
+  const int kb = blockIdx.x % n_kblocks;
+  const int k0 = kb * BKEYS;
+  const int row0 = bh * t;  // first row of this head in the (bh t, DH) views
+  const int n_tiles = t / BQT;
+  // the query tile of step j: each key block starts elsewhere, so the blocks
+  // of a head add into different dq rows at a time
+  auto tile_of = [&](int j) { return (j + kb * (n_tiles / n_kblocks)) % n_tiles; };
 
-  zero_pad<DH, LD>(qs, tid);
-  zero_pad<DH, LD>(dos, tid);
-  zero_pad<DH, LD>(ks[0], tid);
-  zero_pad<DH, LD>(ks[1], tid);
-  zero_pad<DH, LD>(vs[0], tid);
-  zero_pad<DH, LD>(vs[1], tid);
-  load_tile<DH, LD>(qs, q + (base + q0) * DH, tid);
-  load_tile<DH, LD>(dos, dout + (base + q0) * DH, tid);
-  const int n_tiles = t / BT;
-  for (int s = 0; s < 2; ++s) {
-    if (s < n_tiles) {
-      load_tile<DH, LD>(ks[s], kg + size_t(s) * BT * DH, tid);
-      load_tile<DH, LD>(vs[s], vg + size_t(s) * BT * DH, tid);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
     }
-    cp_async_commit();
+    mbar_init(kvbar, 1);
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&ds_full[b], 256);  // every consumer thread, after its stores
+      mbar_init(&ds_empty[b], 1);
+    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  // this thread's rows: q0 + 16 warp + g (half 0) and + 8 (half 1)
-  float l_row[2], d_row[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const size_t row = base + q0 + warp * 16 + g + 8 * half;
-    l_row[half] = lse[row];
-    d_row[half] = delta[row];
-  }
+  // swizzled rows: 64 rows of K / V as K-major A and a Q / dO tile as K-major
+  // B (a k16 step is 32 bytes along the row: contraction over DH); a Q / dO
+  // tile as MN-major B (contraction over the queries) and K as MN-major B
+  // (over the keys; a k16 step is 16 rows); dS (un-swizzled slabs) as
+  // MN-major A (over the keys)
+  auto kv_a = [&](const uint8_t* tile, int kk) {
+    return smem_desc(tile + wg * 64 * R::ROW + kk * 32, 16, R::SBO, R::LAYOUT);
+  };
+  auto tile_k = [&](const uint8_t* tile, int kk) {
+    return smem_desc(tile + kk * 32, 16, R::SBO, R::LAYOUT);
+  };
+  auto rows_mn = [&](const uint8_t* tile, int kk) {
+    return smem_desc(tile + kk * 16 * R::ROW, 16, R::SBO, R::LAYOUT);
+  };
+  auto ds_mn = [&](const uint8_t* tile, int kk) {
+    return smem_desc(tile + kk * 16 * 16, 128, BKEYS * 16);
+  };
 
-  uint32_t qa[KS][4], doa[KS][4];
-  float dq_acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) dq_acc[j][0] = dq_acc[j][1] = dq_acc[j][2] = dq_acc[j][3] = 0.f;
-
+  if (wg == DQ_WG) {
+    // ---- the dQ warpgroup: one thread keeps the tiles coming; all of it
+    // runs dQ = dS K (64 queries x DH over the block's 128 keys) per tile and
+    // adds the fp32 partial into dq_accum with one bulk reduce-add
+    regs_dec<WS::PRODUCER>();
+    auto load_tile = [&](int j) {
+      const int s = j % STAGES, q0 = tile_of(j) * BQT, qrow = row0 + q0;
+      if (j >= STAGES) mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+      uint8_t* st = stages + s * C::STAGE_BYTES;
+      mbar_expect_tx(&full[s], C::TILE_TX);
+      tma_load_3d(st, &tq, &full[s], 0, q0, bh);
+      tma_load_3d(st + C::T_BYTES, &tdo, &full[s], 0, q0, bh);
+      bulk_load(st + 2 * C::T_BYTES, lse + qrow, BQT * 4, &full[s]);
+      bulk_load(st + 2 * C::T_BYTES + BQT * 4, delta + qrow, BQT * 4, &full[s]);
+    };
+    if (leader) {
+      mbar_expect_tx(kvbar, C::KV_TX);
+      tma_load_3d(ks, &tk, kvbar, 0, k0, bh);
+      tma_load_3d(vs, &tv, kvbar, 0, k0, bh);
+      for (int j = 0; j < STAGES && j < n_tiles; ++j) load_tile(j);
+    }
+    mbar_wait(kvbar, 0);
 #pragma unroll 1
-  for (int it = 0; it < n_tiles; ++it) {
-    cp_async_wait<1>();
-    __syncthreads();
-    if (it == 0) {
-      load_a<KS, LD>(qa, qs, warp, lane);
-      load_a<KS, LD>(doa, dos, warp, lane);
+    for (int j = 0; j < n_tiles; ++j) {
+      // the tile STAGES - 1 ahead, into the stage the consumers freed last
+      if (leader && j >= 1 && j + STAGES - 1 < n_tiles) load_tile(j + STAGES - 1);
+      const int b = j & 1;
+      mbar_wait(&ds_full[b], (j >> 1) & 1);
+      float dq_acc[DH / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKEYS / 16; ++kk)
+        wgmma_ss<DH, 1, 1>(dq_acc, ds_mn(dss + b * C::DS_BYTES, kk), rows_mn(ks, kk), kk);
+      wgmma_commit();
+      reg_fence(dq_acc);
+      wgmma_wait<0>();
+      reg_fence(dq_acc);
+      if (leader) {
+        mbar_arrive(&ds_empty[b]);
+        bulk_wait_read<1>();  // the reduce-add of tile j - 2 has read buffer b
+      }
+      named_sync(BAR_DQ, 128);
+      float* buf = dqs + b * (BQT * DH);
+#pragma unroll
+      for (int jn = 0; jn < DH / 8; ++jn) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          *reinterpret_cast<float2*>(buf + (wl * 16 + g + 8 * h) * DH + 8 * jn + 2 * t4) =
+              make_float2(dq_acc[4 * jn + 2 * h], dq_acc[4 * jn + 2 * h + 1]);
+        }
+      }
+      fence_proxy_async();
+      named_sync(BAR_DQ, 128);
+      if (leader)
+        bulk_reduce_add_f32(dq_accum + (size_t(row0) + size_t(tile_of(j)) * BQT) * DH, buf,
+                            C::DQ_BYTES);
     }
-    const __nv_bfloat16* kt = ks[it & 1];
-    const __nv_bfloat16* vt = vs[it & 1];
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries x the tile's 64 keys
-    float s[NS][4], dp[NS][4];
-    mma_rows<KS, LD>(s, qa, kt, lane);
-    mma_rows<KS, LD>(dp, doa, vt, lane);
-
-    // dS = P (dP - D) scale; accumulator element 2 half + e is query g + 8 half
+    if (leader) bulk_wait<0>();
+  } else {
+    // ---- a consumer warpgroup: 64 keys; dk, dv in registers for the pass
+    regs_inc<WS::CONSUMER>();
+    float dk_acc[DH / 2], dv_acc[DH / 2];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
+    for (int i = 0; i < DH / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    mbar_wait(kvbar, 0);
+#pragma unroll 1
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % STAGES, b = j & 1;
+      const uint8_t* qt = stages + s * C::STAGE_BYTES;
+      const uint8_t* dot = qt + C::T_BYTES;
+      const float* lt = reinterpret_cast<const float*>(qt + 2 * C::T_BYTES);
+      const float* dlt = lt + BQT;
+      uint8_t* dsb = dss + b * C::DS_BYTES;
+      mbar_wait(&full[s], (j / STAGES) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T: this warpgroup's 64 keys x 64 queries
+      float sacc[32], dpacc[32];
+      reg_fence(dk_acc);
+      reg_fence(dv_acc);
+      wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int half = i >> 1;
-        const float p = exp2_approx(s[j][i] * scale_log2 - l_row[half]);
-        dp[j][i] = p * (dp[j][i] - d_row[half]) * scale;
+      for (int kk = 0; kk < R::DEPTH; ++kk)
+        wgmma_ss<64, 0, 0>(sacc, kv_a(ks, kk), tile_k(qt, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < R::DEPTH; ++kk)
+        wgmma_ss<64, 0, 0>(dpacc, kv_a(vs, kk), tile_k(dot, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(sacc);
+      reg_fence(dpacc);
+
+      // P^T = exp2(S^T c - L) and dS^T = P^T (dP^T - D) scale; element
+      // 4 jn + 2 h + e is key 16 wl + g + 8 h, query 8 jn + 2 t4 + e
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn) {
+        const float2 lq = *reinterpret_cast<const float2*>(lt + 8 * jn + 2 * t4);
+        const float2 dd = *reinterpret_cast<const float2*>(dlt + 8 * jn + 2 * t4);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * jn + 2 * h;
+          const float p0 = exp2_approx(fmaf(sacc[i], c, -lq.x));
+          const float p1 = exp2_approx(fmaf(sacc[i + 1], c, -lq.y));
+          sacc[i] = p0;
+          sacc[i + 1] = p1;
+          dpacc[i] = p0 * (dpacc[i] - dd.x) * scale;
+          dpacc[i + 1] = p1 * (dpacc[i + 1] - dd.y) * scale;
+        }
+      }
+      uint32_t pa[4][4], da[4][4];
+      acc_to_a(pa, sacc);
+      acc_to_a(da, dpacc);
+
+      // dV += P^T dO and dK += dS^T Q over the tile's queries
+      reg_fence(pa);
+      reg_fence(da);
+      reg_fence(dk_acc);
+      reg_fence(dv_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQT / 16; ++kk) wgmma_rs<DH, 1>(dv_acc, pa[kk], rows_mn(dot, kk));
+#pragma unroll
+      for (int kk = 0; kk < BQT / 16; ++kk) wgmma_rs<DH, 1>(dk_acc, da[kk], rows_mn(qt, kk));
+      wgmma_commit();
+      reg_fence(dk_acc);
+      reg_fence(dv_acc);
+
+      // dS^T into shared memory for the dQ warpgroup, under the products:
+      // query slab q / 8, key row, 16 bytes a row
+      if (j >= 2) mbar_wait(&ds_empty[b], ((j >> 1) & 1) ^ 1);
+      {
+        const int key = wg * 64 + wl * 16 + g;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {  // queries 16 kk + 8 half + 2 t4
+            uint8_t* slab = dsb + (2 * kk + half) * BKEYS * 16 + 4 * t4;
+            *reinterpret_cast<uint32_t*>(slab + key * 16) = da[kk][2 * half];
+            *reinterpret_cast<uint32_t*>(slab + (key + 8) * 16) = da[kk][2 * half + 1];
+          }
+        }
+      }
+      fence_proxy_async();
+      mbar_arrive(&ds_full[b]);
+
+      wgmma_wait<0>();
+      reg_fence(dv_acc);
+      reg_fence(dk_acc);
+      reg_fence(pa);
+      reg_fence(da);
+      if (leader) mbar_arrive(&empty[s]);
+    }
+
+    // dk, dv of this warpgroup's 64 keys, bf16
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const size_t row = size_t(row0) + k0 + wg * 64 + wl * 16 + g + 8 * h;
+#pragma unroll
+      for (int jn = 0; jn < DH / 8; ++jn) {
+        const int i = 4 * jn + 2 * h;
+        *reinterpret_cast<uint32_t*>(dk + row * DH + 8 * jn + 2 * t4) =
+            pack_bf16(dk_acc[i], dk_acc[i + 1]);
+        *reinterpret_cast<uint32_t*>(dv + row * DH + 8 * jn + 2 * t4) =
+            pack_bf16(dv_acc[i], dv_acc[i + 1]);
       }
     }
-
-    // dQ += dS K over the tile's keys
-    mma_cols<NT, LD>(dq_acc, dp, kt, lane);
-
-    __syncthreads();
-    if (it + 2 < n_tiles) {
-      load_tile<DH, LD>(ks[it & 1], kg + size_t(it + 2) * BT * DH, tid);
-      load_tile<DH, LD>(vs[it & 1], vg + size_t(it + 2) * BT * DH, tid);
-    }
-    cp_async_commit();
   }
-  cp_async_wait<0>();
-
-  store_rows<NT, DH>(dq + base * DH, dq_acc, q0 + warp * 16, lane);
 }
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-           const float* lse, float* delta, void* dq, void* dk, void* dv, int bh, int t,
-           float scale, cudaStream_t stream) {
+           const float* lse, float* delta, float* dq_accum, void* dq, void* dk, void* dv,
+           int bh, int t, float scale, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  const float scale_log2 = scale * 1.4426950408889634f;
-  const int rows = bh * t;
-  attention_bwd_delta_kernel<DH><<<(rows + 255) / 256, 256, 0, stream>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta, rows);
+  static int prepared = 1;  // 1: not yet; then prepare_ws_kernel's result
+  if (prepared == 1)
+    prepared = prepare_ws_kernel(attention_bwd_kernel<DH>, Bwd<DH>::SMEM, WS::MIN_LAUNCH);
+  if (prepared != 0) return prepared;
+  CUtensorMap tq, tk, tv, tdo;
+  constexpr int W = HeadRows<DH>::W;
+  if (encode_rows(&tq, q, bh, t, DH, W, BQT) || encode_rows(&tk, k, bh, t, DH, W, BKEYS) ||
+      encode_rows(&tv, v, bh, t, DH, W, BKEYS) || encode_rows(&tdo, dout, bh, t, DH, W, BQT))
+    return -2;
+  const int n_rows = bh * t;
+  attention_bwd_delta_kernel<DH><<<(n_rows + 255) / 256, 256, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta, n_rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  const dim3 grid(unsigned(bh) * unsigned(t / BT));
-  attention_bwd_dkdv_kernel<DH><<<grid, THREADS, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), t, scale, scale_log2);
+  attention_bwd_kernel<DH><<<unsigned(bh) * unsigned(t / BKEYS), THREADS, Bwd<DH>::SMEM,
+                             stream>>>(tq, tk, tv, tdo, lse, delta, dq_accum,
+                                       static_cast<bf16*>(dk), static_cast<bf16*>(dv), t,
+                                       scale * 1.4426950408889634f, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  attention_bwd_dq_kernel<DH><<<grid, THREADS, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), t, scale,
-      scale_log2);
+  const size_t n4 = size_t(n_rows) * DH / 4;
+  attention_bwd_dq_kernel<<<unsigned((n4 + 255) / 256), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(dq_accum), static_cast<uint2*>(dq), n4);
   return int(cudaGetLastError());
 }
 
@@ -464,20 +408,24 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 extern "C" {
 
 // q, k, v, o (the forward's output), dout, dq, dk, dv: contiguous bf16
-// (bh, t, dh); lse: the forward's fp32 (bh, t) row log-sum-exp (log2 units);
-// delta: fp32 (bh, t) scratch.  Returns 0 on success, the cudaError_t of a
-// launch, or -1 for a shape the kernels do not take.
+// (bh, t, dh), 16-byte aligned; lse: the forward's fp32 (bh, t) row
+// log-sum-exp (log2 units); delta: fp32 (bh, t) scratch; dq_accum: fp32
+// (bh, t, dh) scratch, zero on entry.  Returns 0 on success, the cudaError_t
+// of a launch, -1 for a shape the kernels do not take, -2 if a tensor map
+// cannot be encoded, -3 if the kernel was built with too few registers for
+// its setmaxnreg.
 int s3d_spatial_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                              const void* dout, const void* lse, void* delta, void* dq,
-                              void* dk, void* dv, int bh, int t, int dh, float scale,
+                              const void* dout, const void* lse, void* delta, void* dq_accum,
+                              void* dq, void* dk, void* dv, int bh, int t, int dh, float scale,
                               void* stream) {
-  if (bh <= 0 || t <= 0 || t % BT != 0) return -1;
+  if (bh <= 0 || t <= 0 || t % BKEYS != 0 || t % BQT != 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
+  float* acc = static_cast<float*>(dq_accum);
   switch (dh) {
-    case 24: return launch<24>(q, k, v, o, dout, l, d, dq, dk, dv, bh, t, scale, s);
-    case 48: return launch<48>(q, k, v, o, dout, l, d, dq, dk, dv, bh, t, scale, s);
+    case 24: return launch<24>(q, k, v, o, dout, l, d, acc, dq, dk, dv, bh, t, scale, s);
+    case 48: return launch<48>(q, k, v, o, dout, l, d, acc, dq, dk, dv, bh, t, scale, s);
     default: return -1;
   }
 }

@@ -14,7 +14,8 @@ log-sum-exp) and whose backward is the backward kernel.  Without grad it
 calls the forward kernel alone, as the sampler does.  A CPU tensor takes the
 plain versions (``spatial_attention_ref``, ``spatial_attention_bwd_ref``); a
 CUDA tensor takes the kernels, which take bf16 (B, H, T, DH) with T a
-multiple of 64 and DH 24 or 48 (the UNet's heads), and raise on anything
+multiple of ``KERNEL_T_MULTIPLE`` (a multiple of each of their tiles along T,
+``KERNEL_TILES``) and DH 24 or 48 (the UNet's heads), and raise on anything
 else.
 
 The plain versions follow the TPU kernels' rounding points.  Forward: fp32
@@ -25,9 +26,13 @@ logits and softmax recomputed, ``dp = do v^T`` in fp32,
 to q's dtype, ``dk = ds^T q`` and ``dv = p(do's dtype)^T do`` accumulated
 in fp32 over the blocks and cast to k's and v's dtype.  (fp64 inputs compute
 in fp64, for ``gradcheck``.)  The forward kernel runs an online softmax and
-rounds the unnormalised ``exp(s - m)`` to bf16; the backward kernel takes
-``rowsum(do o)`` from the bf16 output for ``rowsum(dp p)``: on the card the
-kernels and the plain versions differ by those roundings.
+rounds the unnormalised ``exp(s - m)`` to bf16.  The backward kernel makes
+one pass over blocks of keys: it recomputes the probabilities with one
+exponential per logit from the saved log-sum-exp, takes ``rowsum(do o)``
+from the bf16 output for ``rowsum(dp p)``, and sums dq in fp32 across the
+key blocks in the order their additions reach the card's L2 cache, which
+changes from run to run (dk and dv do not).  On the card the kernels and the
+plain versions differ by those roundings.
 """
 
 from __future__ import annotations
@@ -41,11 +46,12 @@ from torch.autograd.function import once_differentiable
 
 __all__ = ["spatial_attention", "spatial_attention_ref", "spatial_attention_bwd_ref",
            "SpatialAttention", "attention_kernel_eligible", "KERNEL_HEAD_DIMS",
-           "launches", "launches_bwd"]
+           "KERNEL_T_MULTIPLE", "KERNEL_TILES", "launches", "launches_bwd"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _SRC = os.path.join(_CSRC, "spatial_attention.cu")
 _SRC_BWD = os.path.join(_CSRC, "spatial_attention_bwd.cu")
+_HDR = os.path.join(_CSRC, "attention_sm90.cuh")  # included by both
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -55,7 +61,11 @@ launches = 0
 launches_bwd = 0
 
 KERNEL_HEAD_DIMS = (24, 48)  # the UNet's heads at ds 1 and ds 2
-KERNEL_T_MULTIPLE = 64
+# the kernels' tiles along T, by source and constant (csrc/<source>'s
+# constexpr ints): T must be a multiple of each
+KERNEL_TILES = {"spatial_attention.cu": {"BQ": 128, "BK": 128},
+                "spatial_attention_bwd.cu": {"BKEYS": 128, "BQT": 64}}
+KERNEL_T_MULTIPLE = 128
 BWD_BLOCK_Q = 128  # the TPU backward's query block: max(block_q // 4, 128)
 
 
@@ -107,7 +117,7 @@ def spatial_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _build(name: str, src: str):
     from ..native import build_library, nvcc_path
 
-    return build_library(name, [src], [nvcc_path(), *_NVCC_FLAGS])
+    return build_library(name, [src], [nvcc_path(), *_NVCC_FLAGS], headers=[_HDR])
 
 
 _KERNEL = None  # the forward library's entry point, bound once per process
@@ -135,7 +145,7 @@ def kernel_bwd():
     if _KERNEL_BWD is None:
         fn = _build("s3d_spatial_attention_bwd", _SRC_BWD).s3d_spatial_attention_bwd
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
                        + [ctypes.c_float, ctypes.c_void_p])
         _KERNEL_BWD = fn
     return _KERNEL_BWD
@@ -143,7 +153,7 @@ def kernel_bwd():
 
 def _check_kernel_inputs(*named: Tuple[str, torch.Tensor]) -> None:
     """Raise unless every tensor is a bf16 (B, H, T, DH) on q's card with T a
-    multiple of 64 and DH 24 or 48."""
+    multiple of ``KERNEL_T_MULTIPLE`` and DH 24 or 48."""
     q = named[0][1]
     if q.device.type != "cuda":
         raise ValueError(f"spatial_attention: unsupported device {q.device}")
@@ -162,6 +172,13 @@ def _check_kernel_inputs(*named: Tuple[str, torch.Tensor]) -> None:
         raise ValueError(f"spatial_attention kernel: unsupported shape T={t} DH={dh} "
                          f"(T a multiple of {KERNEL_T_MULTIPLE}, DH in "
                          f"{KERNEL_HEAD_DIMS})")
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous at a 16-byte aligned address (the kernels' TMA loads
+    need it; a view into a larger tensor may start anywhere)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _forward_kernel(q, k, v, scale: float, with_lse: bool
@@ -193,12 +210,13 @@ def _backward_kernel(q, k, v, out, lse, do, scale: float):
     if q.numel() == 0:
         return dq, dk, dv
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    dq_accum = torch.zeros((b, h, t, dh), dtype=torch.float32, device=q.device)
     launch = kernel_bwd()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
-                    lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                    dv.data_ptr(), b * h, t, dh, float(scale), stream)
+                    lse.data_ptr(), delta.data_ptr(), dq_accum.data_ptr(), dq.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), b * h, t, dh, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"spatial_attention backward kernel launch failed: CUDA error {rc}")
     launches_bwd += 1
@@ -217,7 +235,7 @@ class SpatialAttention(torch.autograd.Function):
             ctx.save_for_backward(q, k, v)
             return spatial_attention_ref(q, k, v, scale)
         _check_kernel_inputs(("q", q), ("k", k), ("v", v))
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
         out, lse = _forward_kernel(q, k, v, scale, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
@@ -231,7 +249,7 @@ class SpatialAttention(torch.autograd.Function):
         else:
             q, k, v, out, lse = ctx.saved_tensors
             _check_kernel_inputs(("q", q), ("do", do))
-            dq, dk, dv = _backward_kernel(q, k, v, out, lse, do.contiguous(), ctx.scale)
+            dq, dk, dv = _backward_kernel(q, k, v, out, lse, _aligned(do), ctx.scale)
         return dq, dk, dv, None
 
 
@@ -241,12 +259,14 @@ def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     differentiable in q, k and v.
 
     A CPU tensor takes the plain versions; a CUDA tensor launches the kernels
-    or raises.
+    or raises.  A kernel traps if one of its internal waits has not completed
+    after 10 s (a fault, not a slow card: csrc/attention_sm90.cuh).  A trap
+    is a sticky CUDA error: every later CUDA call of the process fails, and
+    only a new process recovers.
     """
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return SpatialAttention.apply(q, k, v, scale)
     if q.device.type == "cpu":
         return spatial_attention_ref(q, k, v, scale)
     _check_kernel_inputs(("q", q), ("k", k), ("v", v))
-    return _forward_kernel(q.contiguous(), k.contiguous(), v.contiguous(), scale,
-                           with_lse=False)[0]
+    return _forward_kernel(_aligned(q), _aligned(k), _aligned(v), scale, with_lse=False)[0]

@@ -15,6 +15,8 @@ JAX one's shape condition.
 """
 
 import math
+import os
+import re
 
 import numpy as np
 import pytest
@@ -74,9 +76,24 @@ def test_eligibility_mirrors_jax(monkeypatch, t):
     forced on: on the card the port's rule is the shape rule alone)."""
     monkeypatch.setattr(jax_attention, "pallas_available", lambda: True)
     assert sa.attention_kernel_eligible(t) == jax_attention.attention_kernel_eligible(t)
-    # every eligible T is one the kernel's tiling takes
+    # every eligible T is one the kernel's tiling takes, and the wrapper's
+    # multiple covers every tile of both kernels
     if sa.attention_kernel_eligible(t):
         assert t % sa.KERNEL_T_MULTIPLE == 0
+    assert all(sa.KERNEL_T_MULTIPLE % tile == 0
+               for tiles in sa.KERNEL_TILES.values() for tile in tiles.values())
+
+
+def test_kernel_tiles_are_the_sources():
+    """``KERNEL_TILES`` states the constants of the kernels' sources, so a
+    tile changed in a .cu file without the wrapper fails here on the CPU
+    (the UNet would otherwise send a length that the kernel refuses)."""
+    for name, tiles in sa.KERNEL_TILES.items():
+        with open(os.path.join(sa._CSRC, name)) as f:
+            src = f.read()
+        for const, size in tiles.items():
+            found = re.findall(rf"^constexpr int {const} = (\d+);", src, flags=re.M)
+            assert found == [str(size)], (name, const, found)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -114,6 +114,9 @@ def test_spatial_attention_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError):  # ragged T
         y = torch.zeros((1, 2, 1000, 24), device=card, dtype=torch.bfloat16)
         sa.spatial_attention(y, y, y, 0.2)
+    with pytest.raises(ValueError):  # T a multiple of 64 but not of the 128-row tiles
+        y = torch.zeros((1, 2, 1088, 24), device=card, dtype=torch.bfloat16)
+        sa.spatial_attention(y, y, y, 0.2)
     with pytest.raises(ValueError):  # a head width with no instantiation
         y = torch.zeros((1, 2, 1024, 40), device=card, dtype=torch.bfloat16)
         sa.spatial_attention(y, y, y, 0.2)
@@ -141,6 +144,49 @@ def test_spatial_attention_backward_matches_plain(card, shape):
     for g, w in zip(got, sa.spatial_attention_bwd_ref(q, k, v, do, scale)):
         assert g.shape == w.shape and g.dtype == torch.bfloat16
         torch.testing.assert_close(g.float(), w.float(), **ATTN_BWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [24, 48])
+def test_spatial_attention_one_head_at_the_shortest_length(card, dh):
+    """bh = 1 and T = 1024, the shortest length the UNet routes to the
+    kernels: one block row of each grid, both ways."""
+    shape = (1, 1, 1024, dh)
+    rng = np.random.default_rng(dh + 2)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32) * s)
+                   .to(card).to(torch.bfloat16) for s in (2.0, 2.0, 1.0, 1.0))
+    scale = dh ** -0.5
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (sa.launches, sa.launches_bwd)
+    out = sa.spatial_attention(*qkv, scale)
+    got = torch.autograd.grad(out, qkv, do)
+    torch.cuda.synchronize()
+    assert (sa.launches, sa.launches_bwd) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out.detach().float(),
+                               sa.spatial_attention_ref(q, k, v, scale).float(), **ATTN_TOL)
+    for g, w in zip(got, sa.spatial_attention_bwd_ref(q, k, v, do, scale)):
+        torch.testing.assert_close(g.float(), w.float(), **ATTN_BWD_TOL)
+
+
+@pytest.mark.cuda
+def test_spatial_attention_backward_repeats(card):
+    """Two runs on the same inputs: dk and dv bit-equal (each block owns its
+    keys), dq within one bf16 ulp of its magnitude (its fp32 sum over the
+    key blocks is taken in the order their additions reach L2)."""
+    shape = (2, 4, 4096, 24)
+    rng = np.random.default_rng(77)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32) * s)
+                   .to(card).to(torch.bfloat16) for s in (2.0, 2.0, 1.0, 1.0))
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = sa.spatial_attention(*qkv, 24 ** -0.5)
+    runs = [torch.autograd.grad(out, qkv, do, retain_graph=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    (dq1, dk1, dv1), (dq2, dk2, dv2) = runs
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    mag = torch.maximum(dq1.float().abs(), dq2.float().abs())
+    # one bf16 ulp of |x|: 2^(floor(log2 |x|) - 7)
+    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+    assert bool(((dq1.float() - dq2.float()).abs() <= ulp).all())
 
 
 @pytest.mark.cuda
