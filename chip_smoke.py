@@ -14,6 +14,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      fused_encoder_layer at N = 33,800 points, spatial_attention at
      (8, 8, 4096, 24) and (8, 8, 1024, 48), fused_ffn at N = 439,400 and
      33,800 rows (the split route's full and trimmed layers of one slab group);
+     the two head kernels also print achieved TFLOP/s, the share of the
+     bound, the weight bytes each call fetches from L2 (counted from the
+     tiling, not read from the card) and the resident blocks per SM (the
+     occupancy API's answer);
   4. the regression path: ``Reconstructor.reconstruct`` on 3 seeded 128x128
      images (SliceNet, random seeded weights, bf16, res0 64 / up 2 / chunk
      32768), with every kernel's launch count read around that run;
@@ -242,16 +246,28 @@ def phase_build():
     print(f"[build] all built in {time.perf_counter() - t0:.2f} s")
     for line in native.BUILD_LOG:
         print(line)
-    lib = ctypes.CDLL(os.path.join(native.BUILD_DIR, "libs3d_fused_ffn.so"))  # built above
-    print(f"[build] fused_ffn: {lib.s3d_fused_ffn_smem_bytes()} bytes of dynamic shared "
-          f"memory per block")
+
+
+def kernel_rates(ms: float, flops: int, bound_ms: float) -> dict:
+    """Achieved TFLOP/s and the share of the bound of a kernel timed at ms."""
+    return {"tflops": flops / ms / 1e9, "bound_share": bound_ms / ms}
+
+
+def resident_blocks(query, *args) -> int:
+    """Blocks of a kernel an SM holds at once, from its library's query."""
+    blocks = ctypes.c_int()
+    check(query(*args, ctypes.byref(blocks)) == 0, "occupancy query failed")
+    return blocks.value
 
 
 def phase_kernels(model):
+    """fused_encoder_layer against its plain version at N = 33,800 points of
+    13 tokens, both head_tokens."""
     from slice3d_tpu_torch.ops import fused_encoder as fe
 
     g = torch.Generator(device="cuda").manual_seed(1)
     layers = model.att_decoder.layers
+    lib = fe.library()
     modes = []
     lib_layer = torch.nn.TransformerEncoderLayer(128, 4, 2048, batch_first=True)
     lib_layer = lib_layer.eval().to("cuda", torch.bfloat16)
@@ -280,15 +296,23 @@ def phase_kernels(model):
                 library_ms = cuda_ms(lambda: lib_layer(xs), 20)
         flops, nbytes = encoder_work(N_POINTS, 13, head_tokens)
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        rates = kernel_rates(ms, flops, bound)
+        grid = torch.cuda.get_device_properties(0).multi_processor_count
+        print(f"[kernel] fused_encoder_layer head_tokens={head_tokens}: "
+              f"{rates['tflops']:.1f} TFLOP/s, {100 * rates['bound_share']:.1f}% of the bound, "
+              f"L2 weight bytes per call (counted from the tiling) "
+              f"{fe.weight_bytes_per_call(N_POINTS, 13, head_tokens, grid=grid) / 1e9:.4f} GB, "
+              f"{resident_blocks(lib.s3d_fused_encoder_blocks_per_sm, head_tokens)} resident "
+              f"block(s) per SM, {grid} blocks")
         modes.append({"head_tokens": head_tokens, "n_points": N_POINTS,
                       "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+                      "library_ms": library_ms, "bound_ms": bound,
                       "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                      "gflop": flops / 1e9, "mbytes": nbytes / 1e6})
+                      "gflop": flops / 1e9, "mbytes": nbytes / 1e6, **rates})
         print(f"[kernel] head_tokens={head_tokens}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {library_ms} ms, bound "
-              f"{max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB)")
+              f"{bound:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
     del lib_layer
     return modes
 
@@ -308,6 +332,7 @@ def phase_ffn(model):
 
     g = torch.Generator(device="cuda").manual_seed(4)
     layers = model.att_decoder.layers
+    lib = ff.library()
     modes = []
     for n, layer in zip(FFN_ROWS, (layers[0], layers[2])):
         w1, b1 = layer.linear1.weight, layer.linear1.bias
@@ -330,13 +355,20 @@ def phase_ffn(model):
                 torch.relu(torch.nn.functional.linear(x, lw1, lb1)), lw2, lb2), 20)
         flops, nbytes = ffn_work(n)
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        rates = kernel_rates(ms, flops, bound)
+        print(f"[kernel] fused_ffn N={n}: {rates['tflops']:.1f} TFLOP/s, "
+              f"{100 * rates['bound_share']:.1f}% of the bound, L2 weight bytes per call "
+              f"(counted from the tiling: {ff.TILE_ROWS}-row tiles) "
+              f"{ff.weight_bytes_per_call(n) / 1e9:.4f} GB, "
+              f"{resident_blocks(lib.s3d_fused_ffn_blocks_per_sm)} resident block(s) per SM")
         modes.append({"n_rows": n, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+                      "library_ms": library_ms, "bound_ms": bound,
                       "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                      "gflop": flops / 1e9, "mbytes": nbytes / 1e6})
+                      "gflop": flops / 1e9, "mbytes": nbytes / 1e6, **rates})
         print(f"[kernel] fused_ffn N={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"(F.linear -> relu -> F.linear, bf16) {library_ms:.4f} ms, bound "
-              f"{max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+              f"{bound:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
     return modes
 
 
@@ -1209,7 +1241,8 @@ def main() -> int:
                "tol": f"|k-p| <= {TOL['atol']} + {TOL['rtol']}*|p|",
                "ms": full["ms"], "kernel_ms": full["ms"], "plain_ms": full["plain_ms"],
                "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
-               "library_ms": full["library_ms"], "modes": modes}
+               "library_ms": full["library_ms"], "tflops": full["tflops"],
+               "bound_share": full["bound_share"], "modes": modes}
     ds1 = attn_modes[0]
     attention = {"name": "spatial_attention", "route": "cuda",
                  "source": "slice3d_tpu_torch/csrc/spatial_attention.cu",
@@ -1244,7 +1277,8 @@ def main() -> int:
            "tol": f"|k-p| <= {FFN_TOL['atol']} + {FFN_TOL['rtol']}*|p|",
            "ms": full_ffn["ms"], "kernel_ms": full_ffn["ms"], "plain_ms": full_ffn["plain_ms"],
            "bound_ms": full_ffn["bound_ms"], "bound_by": full_ffn["bound_by"],
-           "library_ms": full_ffn["library_ms"], "modes": ffn_modes}
+           "library_ms": full_ffn["library_ms"], "tflops": full_ffn["tflops"],
+           "bound_share": full_ffn["bound_share"], "modes": ffn_modes}
     print(json.dumps({"generation": {k: v for k, v in gen.items() if k != "counts"},
                       "training": {k: v for k, v in train.items() if k != "counts"},
                       "serving": serving, "split": split}))

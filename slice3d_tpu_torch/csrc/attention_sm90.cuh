@@ -1,5 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the spatial attention kernels
-// (csrc/spatial_attention.cu, csrc/spatial_attention_bwd.cu).
+// Hopper (sm_90a) building blocks shared by the port's hand-written kernels:
+// the spatial attention kernels (csrc/spatial_attention.cu,
+// csrc/spatial_attention_bwd.cu) and, through csrc/ffn_tile.cuh, the SDF
+// head's (csrc/fused_encoder.cu, csrc/fused_ffn.cu).
 //
 //   * mbarriers: init, arrive, arrive.expect_tx, try_wait.parity.  A wait
 //     that has not completed after 10 s of the card's global timer
@@ -7,16 +9,17 @@
 //     so a lost arrival fails the launch instead of hanging the card.  A trap
 //     is a sticky error: it poisons the process's CUDA context, every later
 //     CUDA call in the process fails, and only a new process recovers;
-//   * TMA: 3-D tile loads (cp.async.bulk.tensor.3d, the tensor map passed as a
-//     __grid_constant__ CUtensorMap), 1-D bulk loads, and the fp32 bulk
-//     reduce-add into global memory;
+//   * TMA: 2-D and 3-D tile loads (cp.async.bulk.tensor, the tensor map
+//     passed as a __grid_constant__ CUtensorMap), 1-D bulk loads, and the
+//     fp32 bulk reduce-add into global memory;
 //   * wgmma: the warpgroup's fences, commit and wait, shared-memory matrix
 //     descriptors, and m64nNk16 bf16 products with fp32 accumulators, A from
 //     shared memory (SS) or from registers (RS);
 //   * named barriers and setmaxnreg for warp-specialised blocks;
 //   * the online-softmax step of the forward;
 //   * on the host: the tensor maps, encoded through the driver entry point
-//     that cudaGetDriverEntryPoint returns (no -lcuda at link time).
+//     that cudaGetDriverEntryPoint returns (no -lcuda at link time), and the
+//     grid and occupancy of a persistent kernel.
 //
 // Shared-memory tiles.  A tile of q, k, v, do rows (head width DH 24 or 48)
 // arrives by one TMA box of W = 32 or 64 columns (the columns past DH arrive
@@ -117,6 +120,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -232,8 +244,21 @@ struct HeadRows {
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
-  static_assert(N == 24 || N == 48 || N == 64, "no such wgmma shape here");
-  if constexpr (N == 64) {
+  static_assert(N == 24 || N == 48 || N == 64 || N == 128, "no such wgmma shape here");
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
+        : S3D_D4(0), S3D_D4(4), S3D_D4(8), S3D_D4(12), S3D_D4(16), S3D_D4(20), S3D_D4(24),
+          S3D_D4(28), S3D_D4(32), S3D_D4(36), S3D_D4(40), S3D_D4(44), S3D_D4(48), S3D_D4(52),
+          S3D_D4(56), S3D_D4(60)
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -268,8 +293,21 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
-  static_assert(N == 24 || N == 48, "no such wgmma shape here");
-  if constexpr (N == 48) {
+  static_assert(N == 24 || N == 48 || N == 128, "no such wgmma shape here");
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : S3D_D4(0), S3D_D4(4), S3D_D4(8), S3D_D4(12), S3D_D4(16), S3D_D4(20), S3D_D4(24),
+          S3D_D4(28), S3D_D4(32), S3D_D4(36), S3D_D4(40), S3D_D4(44), S3D_D4(48), S3D_D4(52),
+          S3D_D4(56), S3D_D4(60)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+  } else if constexpr (N == 48) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
@@ -378,6 +416,44 @@ inline int encode_rows(CUtensorMap* map, const void* ptr, uint64_t heads, uint64
                         box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -2;
+}
+
+// A map of a row-major bf16 (rows, cols) matrix whose rows lie row_bytes
+// apart, read in boxes of 64 columns x box_rows rows with TMA's 128-byte
+// swizzle (the layout a K-major wgmma operand of 64-column halves reads).
+// Rows past `rows` arrive as zeros.  Returns 0, or -2 on failure.
+inline int encode_sw128(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols,
+                        uint64_t row_bytes, uint32_t box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return -2;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                        strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -2;
+}
+
+// Blocks of a persistent kernel: one an SM.  Returns 0 or a cudaError_t.
+inline int persistent_grid(int* grid) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(grid, cudaDevAttrMultiProcessorCount, dev);
+  return int(err);
+}
+
+// Blocks of `kernel` that an SM holds at once (its shared memory allowed
+// first).  Returns 0 or a cudaError_t.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int threads, int smem_bytes, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem_bytes);
+  return int(err);
 }
 
 // Warp-specialised kernels here run CONSUMERS warpgroups and one more that

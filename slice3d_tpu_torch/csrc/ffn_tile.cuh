@@ -1,173 +1,251 @@
-// Shared device code of the port's two FFN kernels (inference, bf16, sm_90a):
-// the warp-level mma.sync / ldmatrix / cp.async helpers, and the F-tile loop
-// of the 128 -> F -> 128 ReLU FFN that both csrc/fused_encoder.cu (the FFN
-// half of the whole encoder layer) and csrc/fused_ffn.cu (the FFN alone)
-// run.  One copy of the loop keeps the two kernels' arithmetic identical.
+// The F-tile loop of the SDF head's 128 -> F -> 128 ReLU FFN on Hopper
+// (sm_90a, bf16), shared by csrc/fused_encoder.cu (the FFN half of the whole
+// encoder layer) and csrc/fused_ffn.cu (the FFN alone), so that the two
+// kernels' arithmetic is one code.  Built from csrc/attention_sm90.cuh's
+// pieces (mbarriers that trap, TMA, wgmma, setmaxnreg, tensor maps).
 //
-// The loop: a block of WARPS warps owns WARPS * 16 rows, each warp one m16
-// tile whose A fragments (16 x 128 bf16) it holds in registers.  W1 (F, 128)
-// and W2 (128, F) are streamed through shared memory in FT = 64-wide F-tiles,
-// double-buffered with cp.async, so each weight byte fetched from L2 serves
-// all rows of the block.  Per tile every warp computes its (16, 64) slice of
-// relu(x W1^T + b1) in fp32 accumulators, rounds it to bf16 in registers (the
-// accumulator layout of one mma is the A layout of the next) and accumulates
-// its product with the W2 tile into the (16, 128) fp32 output: the (rows, F)
-// activation never leaves the SM.
+// Shape of both kernels: persistent, warp-specialised blocks, one an SM, of
+// consumer warpgroups of 64 rows each (two in the encoder layer, three in
+// fused_ffn) and one producer warpgroup.  A block walks over row tiles.  One
+// thread of the producer streams the weights through a ring of STAGES stages
+// of 32 KB (a W1 F-tile and a W2 F-tile, or a whole 128 x 128 projection of
+// the encoder) by TMA, in TMA's 128-byte swizzle, which is the layout a
+// K-major wgmma operand reads.  The weights are the same for every row tile,
+// so the ring walks the same sequence of stages tile after tile without
+// draining.
+//
+// Per F-tile of FT = 64 columns of the hidden layer, a consumer warpgroup
+//   GEMM 1:  hid (64 x 64, fp32)   = h (64 x 128, shared) W1-tile^T   (SS)
+//            relu(hid + b1), rounded to bf16 in registers
+//   GEMM 2:  out (64 x 128, fp32) += relu-tile (registers) W2-tile^T   (RS)
+// so the (rows, F) activation never leaves the SM.  W1 (F, 128) and W2 (128,
+// F) are K-major as nn.Linear stores them.  Registers a consumer thread:
+// out 64, hid 32, the bf16 tile 16.
+//
+// Weight bytes from L2: every block reads all the weights once a row tile,
+// 4 * 128 * F bytes (1 MB at F = 2048), a count worked out from the tiling
+// (no L2 counter was read).  Two ways to read fewer were built and timed on
+// the H100 (PERF.md): more rows a tile (three consumer warpgroups, 192 rows:
+// fused_ffn takes it; the encoder's buffers leave no room for it), and
+// clusters of 2 blocks that each loaded half of every stage and multicast
+// it to both (half the bytes a row, but a stage was refilled only when the
+// consumers of both blocks were done with it, and both kernels read slower
+// with it: neither keeps it).
+// Issuing GEMM 1 of the next F-tile before this one's epilogue (two hid
+// tiles) made ptxas serialise the products (C7515) and read slower; the
+// warpgroups' epilogues hide under each other's products instead.
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attention_sm90.cuh"
 
 namespace s3d {
 
-constexpr int D = 128;        // model width (FFN input and output)
-constexpr int FT = 64;        // FFN F-tile
-constexpr int LDW = D + 8;    // padded row of a (., 128) bf16 tile
-constexpr int LDW2 = FT + 8;  // padded row of a (128, FT) W2 tile
-// one FFN stage in shared memory, in bf16 elements: a W1 tile then a W2 tile
-constexpr int STAGE = FT * LDW + D * LDW2;
+using namespace s3d_attn;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+constexpr int D = 128;                    // model width (FFN input and output)
+constexpr int FT = 64;                    // FFN F-tile: F must be a multiple of it
+constexpr int STAGES = 3;                 // weight ring depth
+constexpr int STAGE_BYTES = 2 * D * D;    // one stage: W1 tile + W2 tile, or one D x D weight
+constexpr int W1_TILE_BYTES = FT * D * 2; // the W1 tile's part of an FFN stage
+constexpr int ROWS = 128;                 // rows of a tile of two consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;
+constexpr int PRODUCER_WARP = 8;          // the first warp of the producer warpgroup
+using WS = WarpSpecialised<2, 40, 232>;   // 168 registers a thread at launch
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// Byte offset of element (r, c) of a swizzled (rows, 128) bf16 tile: two
+// halves of 64 columns, each `rows` rows of 128 bytes in TMA's 128-byte
+// swizzle (the 16-byte chunk c / 8 of row r sits at chunk (c / 8) ^ (r % 8)).
+// Such a tile starts at a 1024-byte boundary and rows is a multiple of 8.
+__device__ __forceinline__ uint32_t sw128(int rows, int r, int c) {
+  return uint32_t((c >> 6) * rows * 128 + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) +
+                  (c & 7) * 2);
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                          uint32_t& r3, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_u32(p)));
+// Descriptor of the k16 step kk (0..7) of rows r0 .. of such a tile as a
+// K-major wgmma operand (r0 a multiple of 8).
+__device__ __forceinline__ uint64_t sw128_desc(const uint8_t* tile, int rows, int r0, int kk) {
+  return smem_desc(tile + (kk >> 2) * rows * 128 + r0 * 128 + (kk & 3) * 32, 16, 1024, SW128);
 }
 
-// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The weight ring: stage s of stream index `it` is it % STAGES; `full`
+// completes when its bytes have landed, `empty` when the block's WARPS
+// consumer warps are done with it.
+template <int WARPS = CONSUMER_WARPS>
+struct Ring {
+  uint8_t* stages;
+  uint64_t* full;
+  uint64_t* empty;
+
+  __device__ void init() {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WARPS);
+    }
+  }
+  // consumer: the stage of stream index it, once it has landed
+  __device__ const uint8_t* acquire(int it) const {
+    const int s = it % STAGES;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    return stages + s * STAGE_BYTES;
+  }
+  // the stage of stream index it (one that has landed)
+  __device__ const uint8_t* stage_at(int it) const { return stages + (it % STAGES) * STAGE_BYTES; }
+  // consumer warp (after its products that read the stage have completed)
+  __device__ void release(int it, int lane) const {
+    if (lane == 0) mbar_arrive(&empty[it % STAGES]);
+  }
+  // producer: wait until the stage of stream index it is free, arm it for
+  // its STAGE_BYTES and return it
+  __device__ uint8_t* arm(int it) const {
+    const int s = it % STAGES;
+    if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+    mbar_expect_tx(&full[s], STAGE_BYTES);
+    return stages + s * STAGE_BYTES;
+  }
+  // producer: one box of a stage
+  __device__ void load(uint8_t* dst, const CUtensorMap* map, int it, int c0, int c1) const {
+    tma_load_2d(dst, map, &full[it % STAGES], c0, c1);
+  }
+  // producer: F-tile j of W1 (boxes of 64 rows) and W2 (boxes of 128 rows)
+  __device__ void load_ffn(const CUtensorMap* w1, const CUtensorMap* w2, int it, int j) const {
+    uint8_t* st = arm(it);
+    load(st, w1, it, 0, j * FT);
+    load(st + W1_TILE_BYTES / 2, w1, it, 64, j * FT);
+    load(st + W1_TILE_BYTES, w2, it, j * FT, 0);
+  }
+  // producer: rows r0 .. r0 + 127 of a (., 128) weight (boxes of 128 rows)
+  __device__ void load_square(const CUtensorMap* w, int it, int r0) const {
+    uint8_t* st = arm(it);
+    load(st, w, it, 0, r0);
+    load(st + STAGE_BYTES / 2, w, it, 64, r0);
+  }
+};
+
+// The products of one F-tile for a consumer warpgroup (rows r0 .. r0 + 63 of
+// the swizzled h tile of h_rows rows), each its own commit group:
+// GEMM 1, hid = h W1-tile^T (SS) ...
+__device__ __forceinline__ void issue_gemm1(float (&hid)[32], const uint8_t* h, int h_rows,
+                                            int r0, const uint8_t* st) {
+  reg_fence(hid);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_ss<64, 0, 0>(hid, sw128_desc(h, h_rows, r0, kk), sw128_desc(st, FT, 0, kk), kk);
+  wgmma_commit();
+  reg_fence(hid);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// ... and, after relu(hid + b1) -> bf16 A fragments a (hid is only read:
+// an instruction other than wgmma that writes an accumulator makes ptxas
+// serialise the warpgroup's products), GEMM 2, out += a W2-tile^T (RS).
+__device__ __forceinline__ void relu_gemm2(float (&out)[64], const float (&hid)[32],
+                                           uint32_t (&a)[4][4], const uint8_t* st,
+                                           const float* __restrict__ b1, int lane) {
+  const float* bj = b1 + 2 * (lane & 3);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const float2 b0 = __ldg(reinterpret_cast<const float2*>(bj + 16 * kk));
+    const float2 b8 = __ldg(reinterpret_cast<const float2*>(bj + 16 * kk + 8));
+    const float* d = hid + 8 * kk;  // columns 16 kk + 2 t (+ 1), then + 8
+    a[kk][0] = pack_bf16(fmaxf(d[0] + b0.x, 0.f), fmaxf(d[1] + b0.y, 0.f));
+    a[kk][1] = pack_bf16(fmaxf(d[2] + b0.x, 0.f), fmaxf(d[3] + b0.y, 0.f));
+    a[kk][2] = pack_bf16(fmaxf(d[4] + b8.x, 0.f), fmaxf(d[5] + b8.y, 0.f));
+    a[kk][3] = pack_bf16(fmaxf(d[6] + b8.x, 0.f), fmaxf(d[7] + b8.y, 0.f));
+  }
+  reg_fence(a);
+  reg_fence(out);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<128, 0>(out, a[kk], smem_desc(st + W1_TILE_BYTES + kk * 32, 16, 1024, SW128));
+  wgmma_commit();
+  reg_fence(out);
+  reg_fence(a);
 }
+
+// out (64 x 128, fp32) = relu(H W1^T + b1) W2^T for the consumer warpgroup
+// whose rows are r0 .. r0 + 63 of the swizzled h tile (h_rows rows), over
+// all F / FT stages of the ring from stream index it on (advanced past
+// them).  The caller has made the h rows visible to the async proxy.
+// Rounds relu(.) to bf16 as the plain version does.  GEMM 2 of one F-tile
+// runs under the wait for GEMM 1 of the next; a warpgroup's epilogue hides
+// under the other warpgroups' products.
+template <typename R>
+__device__ __forceinline__ void ffn_accumulate(float (&out)[64], const uint8_t* h, int h_rows,
+                                               int r0, const R& ring, int& it,
+                                               const float* __restrict__ b1, int f, int lane) {
+  const int n_tiles = f / FT;
+  float hid[32];
+  uint32_t a[4][4];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) out[i] = 0.f;
+#pragma unroll 1
+  for (int s = 0; s < n_tiles; ++s, ++it) {
+    issue_gemm1(hid, h, h_rows, r0, ring.acquire(it));
+    wgmma_wait<0>();  // GEMM 1 of this tile and GEMM 2 of the last
+    reg_fence(hid);
+    reg_fence(out);
+    reg_fence(a);
+    if (s > 0) ring.release(it - 1, lane);
+    relu_gemm2(out, hid, a, ring.stage_at(it), b1 + s * FT, lane);
+  }
+  wgmma_wait<0>();
+  reg_fence(out);
+  ring.release(it - 1, lane);
+}
+
+// LayerNorm (eps 1e-5, fp32) of the rows of an m64n128 accumulator: this
+// thread holds columns 8 j + 2 t + e of rows g (v[4 j + e]) and g + 8
+// (v[4 j + 2 + e]); a row spans a lane quad.
+__device__ __forceinline__ void layer_norm_rows(float (&v)[64], const float* __restrict__ gamma,
+                                                const float* __restrict__ beta, int lane) {
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) s += v[4 * j + 2 * hh] + v[4 * j + 2 * hh + 1];
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    const float mu = s * (1.f / D);
+    float q = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float d0 = v[4 * j + 2 * hh] - mu, d1 = v[4 * j + 2 * hh + 1] - mu;
+      q += d0 * d0 + d1 * d1;
+    }
+    q += __shfl_xor_sync(0xffffffffu, q, 1);
+    q += __shfl_xor_sync(0xffffffffu, q, 2);
+    const float rs = rsqrtf(q * (1.f / D) + 1e-5f);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 8 * j + 2 * t4;
+      const float2 gg = __ldg(reinterpret_cast<const float2*>(gamma + c));
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(beta + c));
+      v[4 * j + 2 * hh] = (v[4 * j + 2 * hh] - mu) * rs * gg.x + bb.x;
+      v[4 * j + 2 * hh + 1] = (v[4 * j + 2 * hh + 1] - mu) * rs * gg.y + bb.y;
+    }
+  }
+}
+
 __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
 }
 
-// A fragments (16 rows x 128 cols) of a row-major (16, LDW) bf16 tile.
-__device__ __forceinline__ void load_a128(uint32_t (*a)[4], const __nv_bfloat16* tile,
-                                          int lane) {
-  const __nv_bfloat16* p = tile + (lane & 15) * LDW + (lane >> 4) * 8;
+// Rows g and g + 8 (of warp wl's 16) of an m64n128 accumulator as bf16 into
+// a swizzled (rows, 128) tile at tile row r0 + 16 wl.
+__device__ __forceinline__ void store_rows_sw128(uint8_t* tile, int rows, int r0,
+                                                 const float (&v)[64], int wl, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-  for (int k = 0; k < D / 16; ++k) ldsm_x4(a[k][0], a[k][1], a[k][2], a[k][3], p + 16 * k);
-}
-
-// W1 rows f0 .. f0+FT (16 chunks of 16 B each), then W2[:, f0:f0+FT] (8
-// chunks) -> one ring stage, by all THREADS threads of the block.
-template <int THREADS>
-__device__ __forceinline__ void ffn_stage(__nv_bfloat16* dst, const __nv_bfloat16* w1,
-                                          const __nv_bfloat16* w2, int f, int f0,
-                                          int tid) {
-  for (int i = tid; i < FT * 16; i += THREADS) {
-    const int r = i >> 4, c = (i & 15) * 8;
-    cp_async16(dst + r * LDW + c, w1 + size_t(f0 + r) * D + c);
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + 16 * wl + g + 8 * hh;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<uint32_t*>(tile + sw128(rows, r, 8 * j + 2 * t4)) =
+          pack_bf16(v[4 * j + 2 * hh], v[4 * j + 2 * hh + 1]);
   }
-  __nv_bfloat16* w2s = dst + FT * LDW;
-  for (int i = tid; i < D * (FT / 8); i += THREADS) {
-    const int r = i / (FT / 8), c = (i % (FT / 8)) * 8;
-    cp_async16(w2s + r * LDW2 + c, w2 + size_t(r) * f + f0 + c);
-  }
-}
-
-// out (16 x 128 fp32, zeroed by the caller) += relu(A W1^T + b1) W2^T for
-// one warp's A fragments `ha`, streaming the F-tiles through `ring` (2 *
-// STAGE bf16 elements of shared memory, free on entry, free again on exit).
-// Every thread of the block calls it: it synchronises the block.
-template <int THREADS>
-__device__ __forceinline__ void ffn_accumulate(float (*out)[4], const uint32_t (*ha)[4],
-                                               __nv_bfloat16* ring,
-                                               const __nv_bfloat16* w1, const float* b1,
-                                               const __nv_bfloat16* w2, int f, int tid,
-                                               int lane) {
-  const int n_tiles = f / FT;
-  const int t4 = lane & 3;
-  ffn_stage<THREADS>(ring, w1, w2, f, 0, tid);
-  cp_async_commit();
-  if (n_tiles > 1) ffn_stage<THREADS>(ring + STAGE, w1, w2, f, FT, tid);
-  cp_async_commit();
-
-  const int brow = (lane & 7) + ((lane >> 4) << 3);
-  const int bcol = ((lane >> 3) & 1) * 8;
-#pragma unroll 1
-  for (int it = 0; it < n_tiles; ++it) {
-    cp_async_wait<1>();
-    __syncthreads();
-    const __nv_bfloat16* w1s = ring + (it & 1) * STAGE;
-    const __nv_bfloat16* w2s = w1s + FT * LDW;
-    const int f0 = it * FT;
-
-    float hid[FT / 8][4];
-#pragma unroll
-    for (int j = 0; j < FT / 8; ++j) hid[j][0] = hid[j][1] = hid[j][2] = hid[j][3] = 0.f;
-#pragma unroll
-    for (int k = 0; k < D / 16; ++k) {
-#pragma unroll
-      for (int j = 0; j < FT / 16; ++j) {
-        uint32_t b0, b1r, b2, b3;
-        ldsm_x4(b0, b1r, b2, b3, w1s + (16 * j + brow) * LDW + 16 * k + bcol);
-        mma(hid[2 * j], ha[k], b0, b1r);
-        mma(hid[2 * j + 1], ha[k], b2, b3);
-      }
-    }
-    // relu(. + b1) rounded to bf16: accumulator layout -> A fragments
-    uint32_t fa[FT / 16][4];
-#pragma unroll
-    for (int j = 0; j < FT / 8; ++j) {
-      const int c = f0 + 8 * j + 2 * t4;
-      const float bb0 = __ldg(b1 + c), bb1 = __ldg(b1 + c + 1);
-      fa[j >> 1][(j & 1) * 2 + 0] =
-          pack_bf16(fmaxf(hid[j][0] + bb0, 0.f), fmaxf(hid[j][1] + bb1, 0.f));
-      fa[j >> 1][(j & 1) * 2 + 1] =
-          pack_bf16(fmaxf(hid[j][2] + bb0, 0.f), fmaxf(hid[j][3] + bb1, 0.f));
-    }
-#pragma unroll
-    for (int k = 0; k < FT / 16; ++k) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t b0, b1r, b2, b3;
-        ldsm_x4(b0, b1r, b2, b3, w2s + (16 * j + brow) * LDW2 + 16 * k + bcol);
-        mma(out[2 * j], fa[k], b0, b1r);
-        mma(out[2 * j + 1], fa[k], b2, b3);
-      }
-    }
-    __syncthreads();  // everyone is done with this stage
-    if (it + 2 < n_tiles) ffn_stage<THREADS>(ring + (it & 1) * STAGE, w1, w2, f, f0 + 2 * FT,
-                                             tid);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
 }
 
 }  // namespace s3d

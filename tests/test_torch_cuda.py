@@ -248,6 +248,100 @@ def test_fused_ffn_rejects_what_it_does_not_take(card):
         ff.fused_ffn(x.to(torch.bfloat16), args[0].requires_grad_(), *args[1:])
 
 
+def _encoder_case(card, n, t, head_tokens, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(1, n, t, D)).astype(np.float32))
+    return x.to(card).to(torch.bfloat16), layer_params(seed + 1, card)
+
+
+# A full-layer tile packs 128 // 13 = 9 points.  A trimmed tile holds
+# ceil(N / (rounds * SMs)) points, rounds being the waves of one persistent
+# block an SM that 128-point tiles would take: N = 128 SMs is one wave of
+# full 128-point tiles, one point less leaves the last tile a point short,
+# and one point more takes two waves of 65-point tiles.  ("sms", k) stands
+# for N = 128 points an SM of the card, plus k.
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_tokens,n", [
+    (0, 17), (0, 19), (0, 9 * 132 * 2 + 5),
+    (1, 127), (1, 129), (1, 128 * 132 + 7),
+    (1, ("sms", 0)), (1, ("sms", -1)), (1, ("sms", 1))],
+    ids=["full-edge-1", "full-edge+1", "full-two-waves",
+         "trim-edge-1", "trim-edge+1", "trim-two-waves",
+         "trim-full-tiles", "trim-full-tiles-1", "trim-full-tiles+1"])
+def test_encoder_tile_edges_and_waves(card, head_tokens, n):
+    """N one point before and after a tile's edge, N whose trimmed tiles are
+    full 128-point tiles, and N over more than one wave of persistent
+    blocks: every point matches the plain version."""
+    if isinstance(n, tuple):
+        n = 128 * torch.cuda.get_device_properties(card).multi_processor_count + n[1]
+    x, params = _encoder_case(card, n, 13, head_tokens, 60 + n % 7)
+    got = fe.fused_encoder_layer(x, params, head_tokens=head_tokens)
+    torch.cuda.synchronize()
+    want = fe.fused_encoder_layer_ref(x, params, head_tokens=head_tokens)
+    assert got.shape == want.shape == (1, n, head_tokens or 13, D)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 13, 16])
+@pytest.mark.parametrize("head_tokens", [0, 1])
+def test_encoder_token_counts(card, t, head_tokens):
+    """T = 1 (128 points a tile), 13 (the head's) and 16 (8 points, no spare
+    rows)."""
+    x, params = _encoder_case(card, 301, t, head_tokens, 70 + t)
+    got = fe.fused_encoder_layer(x, params, head_tokens=head_tokens)
+    torch.cuda.synchronize()
+    want = fe.fused_encoder_layer_ref(x, params, head_tokens=head_tokens)
+    assert got.shape == want.shape == (1, 301, head_tokens or t, D)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_tokens", [0, 1])
+def test_encoder_runs_repeat_bit_for_bit(card, head_tokens):
+    x, params = _encoder_case(card, 3000, 13, head_tokens, 80)
+    a = fe.fused_encoder_layer(x, params, head_tokens=head_tokens)
+    b = fe.fused_encoder_layer(x, params, head_tokens=head_tokens)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [129, 191, 192, 193, 255, 257, 384, 2 * 132 * 192 + 77])
+def test_fused_ffn_ragged_tail(card, rows):
+    """Rows past N are never stored: N one row before, at and after the
+    edges of the kernel's 192-row tiles (192, 384), ragged tails inside a
+    tile, and a call over more than one wave of blocks."""
+    params = layer_params(53, card)
+    args = [params[k] for k in ("linear1.weight", "linear1.bias", "linear2.weight",
+                                "linear2.bias")]
+    x = torch.from_numpy(np.random.default_rng(rows).normal(size=(rows + 64, D))
+                         .astype(np.float32)).to(card).to(torch.bfloat16)
+    got = ff.fused_ffn(x[:rows], *args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ff.fused_ffn_ref(x[:rows], *args).float(),
+                               atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_weights_are_prepared_once_on_the_card(card):
+    """Two calls share one prepared set (casts and maps); an in-place update
+    of a weight makes a new one, and the kernel then computes with it."""
+    x, params = _encoder_case(card, 50, 13, 0, 95)
+    fe.fused_encoder_layer(x, params)
+    prep = fe.prepared_params(params)
+    assert prep.maps is not None
+    fe.fused_encoder_layer(x, params)
+    assert fe.prepared_params(params) is prep
+    with torch.no_grad():
+        params["linear2.weight"].mul_(-1)
+    got = fe.fused_encoder_layer(x, params)
+    torch.cuda.synchronize()
+    assert fe.prepared_params(params) is not prep
+    torch.testing.assert_close(got.float(), fe.fused_encoder_layer_ref(x, params).float(),
+                               atol=2e-2, rtol=1e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("head_tokens", [0, 1])
 def test_split_route_on_the_card(card, head_tokens, monkeypatch):

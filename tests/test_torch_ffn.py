@@ -127,3 +127,92 @@ def test_route_is_validated_and_threaded_through_the_models():
     model = init_slicenet(0, route="split")
     assert [layer.route for layer in model.att_decoder.layers] == ["split"] * 3
     assert model.state_dict().keys() == init_slicenet(0).state_dict().keys()
+
+
+def test_kernel_tiles_are_the_sources():
+    """The wrappers' ``KERNEL_TILES`` state the constants of the head
+    kernels' sources, so a tile or ring size changed in a .cu or .cuh file
+    without the wrapper (its F check and message, chip_smoke.py's weight
+    bytes) fails here on the CPU."""
+    import os
+    import re
+
+    from slice3d_tpu_torch.ops import fused_encoder as fe
+
+    for mod in (fe, ff):
+        for name, tiles in mod.KERNEL_TILES.items():
+            with open(os.path.join(mod._CSRC, name)) as f:
+                src = f.read()
+            for const, size in tiles.items():
+                found = re.findall(rf"^constexpr int {const} = (\d+);", src, flags=re.M)
+                assert found == [str(size)], (mod.__name__, name, const, found)
+        assert mod.F_MULTIPLE == mod.KERNEL_TILES["ffn_tile.cuh"]["FT"]
+    assert fe.KERNEL_TILES["ffn_tile.cuh"] == ff.KERNEL_TILES["ffn_tile.cuh"]
+
+
+@pytest.mark.parametrize("n,f,rows,want", [
+    (1, 2048, 192, 1), (192, 2048, 192, 1), (193, 2048, 192, 2),
+    (33_800, 2048, 192, 177), (439_400, 2048, 128, 3433),
+    (439_400, 2048, 192, 2289), (200, 64, 128, 2)])
+def test_weight_bytes_per_call_counts_row_tiles(n, f, rows, want):
+    """``want`` row tiles, each reading W1 and W2 once."""
+    assert ff.weight_bytes_per_call(n, f, tile_rows=rows) == want * 4 * D * f
+
+
+@pytest.mark.parametrize("n,head_tokens,grid,tiles", [
+    (33_800, 0, 132, 3756), (33_800, 1, 132, 394), (33_800, 1, 66, 329), (1, 1, 132, 1),
+    (129, 1, 132, 129), (16_897, 1, 132, 260), (16_903, 1, 132, 261),
+    (16_896, 1, 132, 132), (16_895, 1, 132, 132)])
+def test_encoder_weight_bytes_follow_its_tiles(n, head_tokens, grid, tiles):
+    """Full layers pack 128 // 13 = 9 points a tile; trimmed ones take as
+    few points a tile as fill the rounds of 128-point tiles (33,800 points:
+    3 rounds of 132 blocks, 394 tiles of 86 points; 16,896: one round of
+    full 128-point tiles)."""
+    from slice3d_tpu_torch.ops import fused_encoder as fe
+
+    per_tile = 2 * (4 * D * D + 2 * D * 2048)
+    assert fe.weight_bytes_per_call(n, 13, head_tokens, grid=grid) == tiles * per_tile
+
+
+def test_weight_bytes_per_call_defaults_to_the_kernel_tiling():
+    assert ff.TILE_ROWS == 64 * ff.KERNEL_TILES["fused_ffn.cu"]["CONSUMERS"] == 192
+    assert ff.weight_bytes_per_call(439_400) == ff.weight_bytes_per_call(
+        439_400, tile_rows=ff.TILE_ROWS)
+
+
+def test_prepared_weights_are_reused_until_a_weight_changes():
+    """The wrapper casts a weight set once: the same tensors give the same
+    prepared set (bf16 weights, fp32 vectors) call after call, and an
+    in-place update of one weight, or another tensor in its place, gives a
+    new one that holds the new values."""
+    rng = np.random.default_rng(3)
+    w1, w2 = (torch.from_numpy(rng.normal(size=s).astype(np.float32)) for s in ((64, D), (D, 64)))
+    b1, b2 = torch.zeros(64), torch.zeros(D)
+    first = ff.prepared_weights(w1, b1, w2, b2)
+    assert ff.prepared_weights(w1, b1, w2, b2) is first
+    assert [t.dtype for t in first.weights] == [torch.bfloat16] * 2
+    assert [t.dtype for t in first.vectors] == [torch.float32] * 2
+    with torch.no_grad():
+        w2.mul_(2)
+    second = ff.prepared_weights(w1, b1, w2, b2)
+    assert second is not first
+    torch.testing.assert_close(second.weights[1], w2.to(torch.bfloat16), rtol=0, atol=0)
+    assert ff.prepared_weights(w1, b1, w2, b2) is second
+    third = ff.prepared_weights(w1.clone(), b1, w2, b2)
+    assert third is not second and ff.prepared_weights(w1, b1, w2, b2) is not third
+
+
+def test_encoder_layer_prepares_its_weights_once():
+    """The layer hands the wrapper a fresh dict of the same parameters each
+    call: one prepared set serves them until a parameter is updated in place
+    (as load_state_dict and optimizers do)."""
+    from slice3d_tpu_torch.ops import fused_encoder as fe
+
+    layer = TransformerEncoderLayer(D, 4, 256)
+    first = fe.prepared_params(dict(layer.named_parameters()))
+    assert fe.prepared_params(dict(layer.named_parameters())) is first
+    assert first.weights[0].shape == (3 * D, D) and first.vectors[4].shape == (256,)
+    layer.load_state_dict({k: v + 1 for k, v in layer.state_dict().items()})
+    second = fe.prepared_params(dict(layer.named_parameters()))
+    assert second is not first
+    torch.testing.assert_close(second.vectors[4], layer.linear1.bias.detach(), rtol=0, atol=0)
