@@ -53,16 +53,34 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      images one at a time through ``reconstruct`` (batch 1) against the
      batched answers;
  10. the split-encoder route: the same weights with ``route="split"`` on 2 of
-     the images, 0 encoder launches and 3 fused_ffn launches per head call.
-The last two lines are the kernels' JSON record and the run's status JSON.
+     the images, 0 encoder launches and 3 fused_ffn launches per head call;
+ 11. the regression route's options through the port's CLIs at the serving
+     point, on a 3-object dataset this phase writes into ``_smoke/`` (and
+     removes) with an analytic sphere as ground truth: ``reconstruct
+     --est_campose`` on SliceNet (CameraNet, seeded weights; the fused
+     route, launches counted), simplification to 10,000 faces at res0 32 /
+     up 1, the polish of one object at the serving point (30 steps at one
+     draw table; its loss must fall) with a patch of that mesh polished in
+     fp32 on the card and on the CPU as its witness, DISN with
+     ``--est_campose`` at batch 1 and at ``mc_batch_size`` 2 (answers within
+     1e-2), one object by marching tetrahedra, the DISN service over HTTP,
+     and ``python -m slice3d_tpu_torch.eval`` with ICP at 100,000 points on
+     the card, then card against CPU at 5,000 points with and without ICP.
+The last three lines are the paths' JSON record, the kernels' JSON record
+and the run's status JSON.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import http.client
+import io
 import json
 import os
+import pickle
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -119,6 +137,36 @@ ATTN_BWD_TOL = dict(atol=0.08, rtol=0.04)
 ATLAS_TOL = dict(atol=0.2, rtol=0.01)
 ATLAS_FP32_TOL = dict(atol=1e-3, rtol=1e-3)
 GEN_BATCH, GEN_STEPS = 8, 200
+# the regression route's options (phase 11): 3 objects at the serving point,
+# the polish after simplification, the eval CLI at 100,000 points on the card
+# and, against the CPU's plain computation (the JAX package's arithmetic),
+# at 5,000: Chamfer-L1/L2 to relative 1e-5 and threshold counts within one
+# point without ICP; with ICP, whose correspondences can break a near tie
+# the other way between the two, Chamfer and Hausdorff to relative 1e-3 and
+# counts and IoU within 1e-3
+OPT_OBJECTS = 3
+# simplification at res0 32 / up 1: at the serving point these random-weight
+# meshes have ~970,000 faces, on which the JAX package's quadric simplifier
+# (copied bit for bit) did not end in 13 minutes
+OPT_SIMPLIFY, OPT_SIMPLIFY_POINT = 10000, (32, 1)
+# the polish at the serving point, one object, at the reference's 30 steps,
+# every step at one Dirichlet draw table so that the step losses compare:
+# RMSprop's first step (second moment from 0) moves a coordinate by up to
+# lr / sqrt(0.1) and raises this loss, the later steps bring it down
+# (readings on an NVIDIA H100 80GB HBM3 at 700 W, the 966,844-face mesh:
+# +3.4% after the first step, then -0.2% a step; at step 9 still 1.8% above
+# the start, below it from step 19, -2.0% at step 29)
+OPT_REFINE_STEPS, OPT_DRAW_SEED = 30, 5
+# the witness: a patch of the nearest faces of that mesh, polished in fp32 on
+# the card and on the CPU (the CPU tests hold the CPU's polish against the
+# JAX package's); the tolerance as in tests/test_torch_cuda.py's polish case
+# for the vertices, and the losses to relative 2e-3 (readings on the H100
+# with cuDNN's TF32 convolutions in the encoder: vertices 6.4e-4, losses
+# 1.7e-3 relative; with them off, as the witness runs: 5.9e-4 and 4.3e-4)
+WITNESS_FACES, WITNESS_STEPS, WITNESS_ATOL, WITNESS_LOSS_RTOL = 4000, 10, 1e-3, 2e-3
+EVAL_PTS, EVAL_CHECK_PTS = 100000, 5000
+EVAL_RTOL, EVAL_ICP_RTOL, EVAL_ICP_ATOL = 1e-5, 1e-3, 1e-3
+SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke")
 # LDM training at configs/objaverse-ldm-kl-8.yaml's widths: batch 8 of 128 px,
 # 2 warm-up steps, then the timed ones
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 10
@@ -1189,6 +1237,372 @@ def phase_split(proj, imgs, threshold):
     return {"latency_s": lat, "head_calls": len(heads)}, counts
 
 
+def write_options_dataset(root: str, bodies, sphere_r: float = 0.3) -> str:
+    """A dataset tree for the CLIs: each PNG as view 004 of an object with
+    the service's identity camera in every view, all objects in the test
+    split and the first in the val split; and the analytic ground truth the
+    eval CLI reads, a sphere of radius ``sphere_r``: its 02_sdfs samples
+    (a surface band and volume points) and its mesh as <id>.obj in
+    ``root``/gt.  Returns the directory of GT meshes."""
+    from slice3d_tpu_torch.mesh import Mesh, export_obj, isosurface
+
+    ds = os.path.join(root, "data", "opts")
+    gt_dir = os.path.join(root, "gt")
+    os.makedirs(os.path.join(ds, "03_splits"))
+    os.makedirs(os.path.join(ds, "02_sdfs"))
+    os.makedirs(gt_dir)
+    lin = np.linspace(-0.5, 0.5, 129, dtype=np.float32)
+    x, y, z = np.meshgrid(lin, lin, lin, indexing="ij")
+    sphere = isosurface(sphere_r - np.sqrt(x * x + y * y + z * z), 0.0)
+    sphere = Mesh((sphere.vertices / 128 - 0.5).astype(np.float32), sphere.faces)
+    rng = np.random.default_rng(31)
+    ids = [f"{i:05d}" for i in range(len(bodies))]
+    for sid, body in zip(ids, bodies):
+        vdir = os.path.join(ds, "00_img_input", sid)
+        os.makedirs(vdir)
+        with open(os.path.join(vdir, "004.png"), "wb") as f:
+            f.write(body)
+        with open(os.path.join(vdir, "meta.pkl"), "wb") as f:
+            pickle.dump([np.zeros((3, 3)), np.zeros(12), np.zeros(12), np.full(12, 1.2),
+                         np.zeros((12, 3, 4)), 1.0, np.zeros(3)], f)
+        d = rng.normal(size=(20000, 3))
+        surf = sphere_r * d / np.linalg.norm(d, axis=1, keepdims=True)
+        pts = np.concatenate([surf + rng.normal(0, 0.003, surf.shape),
+                              rng.uniform(-0.5, 0.5, (20000, 3))])
+        sdf = np.linalg.norm(pts, axis=1) - sphere_r
+        np.save(os.path.join(ds, "02_sdfs", f"{sid}.npy"),
+                np.concatenate([pts, sdf[:, None]], 1).astype(np.float32))
+        export_obj(sphere, os.path.join(gt_dir, f"{sid}.obj"))
+    with open(os.path.join(ds, "03_splits", "test.lst"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+    with open(os.path.join(ds, "03_splits", "val.lst"), "w") as f:
+        f.write(ids[0] + "\n")
+    return gt_dir
+
+
+_OBJECT_LINE = re.compile(
+    r"\] (\S+): (\d+) verts, (\d+) faces \(eval ([\d.]+)s over (\d+) pts, mc ([\d.]+)s"
+    r"(?:, refine ([\d.]+)s, loss (\S+) -> (\S+))?\)")
+
+
+class _Tee(io.StringIO):
+    """Keeps what is written and echoes each finished line under a tag."""
+
+    def __init__(self, tag: str, out):
+        super().__init__()
+        self.tag, self.out, self.part = tag, out, ""
+
+    def write(self, text: str) -> int:
+        super().write(text)
+        *lines, self.part = (self.part + text).split("\n")
+        for line in lines:
+            self.out.write(f"[{self.tag}] {line}\n")
+        self.out.flush()
+        return len(text)
+
+
+def run_cli(tag: str, main, argv):
+    """Run a CLI's ``main(argv)`` with its standard output kept and echoed
+    under ``tag`` as it goes; returns (its return value, the objects it
+    reported, seconds)."""
+    out = _Tee(tag, sys.stdout)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        ret = main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    text = out.getvalue()
+    objects = []
+    for m in _OBJECT_LINE.finditer(text):
+        obj = {"id": m[1], "vertices": int(m[2]), "faces": int(m[3]),
+               "time_eval_points": float(m[4]), "n_points_evaluated": int(m[5]),
+               "time_marching": float(m[6])}
+        if m[7] is not None:
+            obj.update(time_refine=float(m[7]), refine_loss_first=float(m[8]),
+                       refine_loss_last=float(m[9]))
+        objects.append(obj)
+    print(f"[{tag}] {dt:.4f} s in all")
+    return ret, objects, dt
+
+
+def check_objects(tag: str, objects, n: int) -> None:
+    check(len(objects) == n, f"{tag}: {len(objects)} objects reported, expected {n}")
+    for o in objects:
+        check(o["faces"] > 0, f"{tag}: object {o['id']} has an empty mesh")
+        check(o["n_points_evaluated"] > (SERVE_POINT["mc_res0"] + 1) ** 3,
+              f"{tag}: the refinement levels did not run")
+
+
+def phase_polish(argv, threshold: float):
+    """``reconstruct --mc_refine_steps`` on the val split's one object at
+    the serving point, every step at one draw table (seeded by
+    ``OPT_DRAW_SEED``), so that the step losses are those of one function;
+    the loss must fall.  Then the witness: a patch of the
+    ``WITNESS_FACES`` faces nearest the mesh's middle face, polished in fp32
+    through the head's plain route on the card and on the CPU, which must
+    agree.  Returns (record, launch counts of the CLI run)."""
+    from slice3d_tpu_torch import pipeline, reconstruct
+    from slice3d_tpu_torch.data.dataset import Slice3DDataset
+    from slice3d_tpu_torch.mesh.refine import refine_mesh
+    from slice3d_tpu_torch.models.slicenet import init_slicenet
+    from slice3d_tpu_torch.pipeline import Reconstructor
+
+    seen = []
+
+    def polish(verts, faces, logit_fn, **kw):
+        table = np.random.default_rng(OPT_DRAW_SEED).dirichlet(np.full(3, 0.5), len(faces))
+        out = refine_mesh(verts, faces, logit_fn, draws=lambda step, n: table[:n], **kw)
+        seen.append((np.asarray(verts), np.asarray(faces), table, out[1]))
+        return out
+
+    pipeline.refine_mesh = polish
+    try:
+        reset_counts()
+        _, objs, pol_s = run_cli("opts polish", reconstruct.main,
+                                 argv("slicenet", "polish", "--mc_refine_steps",
+                                      str(OPT_REFINE_STEPS)) + ["--mode", "val"])
+        counts = read_counts()
+    finally:
+        pipeline.refine_mesh = refine_mesh
+    check_objects("polish", objs, 1)
+    check(len(seen) == 1, f"the polish ran {len(seen)} times for one object")
+    (verts, faces, table, losses), o = seen[0], objs[0]
+    chunk = SERVE_POINT["mc_chunk_size"]
+    below = [k for k, x in enumerate(losses) if x < losses[0]]
+    print(f"[opts] polish {o['id']} at the serving point: {len(faces)} faces, "
+          f"{OPT_REFINE_STEPS} steps in {o['time_refine']:.4f} s "
+          f"({o['time_refine'] / OPT_REFINE_STEPS:.4f} s a step, "
+          f"{-(-len(faces) // chunk)} chunks of {chunk} faces); launches {counts}")
+    print(f"[opts] polish loss at one draw table, step by step: "
+          f"{[float(x) for x in losses]}; first below the start at step "
+          f"{below[0] if below else None}")
+    check(losses[-1] < losses[0], f"the polish's loss did not fall in {OPT_REFINE_STEPS} "
+          f"steps: {losses[0]!r} -> {losses[-1]!r}")
+
+    feed = Slice3DDataset(os.path.join(SMOKE_DIR, "data", "opts"), split="val",
+                          img_size=SERVE_POINT["img_size"], load_slices=False,
+                          load_sdf=False)[0]
+    cen = verts[faces].mean(1)
+    near = np.argsort(np.linalg.norm(cen - cen[len(faces) // 2], axis=1),
+                      kind="stable")[:WITNESS_FACES]
+    used, inv = np.unique(faces[near], return_inverse=True)
+    patch_v, patch_f = verts[used], inv.reshape(-1, 3)
+    witness = {}
+    torch.backends.cudnn.allow_tf32 = False  # the encoder's convolutions in fp32
+    for dev in ("cuda", "cpu"):
+        model = init_slicenet(0, dtype=torch.float32, route="plain")
+        rec = Reconstructor(model, resolution0=SERVE_POINT["mc_res0"],
+                            upsampling_steps=SERVE_POINT["mc_up_steps"],
+                            chunk_size=chunk, threshold=threshold, device=dev)
+        imgs, extras = rec._stack_inputs([feed])
+        with torch.no_grad():
+            cond = (model.encode_folded(imgs)[0],
+                    tuple(torch.from_numpy(e).to(dev) for e in extras))
+        t = time.perf_counter()
+        with torch.enable_grad():
+            witness[dev] = refine_mesh(
+                patch_v, patch_f, lambda p: rec._logits(cond, 0, p), steps=WITNESS_STEPS,
+                threshold=threshold, face_chunk=chunk, draws=lambda step, n: table[:n],
+                device=dev)
+        print(f"[check] polish witness on {dev}: {len(patch_f)} faces, {WITNESS_STEPS} fp32 "
+              f"steps in {time.perf_counter() - t:.4f} s; loss step by step "
+              f"{[float(x) for x in witness[dev][1]]}")
+    torch.backends.cudnn.allow_tf32 = True
+    (v_card, l_card), (v_cpu, l_cpu) = witness["cuda"], witness["cpu"]
+    v_err = float(np.abs(v_card - v_cpu).max())
+    l_err = float(np.max(np.abs(l_card - l_cpu) / np.abs(l_cpu)))
+    print(f"[check] polish witness, card against CPU: vertices {v_err:.6g} (tolerance "
+          f"{WITNESS_ATOL}), losses {l_err:.6g} relative (tolerance {WITNESS_LOSS_RTOL}); "
+          f"moved up to {float(np.abs(v_cpu - patch_v).max()):.6g}")
+    check(v_err <= WITNESS_ATOL and l_err <= WITNESS_LOSS_RTOL,
+          "the polish on the card disagrees with the CPU")
+    return {"object": o, "s": pol_s, "steps": OPT_REFINE_STEPS,
+            "losses": [float(x) for x in losses],
+            "first_below_start": below[0] if below else None,
+            "witness": {"faces": len(patch_f), "steps": WITNESS_STEPS,
+                        "card_losses": [float(x) for x in l_card],
+                        "cpu_losses": [float(x) for x in l_cpu],
+                        "verts_err": v_err, "loss_rel_err": l_err}}, counts
+
+
+def phase_regression_options():
+    """The rest of the regression route's inference at the serving point:
+    ``reconstruct --est_campose`` on SliceNet (the fused route, launches
+    counted), then simplified at res0 32 / up 1; the polish of one object
+    (``phase_polish``); DISN with ``--est_campose`` at batch 1 and at
+    ``mc_batch_size`` 2; one mesh by marching tetrahedra; the DISN service
+    over HTTP; the eval CLI on the card over the meshes against an analytic
+    sphere, and against the CPU's plain computation."""
+    from http.server import ThreadingHTTPServer
+
+    from slice3d_tpu_torch import reconstruct, serve
+    from slice3d_tpu_torch.config import Options
+    from slice3d_tpu_torch.data.dataset import Slice3DDataset
+    from slice3d_tpu_torch.eval import cli as eval_cli
+    from slice3d_tpu_torch.models.disn import init_disn
+    from slice3d_tpu_torch.models.slicenet import init_slicenet
+
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    gt_dir = write_options_dataset(SMOKE_DIR, serving_pngs(OPT_OBJECTS, seed=21))
+    exp = os.path.join(SMOKE_DIR, "exp")
+    point = [f"--{k}={v}" for k, v in SERVE_POINT.items()]
+    point += ["--dtype", "bfloat16", "--random_init",
+             "--dir_data", os.path.join(SMOKE_DIR, "data"), "--name_dataset", "opts",
+             "--mode", "test", "--dir_experiments", exp]
+    feed = Slice3DDataset(os.path.join(SMOKE_DIR, "data", "opts"), split="test",
+                          img_size=SERVE_POINT["img_size"],
+                          load_slices=False, load_sdf=False, load_full_projection=True)[0]
+    disn = init_disn(0, img_size=SERVE_POINT["img_size"], dtype=torch.bfloat16)
+    cam_feed = reconstruct.campose_predictor(
+        Options(name_model="disn", random_init=True, img_size=SERVE_POINT["img_size"]))(dict(feed))
+    thr = {"slicenet": probe_threshold(init_slicenet(0, dtype=torch.bfloat16), feed),
+           "disn": probe_threshold(disn, feed), "disn_campose": probe_threshold(disn, cam_feed)}
+    del disn
+    print(f"[opts] thresholds (median coarse logit of a res0 16 probe): {thr}")
+    result = {"threshold": thr}
+
+    def argv(model, name, *extra):
+        return (point + ["--name_model", model.split("_")[0], "--name_exp", name,
+                         "--mc_threshold", repr(thr[model])] + list(extra))
+
+    # 1. SliceNet with CameraNet's pose estimate: the fused route
+    reset_counts()
+    _, camp, camp_s = run_cli("opts campose", reconstruct.main,
+                              argv("slicenet", "campose", "--est_campose"))
+    counts = read_counts()
+    print(f"[opts] est_campose on SliceNet: {camp_s:.4f} s for {OPT_OBJECTS} objects; "
+          f"launches {counts}")
+    check_objects("est_campose", camp, OPT_OBJECTS)
+    check(counts["fused_encoder_layer"] > 0, "est_campose launched no fused_encoder_layer")
+
+    # 2. the same images simplified, on a coarser lattice
+    res0, up = OPT_SIMPLIFY_POINT
+    reset_counts()
+    _, simplified, simp_s = run_cli(
+        "opts simplify", reconstruct.main,
+        argv("slicenet", "simplify", "--simplify_nfaces", str(OPT_SIMPLIFY), "--mc_res0",
+             str(res0), "--mc_up_steps", str(up), "--mc_batch_size", str(OPT_OBJECTS)))
+    counts = {k: v + counts[k] for k, v in read_counts().items()}
+    check(len(simplified) == OPT_OBJECTS, "simplify: not every object reported")
+    for o in simplified:
+        print(f"[opts] simplify {o['id']}: {o['faces']} faces, marching and simplification "
+              f"{o['time_marching']:.4f} s")
+        check(0 < o["faces"] <= 1.2 * OPT_SIMPLIFY, f"{o['id']}: simplified to {o['faces']} "
+              f"faces, asked for {OPT_SIMPLIFY}")
+
+    # 3. the polish of one object at the serving point, and its witness
+    polish, pol_counts = phase_polish(argv, thr["slicenet"])
+    counts = {k: v + counts[k] for k, v in pol_counts.items()}
+
+    # 4. DISN with CameraNet's pose at batch 1 and at mc_batch_size 2 (bf16,
+    #    gather path)
+    _, disn1, disn1_s = run_cli("opts disn", reconstruct.main,
+                                argv("disn_campose", "disn1", "--est_campose"))
+    _, disn2, disn2_s = run_cli("opts disn b2", reconstruct.main,
+                                argv("disn_campose", "disn2", "--est_campose",
+                                     "--mc_batch_size", "2"))
+    check_objects("disn", disn1, OPT_OBJECTS)
+    check_objects("disn b2", disn2, OPT_OBJECTS)
+    worst = max(max(abs(a["n_points_evaluated"] - b["n_points_evaluated"])
+                    / b["n_points_evaluated"], abs(a["vertices"] - b["vertices"]) / b["vertices"])
+                for a, b in zip(disn2, disn1))
+    print(f"[opts] DISN --est_campose: batch 1 {disn1_s:.4f} s, batch 2 {disn2_s:.4f} s for "
+          f"{OPT_OBJECTS}; largest relative difference of n_points_evaluated and vertex counts "
+          f"{worst:.6g} (tolerance {SERVE_RTOL}: bf16 convolutions at batch 2 round otherwise)")
+    check(worst <= SERVE_RTOL, "DISN's batch-2 and batch-1 answers disagree")
+
+    # 5. one mesh by marching tetrahedra (the val split's one object)
+    _, tet, tet_s = run_cli("opts tetra", reconstruct.main,
+                            argv("slicenet", "tetra", "--mc_extract", "tetrahedra") + ["--mode",
+                                                                                       "val"])
+    check_objects("tetrahedra", tet, 1)
+    print(f"[opts] tetrahedra: {tet_s:.4f} s; surface nets gave {camp[0]['faces']} faces for "
+          f"the same object, tetrahedra {tet[0]['faces']}")
+
+    # 6. the DISN service over HTTP (the default camera)
+    opts = Options(name_model="disn", dtype="bfloat16", random_init=True,
+                   mc_threshold=thr["disn"], **SERVE_POINT)
+    service = serve.build_service(opts)
+    service.warmup()
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(service))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    served = []
+    try:
+        for i, body in enumerate(serving_pngs(OPT_OBJECTS, seed=21)):
+            conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=300)
+            t = time.perf_counter()
+            conn.request("POST", "/reconstruct", body=body)
+            resp = conn.getresponse()
+            payload = resp.read()
+            dt = time.perf_counter() - t
+            conn.close()
+            check(resp.status == 200, f"DISN request {i}: HTTP {resp.status}: {payload[:200]!r}")
+            stats = json.loads(resp.getheader("X-Slice3D-Stats"))
+            served.append({"latency_s": dt, "n_points_evaluated": stats["n_points_evaluated"],
+                           "vertices": payload.count(b"\nv ") + payload.startswith(b"v ")})
+            print(f"[opts] DISN service request {i}: latency {dt:.4f} s, n_points_evaluated "
+                  f"{stats['n_points_evaluated']}, vertices {served[-1]['vertices']}")
+            check(stats["n_points_evaluated"] > (SERVE_POINT["mc_res0"] + 1) ** 3,
+                  "DISN service: no refinement levels")
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "the HTTP server did not stop")
+    del service
+
+    # 7. the eval CLI on the card over the est_campose meshes, then the card
+    #    against the CPU's plain computation
+    ev = ["--name_exp", "campose", "--name_dataset", "opts",
+          "--dir_data", os.path.join(SMOKE_DIR, "data"), "--dir_experiments", exp,
+          "--dir_gt_meshes", gt_dir, "--icp_align"]
+    summary, _, eval_s = run_cli("opts eval", eval_cli.main,
+                                 ev + ["--n_pts", str(EVAL_PTS), "--out",
+                                       os.path.join(SMOKE_DIR, "eval.json")])
+    check(summary is not None and summary["n"] == OPT_OBJECTS, "eval: not every mesh scored")
+    check(all(np.isfinite(v) for v in summary.values()), "eval: non-finite metrics")
+    print(f"[opts] eval on the card: {eval_s:.4f} s for {OPT_OBJECTS} objects "
+          f"({eval_s / OPT_OBJECTS:.4f} s an object) at --n_pts {EVAL_PTS} with ICP: {summary}")
+    compared = {}
+    for icp_on in (False, True):
+        args = ev[:-1] + (["--icp_align"] if icp_on else []) + ["--n_pts", str(EVAL_CHECK_PTS)]
+        card, _, card_s = run_cli("opts eval check", eval_cli.main, args)
+        cpu, _, cpu_s = run_cli("opts eval check", eval_cli.main, args + ["--device", "cpu"])
+        rtol = EVAL_ICP_RTOL if icp_on else EVAL_RTOL
+        atol = EVAL_ICP_ATOL if icp_on else 1.0 / EVAL_CHECK_PTS
+        errs = {}
+        for k, want in cpu.items():
+            err = abs(card[k] - want)
+            if k in ("chamfer_l1", "chamfer_l2", "hausdorff"):
+                errs[k] = err / max(abs(want), 1e-30)
+                bad = errs[k] > rtol
+            elif icp_on or k != "iou":
+                errs[k] = err
+                bad = err > atol + 1e-12
+            else:  # IoU without ICP: the same meshes and points, exactly
+                errs[k] = err
+                bad = err != 0
+            check(not bad, f"eval ({'ICP' if icp_on else 'no ICP'}): {k} on the card "
+                  f"{card[k]!r}, on the CPU {want!r}")
+        print(f"[check] eval {'with' if icp_on else 'without'} ICP at --n_pts "
+              f"{EVAL_CHECK_PTS}: card {card_s:.4f} s, CPU {cpu_s:.4f} s; differences {errs} "
+              f"(tolerance: relative {rtol} for Chamfer and Hausdorff, {atol:g} for counts)")
+        compared["icp" if icp_on else "no_icp"] = {"card": card, "cpu": cpu, "diff": errs}
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    result.update(campose={"objects": camp, "s": camp_s},
+                  simplify={"objects": simplified, "s": simp_s, "point": OPT_SIMPLIFY_POINT},
+                  polish=polish,
+                  disn={"batch1": disn1, "batch2": disn2, "batch1_s": disn1_s,
+                        "batch2_s": disn2_s, "rel": worst},
+                  tetrahedra={"objects": tet, "s": tet_s}, disn_service=served,
+                  eval={"summary": summary, "s": eval_s, "per_object_s": eval_s / OPT_OBJECTS,
+                        "compared": compared})
+    return result, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1227,10 +1641,13 @@ def main() -> int:
     model = init_slicenet(seed=0, dtype=torch.bfloat16).to("cuda")
     serving, serve_counts, proj, imgs = phase_serving(model)
     split, split_counts = phase_split(proj, imgs, serving["threshold"])
+    del model
+    options, options_counts = phase_regression_options()
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"regression": main_counts, "generation": gen["counts"],
-               "training": train["counts"], "serving": serve_counts, "split": split_counts}
+               "training": train["counts"], "serving": serve_counts, "split": split_counts,
+               "options": options_counts}
     full = modes[0]
     encoder = {"name": "fused_encoder_layer", "route": "cuda",
                "source": "slice3d_tpu_torch/csrc/fused_encoder.cu",
@@ -1281,7 +1698,7 @@ def main() -> int:
            "bound_share": full_ffn["bound_share"], "modes": ffn_modes}
     print(json.dumps({"generation": {k: v for k, v in gen.items() if k != "counts"},
                       "training": {k: v for k, v in train.items() if k != "counts"},
-                      "serving": serving, "split": split}))
+                      "serving": serving, "split": split, "options": options}))
     print(json.dumps({"kernels": [encoder, attention, attention_bwd, ffn]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

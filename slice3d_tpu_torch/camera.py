@@ -8,6 +8,9 @@ Blender camera with a 35 mm lens on a 32 mm sensor orbits the origin at
   camera-aligned frame, applied as ``q @ obj_rot_mat``;
 * ``trans_mat_wo_rot_tp`` (4, 3): the rotation-free projection applied as
   ``[q, 1] @ trans_mat_wo_rot_tp`` before the perspective divide.
+
+DISN instead projects the unrotated canonical points with the full camera
+matrix (``full_projection_matrix``, the feed's ``trans_mat_right``).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["intrinsics", "blender_rt", "canonical_rot4", "camera_matrices",
-           "sdf_sample_transform"]
+           "full_projection_matrix", "sdf_sample_transform"]
 
 FOCAL_MM = 35.0
 SENSOR_MM = 32.0
@@ -67,6 +70,14 @@ def camera_matrices(az_meta: float, el_meta: float, distance: float):
     # rotation-free projection: only the constant translation column stays
     tmp = np.concatenate([np.eye(3), rot_full[:, 3:4]], axis=1)
     return obj_rot_mat, (k @ tmp).T
+
+
+def full_projection_matrix(az_meta: float, el_meta: float, distance: float) -> np.ndarray:
+    """Transposed full projection (4, 3), ``(K @ RT @ canonical_rot4).T``,
+    from the same raw angles and distance as ``camera_matrices``."""
+    k = intrinsics(1.0, 1.0)
+    rt = blender_rt(-float(az_meta), float(el_meta), float(distance))
+    return (k @ (rt @ canonical_rot4())).T
 
 
 def sdf_sample_transform(points: np.ndarray, sdf: np.ndarray, scale: float, offset) -> tuple:

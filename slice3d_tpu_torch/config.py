@@ -63,8 +63,7 @@ class Options:
     # sharding at reconstruction in the JAX package: batch | points (the
     # port runs on one device; only the default is accepted)
     mc_shard_axis: str = "batch"
-    # isosurfacer: surface_nets (the port has no tetrahedra extractor yet)
-    mc_extract: str = "surface_nets"
+    mc_extract: str = "surface_nets"  # isosurfacer: surface_nets | tetrahedra
     # testing
     name_ckpt: str = ""
     name_ckpt_cam: str = ""
@@ -123,24 +122,16 @@ def options_from_args(args=None) -> Options:
 
 # option -> (its default, what is missing, where the work is queued)
 _UNPORTED = {
-    "est_campose": (False, "camera-pose estimation (CameraNet)", "ROADMAP Queue 1 item 7"),
-    "mc_refine_steps": (0, "the refine_mesh polish", "ROADMAP Queue 1 item 11"),
-    "simplify_nfaces": (0, "mesh simplification", "left out in ROADMAP Queue 1 item 4"),
-    "mc_extract": ("surface_nets", "the tetrahedra extractor",
-                   "left out in ROADMAP Queue 1 item 4"),
     "mc_shard_axis": ("batch", "sharding the query points over devices",
                       "ROADMAP Queue 1 item 12"),
     "multi_gpu": (False, "more than one device", "ROADMAP Queue 1 item 12"),
-    "device_preprocess": (False, "on-device image preprocessing", "ROADMAP Queue 1 item 11"),
+    "device_preprocess": (False, "on-device image preprocessing", "ROADMAP Queue 1 item 8"),
 }
 
 
 def require_ported(opts: Options) -> None:
-    """Raise for an option the port cannot honour yet: the DISN model, or
-    any option of ``_UNPORTED`` set to anything but its default."""
-    if opts.name_model == "disn":
-        raise NotImplementedError("--name_model disn is not ported yet (the DISN model, "
-                                  "ROADMAP Queue 1 item 7)")
+    """Raise for an option the port cannot honour yet: any option of
+    ``_UNPORTED`` set to anything but its default."""
     for name, (default, what, where) in _UNPORTED.items():
         value = getattr(opts, name)
         if value != default:

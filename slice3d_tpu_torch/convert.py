@@ -5,14 +5,16 @@ The inverse of the JAX package's checkpoint importer
 ``init_variables``, the trainers or the torch importer produce it
 (``{"params": ..., "batch_stats": ...}`` with numpy or array leaves) becomes
 a ``state_dict`` under the reference torch names, which the port's models
-take as it is.  Covered: SliceNet, GTSlice and the latent-diffusion model
-(kl-f8 VAE, ADM UNet, VGG16-BN conditioner).
+take as it is.  Covered: SliceNet, GTSlice, DISN, CameraNet and the
+latent-diffusion model (kl-f8 VAE, ADM UNet, VGG16-BN conditioner).
 
 Layout rules: conv HWIO -> OIHW; Dense (in, out) -> (out, in); a Dense that
 the reference holds as a 1x1 Conv1d -> (out, in, 1); ConvTranspose
 (kH, kW, O, I) -> (I, O, kH, kW); the fused ``qkv`` kernel transposed is
 ``in_proj_weight``; BatchNorm ``mean``/``var`` -> ``running_mean``/
-``running_var``; GroupNorm/LayerNorm ``scale`` -> ``weight``.
+``running_var``; GroupNorm/LayerNorm ``scale`` -> ``weight``; a Dense over a
+flattened feature map (DISN's and CameraNet's first global Linear) goes from
+the JAX package's NHWC flatten order back to torch's NCHW one.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from typing import Dict, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["slicenet_state_dict", "gtslice_state_dict", "vae_state_dict",
+__all__ = ["slicenet_state_dict", "gtslice_state_dict", "disn_state_dict",
+           "camnet_state_dict", "vae_state_dict",
            "ldm_unet_state_dict", "cond_encoder_state_dict",
            "latent_diffusion_state_dict", "ldm_train_payload"]
 
@@ -58,6 +61,16 @@ def _conv_transpose(sd: Dict, prefix: str, p: Mapping) -> None:
 
 def _dense(sd: Dict, prefix: str, p: Mapping) -> None:
     sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _dense_nchw(sd: Dict, prefix: str, p: Mapping, channels: int = 512) -> None:
+    """A Dense over an NHWC-flattened (h, w, c) map -> a Linear over the
+    NCHW-flattened one (the inverse of ``nchw_flat_linear_params``)."""
+    kernel = np.asarray(p["kernel"])  # (h * w * c, o)
+    side = int(round(np.sqrt(kernel.shape[0] // channels)))
+    w = kernel.T.reshape(-1, side, side, channels).transpose(0, 3, 1, 2)
+    sd[f"{prefix}.weight"] = _t(w.reshape(w.shape[0], -1))
     sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
@@ -155,6 +168,43 @@ def gtslice_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     for i in range(len(head["att_decoder"])):
         _encoder_layer(sd, f"att_decoder.layers.{i}", head["att_decoder"][f"layer{i}"])
     _dense(sd, "fc_out.0", head["fc_out"])
+    return sd
+
+
+def _mlp(sd: Dict, prefix: str, p: Mapping, indices: Sequence[int]) -> None:
+    for i, idx in enumerate(indices):
+        _dense(sd, f"{prefix}.{idx}", p[f"fc{i}"])
+
+
+def disn_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """DISN flax variables -> the port's (reference-named) state_dict."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _vgg(sd, [f"img_encoder.{b}" for b in _REF_BLOCKS], params["img_encoder"],
+         stats["img_encoder"])
+    gh = params["global_head"]
+    _dense_nchw(sd, "img_encoder.classifier.0", gh["fc0"])
+    _dense(sd, "img_encoder.classifier.3", gh["fc1"])
+    _dense(sd, "img_encoder.classifier.6", gh["fc2"])
+    for name in ("pts_feat_extractor", "fc_local", "fc_global"):
+        _mlp(sd, name, params[name], (0, 2, 4))
+    return sd
+
+
+def camnet_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """CameraNet flax variables -> the port's (reference-named) state_dict:
+    the trunk is ``global_features.0``, torchvision's whole vgg16_bn
+    ``features`` with its absolute indices."""
+    params, stats = variables["params"], variables["batch_stats"]
+    p, s = params["backbone"], stats["backbone"]
+    sd: Dict[str, torch.Tensor] = {}
+    for ci, _, cidx, _, bidx in _REF_VGG_SLICES:
+        _conv(sd, f"global_features.0.{cidx}", p[f"conv{ci}"])
+        _bn(sd, f"global_features.0.{bidx}", p[f"bn{ci}"], s[f"bn{ci}"])
+    _dense_nchw(sd, "fc", params["fc"])
+    for branch in ("branch_ortho6d", "branch_dist"):
+        for i in range(3):
+            _dense(sd, f"{branch}.{i}.0", params[branch][f"fc{i}"])
     return sd
 
 

@@ -16,8 +16,9 @@ compositing; bilinear resize; [-1, 1] normalization; camera matrices from
 meta.pkl; per-object SDF rescaling with the 0.003 level shift; view 4 and
 seed 1234 for val/test.  Images are uint8 numpy arrays read by
 ``data/image.py`` (Pillow's decode and bilinear resize, without Pillow);
-arrays out are NHWC float32.  The JAX package's on-device preprocessing and
-DISN's full projection (``load_full_projection``) are not ported.
+arrays out are NHWC float32.  ``load_full_projection`` adds DISN's full
+projection (``trans_mat_right``).  The JAX package's on-device
+preprocessing is not ported.
 """
 
 from __future__ import annotations
@@ -95,6 +96,7 @@ class Slice3DDataset:
     use_white_bg: bool = False
     load_slices: bool = True
     load_sdf: bool = True
+    load_full_projection: bool = False  # 'trans_mat_right' for DISN
     categories: Sequence[str] = ("",)
 
     def __post_init__(self):
@@ -147,10 +149,12 @@ class Slice3DDataset:
                 out.append(preprocess_image(img, self.img_size, self.use_white_bg))
         return np.stack(out)
 
+    def load_meta(self, shape_id: str):
+        with open(os.path.join(self.dir_img_input, shape_id, "meta.pkl"), "rb") as f:
+            return pickle.load(f)  # the dataset's own render metadata
+
     def load_camera(self, shape_id: str, view: int):
-        meta_path = os.path.join(self.dir_img_input, shape_id, "meta.pkl")
-        with open(meta_path, "rb") as f:
-            meta = pickle.load(f)  # the dataset's own render metadata
+        meta = self.load_meta(shape_id)
         az, el, dist = meta[1][view], meta[2][view], meta[3][view]
         scale, offset = meta[5], meta[6]
         obj_rot, trans_tp = camera.camera_matrices(az, el, dist)
@@ -180,6 +184,10 @@ class Slice3DDataset:
             "trans_mat_wo_rot_tp": trans_tp,
             "img_input": self.load_input_view(shape_id, view).astype(np.float32),
         }
+        if self.load_full_projection:
+            meta = self.load_meta(shape_id)
+            feed["trans_mat_right"] = camera.full_projection_matrix(
+                meta[1][view], meta[2][view], meta[3][view]).astype(np.float32)
         if self.load_slices:
             feed["img_slices"] = self.load_slice_images(shape_id, view).astype(np.float32)
         if self.load_sdf:

@@ -1,8 +1,10 @@
-"""Host-side mesh stage: masked grid refinement, surface-nets extraction and
-OBJ text.
+"""Host-side mesh stage: masked grid refinement, isosurface extraction
+(surface nets or marching tetrahedra), simplification, inside-mesh tests,
+voxelization and OBJ text.
 
-The native kernels live in ``native/mesh_native.cpp`` and are built with g++
-on first use into the package's git-ignored build directory.
+The native kernels live in ``native/`` (``mesh_native.cpp``,
+``mesh_tet.cpp``, ``mesh_extra.cpp``: the JAX package's sources) and are
+built with g++ on first use into the package's git-ignored build directory.
 """
 
 from __future__ import annotations
@@ -15,15 +17,16 @@ import numpy as np
 
 from ..native import build_library
 
-__all__ = ["Mesh", "isosurface", "refine_level", "obj_string", "export_obj",
-           "load_library"]
+__all__ = ["Mesh", "isosurface", "refine_level", "simplify_mesh", "points_inside_mesh",
+           "voxelize_mesh", "obj_string", "export_obj", "load_library"]
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native",
-                    "mesh_native.cpp")
+_SRCS = [os.path.join(os.path.dirname(os.path.abspath(__file__)), "native", name)
+         for name in ("mesh_native.cpp", "mesh_tet.cpp", "mesh_extra.cpp")]
 
 _F32P = ctypes.POINTER(ctypes.c_float)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I64P = ctypes.POINTER(ctypes.c_int64)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
 
 
 @dataclass
@@ -38,15 +41,21 @@ class Mesh:
 
 def load_library() -> ctypes.CDLL:
     """Build (if stale) and load the native mesh library."""
-    lib = build_library("s3d_torch_mesh", [_SRC],
+    lib = build_library("s3d_torch_mesh", _SRCS,
                         ["g++", "-O3", "-std=c++17", "-fPIC", "-shared"])
     if lib.s3d_isosurface_sn.argtypes is None:
         i64 = ctypes.c_int64
-        lib.s3d_isosurface_sn.restype = ctypes.c_int
-        lib.s3d_isosurface_sn.argtypes = [
-            _F32P, i64, i64, i64, ctypes.c_float,
-            ctypes.POINTER(_F32P), _I64P, ctypes.POINTER(_I64P), _I64P,
-        ]
+        for fn in (lib.s3d_isosurface, lib.s3d_isosurface_sn):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [_F32P, i64, i64, i64, ctypes.c_float,
+                           ctypes.POINTER(_F32P), _I64P, ctypes.POINTER(_I64P), _I64P]
+        lib.s3d_simplify.restype = ctypes.c_int
+        lib.s3d_simplify.argtypes = [_F32P, i64, _I64P, i64, i64,
+                                     ctypes.POINTER(_F32P), _I64P, ctypes.POINTER(_I64P), _I64P]
+        lib.s3d_points_inside.restype = ctypes.c_int
+        lib.s3d_points_inside.argtypes = [_F32P, i64, _I64P, i64, _F32P, i64, _U8P]
+        lib.s3d_voxelize.restype = ctypes.c_int
+        lib.s3d_voxelize.argtypes = [_F32P, i64, _I64P, i64, i64, _U8P]
         lib.s3d_refine_level.restype = ctypes.c_int
         lib.s3d_refine_level.argtypes = [
             _F32P, i64, ctypes.c_float, i64, _F32P, ctypes.POINTER(_I32P), _I64P,
@@ -57,20 +66,16 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def isosurface(grid: np.ndarray, iso: float = 0.0) -> Mesh:
-    """Surface-nets iso-surface of a dense (nx, ny, nz) grid; values > iso
-    are inside.  Vertices are in lattice coordinates, faces outward."""
-    lib = load_library()
-    g = np.ascontiguousarray(grid, dtype=np.float32)
+def _take_mesh(lib, call, what: str) -> Mesh:
+    """Run a native call that mallocs (verts, faces) and return them as a
+    Mesh; ``call(verts_p, nv, faces_p, nf)`` passes the four out-pointers."""
     verts_p, faces_p = _F32P(), _I64P()
     nv, nf = ctypes.c_int64(), ctypes.c_int64()
-    rc = lib.s3d_isosurface_sn(
-        g.ctypes.data_as(_F32P), g.shape[0], g.shape[1], g.shape[2],
-        ctypes.c_float(iso), ctypes.byref(verts_p), ctypes.byref(nv),
-        ctypes.byref(faces_p), ctypes.byref(nf))
+    rc = call(ctypes.byref(verts_p), ctypes.byref(nv), ctypes.byref(faces_p),
+              ctypes.byref(nf))
     try:
         if rc != 0:
-            raise RuntimeError("isosurface extraction failed")
+            raise RuntimeError(f"{what} failed")
         verts = (np.ctypeslib.as_array(verts_p, shape=(nv.value, 3)).copy()
                  if nv.value else np.zeros((0, 3), np.float32))
         faces = (np.ctypeslib.as_array(faces_p, shape=(nf.value, 3)).copy()
@@ -79,6 +84,19 @@ def isosurface(grid: np.ndarray, iso: float = 0.0) -> Mesh:
         lib.s3d_free(verts_p)
         lib.s3d_free(faces_p)
     return Mesh(vertices=verts, faces=faces)
+
+
+def isosurface(grid: np.ndarray, iso: float = 0.0, method: str = "surface_nets") -> Mesh:
+    """Iso-surface of a dense (nx, ny, nz) grid; values > iso are inside.
+    ``method``: ``"surface_nets"`` (one vertex per straddling cell) or
+    ``"tetrahedra"`` (6-tet marching, vertices on the lattice edges).
+    Vertices are in lattice coordinates, faces outward."""
+    lib = load_library()
+    fn = {"surface_nets": lib.s3d_isosurface_sn, "tetrahedra": lib.s3d_isosurface}[method]
+    g = np.ascontiguousarray(grid, dtype=np.float32)
+    return _take_mesh(lib, lambda *out: fn(g.ctypes.data_as(_F32P), g.shape[0], g.shape[1],
+                                           g.shape[2], ctypes.c_float(iso), *out),
+                      "isosurface extraction")
 
 
 def refine_level(grid: np.ndarray, threshold: float, dilate: int = 1):
@@ -106,6 +124,48 @@ def refine_level(grid: np.ndarray, threshold: float, dilate: int = 1):
     finally:
         lib.s3d_free(idx_p)
     return fine, idx
+
+
+def _mesh_buffers(mesh: Mesh):
+    return (np.ascontiguousarray(mesh.vertices, np.float32),
+            np.ascontiguousarray(mesh.faces, np.int64))
+
+
+def simplify_mesh(mesh: Mesh, target_faces: int) -> Mesh:
+    """Quadric edge-collapse simplification to about ``target_faces``."""
+    if mesh.is_empty:
+        return mesh
+    lib = load_library()
+    v, f = _mesh_buffers(mesh)
+    return _take_mesh(lib, lambda *out: lib.s3d_simplify(
+        v.ctypes.data_as(_F32P), len(v), f.ctypes.data_as(_I64P), len(f), int(target_faces),
+        *out), "simplification")
+
+
+def points_inside_mesh(mesh: Mesh, points: np.ndarray) -> np.ndarray:
+    """Boolean containment of each (N, 3) point in a closed mesh."""
+    lib = load_library()
+    v, f = _mesh_buffers(mesh)
+    p = np.ascontiguousarray(points, np.float32)
+    out = np.zeros(len(p), np.uint8)
+    rc = lib.s3d_points_inside(v.ctypes.data_as(_F32P), len(v), f.ctypes.data_as(_I64P),
+                               len(f), p.ctypes.data_as(_F32P), len(p),
+                               out.ctypes.data_as(_U8P))
+    if rc != 0:
+        raise RuntimeError("inside-mesh test failed")
+    return out.astype(bool)
+
+
+def voxelize_mesh(mesh: Mesh, resolution: int) -> np.ndarray:
+    """Conservative surface voxelization over [0, 1]^3: (r, r, r) bool."""
+    lib = load_library()
+    v, f = _mesh_buffers(mesh)
+    occ = np.zeros((resolution,) * 3, np.uint8)
+    rc = lib.s3d_voxelize(v.ctypes.data_as(_F32P), len(v), f.ctypes.data_as(_I64P), len(f),
+                          resolution, occ.ctypes.data_as(_U8P))
+    if rc != 0:
+        raise RuntimeError("voxelization failed")
+    return occ.astype(bool)
 
 
 def obj_string(mesh: Mesh) -> str:

@@ -7,7 +7,8 @@ threshold`` operating point:
   2. per level, the known grid is trilinearly upsampled and only the fine
      lattice points touching a cell whose corners straddle the threshold
      (dilated once) are evaluated;
-  3. surface nets extracts the mesh from the final (res+1)^3 grid.
+  3. surface nets (or marching tetrahedra, ``method``) extracts the mesh
+     from the final (res+1)^3 grid.
 
 Lattice point ``idx = x*n^2 + y*n + z`` of an n = res+1 lattice sits at
 ``box_size * ((x, y, z) / res - 0.5)``.  Values are logits (the pipeline
@@ -70,12 +71,13 @@ class GridRefiner:
 
 
 def extract_mesh_from_grid(grid: np.ndarray, threshold: float = 0.0,
-                           box_size: float = 1.0) -> Mesh:
-    """Pad, isosurface, and map vertices to world coordinates: the
-    (res+1)^3 lattice spans ``box_size * [-0.5, 0.5]``."""
+                           box_size: float = 1.0, method: str = "surface_nets") -> Mesh:
+    """Pad, isosurface (``method``, see ``mesh.isosurface``), and map
+    vertices to world coordinates: the (res+1)^3 lattice spans
+    ``box_size * [-0.5, 0.5]``."""
     res = grid.shape[0] - 1
     padded = np.pad(grid, 1, mode="constant", constant_values=-1e6)
-    mesh = isosurface(padded, threshold)
+    mesh = isosurface(padded, threshold, method=method)
     if mesh.is_empty:
         return mesh
     verts = (mesh.vertices - 1.0) / res  # undo the pad, normalize to [0, 1]
@@ -92,6 +94,7 @@ class MeshGenerator:
     threshold: float = 0.5  # probability-space threshold (reference flag)
     box_size: float = 1.0
     dilate: int = 1
+    method: str = "surface_nets"  # isosurfacer (see mesh.isosurface)
 
     @property
     def logit_threshold(self) -> float:
@@ -113,6 +116,7 @@ class MeshGenerator:
             lambda idxs, res: [evaluator(idxs[0], res)], dense[None], [stats])[0]
         stats["time_eval_points"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        mesh = extract_mesh_from_grid(grid, self.logit_threshold, self.box_size)
+        mesh = extract_mesh_from_grid(grid, self.logit_threshold, self.box_size,
+                                      method=self.method)
         stats["time_marching"] = time.perf_counter() - t0
         return mesh, stats

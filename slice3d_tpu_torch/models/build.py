@@ -1,11 +1,13 @@
 """Model factory and weight loading for the port's CLIs.
 
 ``build_model`` mirrors ``slice3d_tpu/models/build.py::build_model`` for the
-inference models: bf16 with the fused encoder route, or fp32 with the plain
-route (both kernel routes take bf16 only).  ``load_model`` gives the model
-its weights: the port's seeded init for ``--random_init`` or no checkpoint,
-else a reference torch checkpoint, whose ``state_dict`` names the port uses
-as they are.
+inference models: bf16 (SliceNet and GTSlice on the fused encoder route), or
+fp32 (the plain route; both kernel routes take bf16 only).  ``load_model``
+gives the model its weights: the port's seeded init for ``--random_init`` or
+no checkpoint, else a reference torch checkpoint, whose ``state_dict`` names
+the port uses as they are.  ``load_camnet`` does the same for the camera
+pose estimator of ``--est_campose``, from ``--name_exp_cam`` /
+``--name_ckpt_cam``.
 """
 
 from __future__ import annotations
@@ -17,12 +19,15 @@ from typing import Optional, Union
 import torch
 
 from ..config import Options
+from .camnet import CameraNet, init_camnet
+from .disn import DISNModel, init_disn
 from .gtslice import GTSliceModel, init_gtslice
 from .slicenet import SliceNetModel, init_slicenet
 
-__all__ = ["build_model", "load_model"]
+__all__ = ["build_model", "load_model", "load_camnet"]
 
-Model = Union[SliceNetModel, GTSliceModel]
+Model = Union[SliceNetModel, GTSliceModel, DISNModel]
+MODELS = ("slicenet", "gtslice", "disn")
 
 
 def _dtype_route(opts: Options):
@@ -34,16 +39,18 @@ def _dtype_route(opts: Options):
 
 
 def _check_model(opts: Options) -> None:
-    if opts.name_model not in ("slicenet", "gtslice"):
-        raise ValueError(f"unknown or unported model {opts.name_model!r}: slicenet or "
-                         "gtslice (disn is ROADMAP Queue 1 item 7)")
+    if opts.name_model not in MODELS:
+        raise ValueError(f"unknown model {opts.name_model!r}: one of {MODELS}")
 
 
 def build_model(opts: Options) -> Model:
-    """An inference SliceNet or GTSlice with ``opts``' slice count and
-    compute dtype, its parameters left as the constructor made them."""
+    """An inference SliceNet, GTSlice or DISN with ``opts``' slice count
+    (DISN: image size) and compute dtype, its parameters left as the
+    constructor made them."""
     _check_model(opts)
     dtype, route = _dtype_route(opts)
+    if opts.name_model == "disn":
+        return DISNModel(img_size=opts.img_size, dtype=dtype).eval()
     cls = SliceNetModel if opts.name_model == "slicenet" else GTSliceModel
     return cls(opts.n_slices, route=route, dtype=dtype).eval()
 
@@ -54,6 +61,17 @@ def _is_torch_file(path: str) -> bool:
         return True
     with open(path, "rb") as f:
         return f.read(2) in (b"\x80\x02", b"\x80\x04")
+
+
+def _state_dict(ckpt_path: str):
+    """A reference torch checkpoint's ``state_dict`` (the file's, or the one
+    it holds under ``"model"``); a ``ValueError`` for anything else."""
+    if os.path.isdir(ckpt_path) or not _is_torch_file(ckpt_path):
+        raise ValueError(f"{ckpt_path} is not a torch checkpoint (the JAX package's msgpack "
+                         "and orbax checkpoints are not read by the port): convert it to a "
+                         "reference state_dict first")
+    payload = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    return payload.get("model", payload) if isinstance(payload, dict) else payload
 
 
 def load_model(opts: Options, ckpt_path: Optional[str] = None) -> Model:
@@ -68,14 +86,25 @@ def load_model(opts: Options, ckpt_path: Optional[str] = None) -> Model:
     _check_model(opts)
     if ckpt_path is None or opts.random_init:
         dtype, route = _dtype_route(opts)
+        if opts.name_model == "disn":
+            return init_disn(0, img_size=opts.img_size, dtype=dtype).eval()
         init = init_slicenet if opts.name_model == "slicenet" else init_gtslice
         return init(0, n_slices=opts.n_slices, route=route, dtype=dtype).eval()
-    if os.path.isdir(ckpt_path) or not _is_torch_file(ckpt_path):
-        raise ValueError(f"{ckpt_path} is not a torch checkpoint (the JAX package's msgpack "
-                         "and orbax checkpoints are not read by the port): convert it to a "
-                         "reference state_dict first")
-    payload = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-    state = payload.get("model", payload) if isinstance(payload, dict) else payload
+    state = _state_dict(ckpt_path)
     model = build_model(opts)
     model.load_state_dict(state)
     return model
+
+
+def load_camnet(opts: Options) -> CameraNet:
+    """The fp32 CameraNet of ``--est_campose``: the reference state_dict at
+    ``<dir_experiments>/<name_exp_cam>/ckpt/<name_ckpt_cam>`` when that file
+    exists, else the seeded init (seed 0) with a note, as the JAX CLI does."""
+    path = (os.path.join(opts.dir_experiments, opts.name_exp_cam, "ckpt", opts.name_ckpt_cam)
+            if opts.name_ckpt_cam else None)
+    if path and os.path.exists(path):
+        model = CameraNet(opts.img_size)
+        model.load_state_dict(_state_dict(path))
+        return model.eval()
+    print("est_campose: no camera checkpoint found, using random weights")
+    return init_camnet(0, img_size=opts.img_size)

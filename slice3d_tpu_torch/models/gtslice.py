@@ -55,13 +55,15 @@ class GTSliceModel(SDFTransformerHead):
         return [p.contiguous() for p in packed]
 
     def query_folded(self, packed, qry: torch.Tensor, trans_mat_tp: torch.Tensor,
-                     obj_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     obj_index: Optional[torch.Tensor] = None,
+                     route: Optional[str] = None) -> torch.Tensor:
         """qry (b, M, 3) camera-aligned -> sdf (b, M) over folded planes;
         ``obj_index`` (b,) maps each query row to a plane set of the batch
-        (default: row i to set i)."""
+        (default: row i to set i); ``route`` overrides the encoder layers'
+        route for this call."""
         uv = project_points(qry, trans_mat_tp)
         sampled = sample_packed_sum(packed, uv, self.n_slices, obj_index=obj_index)
-        return self.from_folded(qry, sampled)
+        return self.from_folded(qry, sampled, route)
 
     def query_presampled(self, qry: torch.Tensor, sampled: torch.Tensor) -> torch.Tensor:
         """Head only, on folded features sampled elsewhere (the lattice-slab

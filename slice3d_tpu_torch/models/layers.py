@@ -165,9 +165,12 @@ class TransformerEncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(d_model)
         nn.init.xavier_uniform_(self.self_attn.in_proj_weight)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _ROUTE_FNS[self.route](x, dict(self.named_parameters()), n_heads=self.n_heads,
-                                      head_tokens=self.head_tokens)
+    def forward(self, x: torch.Tensor, route: Optional[str] = None) -> torch.Tensor:
+        """``route`` overrides the layer's own for this call (the mesh polish
+        differentiates through the plain route)."""
+        return _ROUTE_FNS[route or self.route](x, dict(self.named_parameters()),
+                                               n_heads=self.n_heads,
+                                               head_tokens=self.head_tokens)
 
 
 class TransformerEncoder(nn.Module):
@@ -182,7 +185,7 @@ class TransformerEncoder(nn.Module):
                                     route)
             for i in range(num_layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, route: Optional[str] = None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, route)
         return x

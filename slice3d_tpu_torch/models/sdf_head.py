@@ -23,10 +23,12 @@ from typing import List, Mapping, Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops.grid_sample import grid_sample_2d
 from ..ops.hat_sample import hat_sample_sum
 from .layers import Linear, TransformerEncoder
 
-__all__ = ["pack_planes", "sample_packed_sum", "relu_mlp", "SDFTransformerHead"]
+__all__ = ["pack_planes", "sample_packed_sum", "sample_slice_pyramids", "relu_mlp",
+           "SDFTransformerHead"]
 
 # levels with h * w at most this many rows sample through the hat matmul,
 # larger ones through four row gathers
@@ -89,11 +91,25 @@ def sample_packed_sum(packed: Sequence[torch.Tensor], uv: torch.Tensor, n_slices
     return total.reshape(b, m, n_slices, -1)
 
 
-def relu_mlp(cin: int, widths: Sequence[int]) -> nn.Sequential:
-    """Linear -> ReLU per width (Linears at indices 0, 2, 4, ...)."""
+def sample_slice_pyramids(pyramids: Sequence[torch.Tensor], uv: torch.Tensor,
+                          n_slices: int) -> torch.Tensor:
+    """Sample every level of every slice's (unfolded) pyramid at uv:
+    pyramids [(B*S, h, w, c_l)], uv (B, M, 2) -> (B, M, S, sum(c_l))."""
+    b, m, _ = uv.shape
+    uv_tiled = uv.repeat_interleave(n_slices, dim=0)  # (B*S, M, 2)
+    feat = torch.cat([grid_sample_2d(p, uv_tiled) for p in pyramids], dim=-1)
+    return feat.reshape(b, n_slices, m, feat.shape[-1]).transpose(1, 2)
+
+
+def relu_mlp(cin: int, widths: Sequence[int], relu_last: bool = True) -> nn.Sequential:
+    """Linear -> ReLU per width (Linears at indices 0, 2, 4, ...), without
+    the last ReLU unless ``relu_last``: the JAX package's ``MLP`` under the
+    reference's ``nn.Sequential`` names."""
     layers: List[nn.Module] = []
-    for w in widths:
-        layers += [Linear(cin, w), nn.ReLU()]
+    for i, w in enumerate(widths):
+        layers.append(Linear(cin, w))
+        if relu_last or i + 1 < len(widths):
+            layers.append(nn.ReLU())
         cin = w
     return nn.Sequential(*layers)
 
@@ -143,11 +159,13 @@ class SDFTransformerHead(nn.Module):
             offset += c
         return outs
 
-    def from_folded(self, qry: torch.Tensor, sampled_sum: torch.Tensor) -> torch.Tensor:
+    def from_folded(self, qry: torch.Tensor, sampled_sum: torch.Tensor,
+                    route: Optional[str] = None) -> torch.Tensor:
         """qry (B, M, 3) camera-aligned; sampled_sum (B, M, S, d) summed
         folded samples (== the first local Linear of the sampled pyramid).
-        Returns fp32 sdf (B, M); the head computes in sampled_sum's dtype."""
+        Returns fp32 sdf (B, M); the head computes in sampled_sum's dtype.
+        ``route`` overrides the encoder layers' route for this call."""
         feat_q = self.point_net(qry.to(sampled_sum.dtype))
         tokens = torch.cat([feat_q[:, :, None, :], self.local_rest(sampled_sum)], dim=2)
-        tokens = self.att_decoder(tokens)
+        tokens = self.att_decoder(tokens, route)
         return self.fc_out(tokens[:, :, 0, :])[..., 0].to(torch.float32)

@@ -57,22 +57,25 @@ def vgg16_bn_features() -> nn.Sequential:
 
 class VGG16BNBackbone(nn.Module):
     """Six blocks named by ``block_names``; NCHW in, 5 taps out (the first
-    five blocks): 64@H, 128@H/2, 256@H/4, 512@H/8, 512@H/16 (pre-BN)."""
+    five blocks): 64@H, 128@H/2, 256@H/4, 512@H/8, 512@H/16 (pre-BN).
+    ``with_final`` also runs the sixth block (BN, ReLU, 2x2 max pool of the
+    last tap) and returns ``(taps, final 512@H/32)``."""
 
-    def __init__(self, block_names: Sequence[str] = SLICENET_BLOCKS):
+    def __init__(self, block_names: Sequence[str] = SLICENET_BLOCKS, with_final: bool = False):
         super().__init__()
         feats = vgg16_bn_features()
         self.block_names = tuple(block_names)
+        self.with_final = with_final
         for name, a, b in zip(self.block_names, _CUTS[:-1], _CUTS[1:]):
             setattr(self, name, feats[a:b])
 
-    def forward(self, x: torch.Tensor, train: Optional[bool] = None) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: Optional[bool] = None):
         """``train`` runs the BatchNorms on batch statistics and updates their
         running statistics (True) or on the running statistics (False); None
         follows each BatchNorm's ``training`` flag."""
-        taps = []
-        for name in self.block_names[:5]:
+        taps: List[torch.Tensor] = []
+        for name in self.block_names[:5 + self.with_final]:
             for layer in getattr(self, name):
                 x = layer(x, train) if isinstance(layer, BatchNorm2d) else layer(x)
             taps.append(x)
-        return taps
+        return (taps[:5], taps[5]) if self.with_final else taps

@@ -1,17 +1,22 @@
 """Reconstruction pipeline: B objects -> SDF lattices -> meshes.
 
-Two models serve it: SliceNet (one input image, ``feed["img_input"]``) and
+Three models serve it: SliceNet (one input image, ``feed["img_input"]``),
 GTSlice (12 slice images, ``feed["img_slices"]``, e.g. the generation
-route's sampled slices).  Per batch of up to ``batch_size`` objects: encode
-them in one call (feature pyramids folded through the first local Linear and
-packed, kept on the device), evaluate each object's dense coarse lattice,
-refine level by level through the host-side masked refiner, walking each
-object's chunks in turn against the batch's stacked planes (``obj_index``),
-and extract each mesh with surface nets.  The coarse level runs as groups of
-fixed-z slabs sampled with separable matmuls when every projection of the
-batch allows it (ops/lattice_sample.py), else through the same per-point
-gather path as the refinement levels.  ``reconstruct_all`` marches batch i
-on host threads while batch i+1 evaluates on the device.
+route's sampled slices) and DISN (one input image with the full camera,
+``feed["trans_mat_right"]`` and ``feed["obj_rot_mat"]``).  Per batch of up
+to ``batch_size`` objects: encode them in one call (kept on the device;
+SliceNet's and GTSlice's feature pyramids folded through the first local
+Linear and packed, DISN's raw pyramids and global feature), evaluate each
+object's dense coarse lattice, refine level by level through the host-side
+masked refiner, walking each object's chunks in turn against the batch's
+stacked planes (``obj_index``), and extract each mesh (surface nets or
+marching tetrahedra), optionally simplified and then polished against the
+field (``refine_steps``, through autograd on the head's plain route).  The
+folded models' coarse level runs as groups of fixed-z slabs sampled with
+separable matmuls when every projection of the batch allows it
+(ops/lattice_sample.py), else through the same per-point gather path as the
+refinement levels; DISN always takes the gather path.  ``reconstruct_all``
+marches batch i on host threads while batch i+1 evaluates.
 """
 
 from __future__ import annotations
@@ -24,8 +29,10 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .mesh import Mesh
+from .mesh import Mesh, simplify_mesh
 from .mesh.extract import MeshGenerator, extract_mesh_from_grid
+from .mesh.refine import refine_mesh
+from .models.disn import DISNModel
 from .models.gtslice import GTSliceModel
 from .models.slicenet import SliceNetModel
 from .ops.lattice_sample import lattice_sample_sum, projection_is_separable
@@ -35,16 +42,22 @@ __all__ = ["Reconstructor"]
 
 # test-mode canonical -> camera-aligned mapping: flip y and z
 _FLIP = (1.0, -1.0, -1.0)
+EXTRACT_METHODS = ("surface_nets", "tetrahedra")
+
+# what a batch's encode leaves on the device: (encoded, per-object extras),
+# extras being the projections (B, 4, 3), or for DISN (trans_mat_right,
+# obj_rot_mat)
+Cond = Tuple[object, Tuple[torch.Tensor, ...]]
 
 
 class Reconstructor:
-    """SliceNet or GTSlice reconstruction of up to ``batch_size`` objects at
-    a time on one device.
+    """SliceNet, GTSlice or DISN reconstruction of up to ``batch_size``
+    objects at a time on one device.
 
     Args:
-      model: a ``SliceNetModel`` or a ``GTSliceModel`` (its ``dtype`` is the
-        compute dtype; both kernel routes of the encoder take bf16 on the
-        card).
+      model: a ``SliceNetModel``, ``GTSliceModel`` or ``DISNModel`` (its
+        ``dtype`` is the compute dtype; both kernel routes of the encoder
+        take bf16 on the card).
       resolution0 / upsampling_steps / threshold / chunk_size / box_size:
         the MISE operating point; refinement levels are evaluated in chunks
         of at most ``chunk_size`` points.
@@ -56,26 +69,40 @@ class Reconstructor:
       batch_size: objects encoded and evaluated together
         (``reconstruct_batch``, ``reconstruct_all``); ``reconstruct`` takes
         one.
+      simplify_nfaces: simplify each mesh to about this many faces (0: off).
+      refine_steps: RMSprop steps of the mesh polish (0: off), after
+        simplification, in face chunks of ``chunk_size``; its queries
+        differentiate twice through the head's plain route, which shares the
+        model's weights and dtype.
+      extract_method: ``"surface_nets"`` or ``"tetrahedra"``.
       device: where the model runs; CUDA unless the caller asks otherwise.
     """
 
-    def __init__(self, model: Union[SliceNetModel, GTSliceModel], *,
+    def __init__(self, model: Union[SliceNetModel, GTSliceModel, DISNModel], *,
                  resolution0: int = 64,
                  upsampling_steps: int = 2, threshold: float = 0.5,
                  chunk_size: int = 32768, box_size: float = 1.0,
                  slab_points: int = 32768, lattice_dense: bool = True,
-                 batch_size: int = 1,
+                 batch_size: int = 1, simplify_nfaces: int = 0, refine_steps: int = 0,
+                 extract_method: str = "surface_nets",
                  device: Optional[Union[str, torch.device]] = None):
         for name, v in (("resolution0", resolution0), ("chunk_size", chunk_size),
                         ("slab_points", slab_points), ("batch_size", batch_size)):
             if not isinstance(v, (int, np.integer)) or v <= 0:
                 raise ValueError(f"{name} must be a positive integer, got {v!r}")
-        if not isinstance(upsampling_steps, (int, np.integer)) or upsampling_steps < 0:
-            raise ValueError(f"upsampling_steps must be >= 0, got {upsampling_steps!r}")
+        for name, v in (("upsampling_steps", upsampling_steps),
+                        ("simplify_nfaces", simplify_nfaces), ("refine_steps", refine_steps)):
+            if not isinstance(v, (int, np.integer)) or v < 0:
+                raise ValueError(f"{name} must be >= 0, got {v!r}")
         if not 0.0 < threshold < 1.0:
             raise ValueError(f"threshold must lie in (0, 1), got {threshold!r}")
+        if extract_method not in EXTRACT_METHODS:
+            raise ValueError(f"unknown extract_method {extract_method!r}: one of "
+                             f"{EXTRACT_METHODS}")
         self.device = resolve_device(device)
-        kernels = {layer.route for layer in model.att_decoder.layers} - {"plain"}
+        self.is_disn = isinstance(model, DISNModel)
+        kernels = set() if self.is_disn else (
+            {layer.route for layer in model.att_decoder.layers} - {"plain"})
         if self.device.type == "cuda" and kernels and model.dtype != torch.bfloat16:
             raise ValueError(f"the encoder's {sorted(kernels)} route takes bf16 on the card: "
                              "build the model with dtype=torch.bfloat16 (or route='plain')")
@@ -84,34 +111,52 @@ class Reconstructor:
         self.box_size = float(box_size)
         self.lattice_dense = bool(lattice_dense)
         self.batch_size = int(batch_size)
+        self.simplify_nfaces = int(simplify_nfaces)
+        self.refine_steps = int(refine_steps)
         self.generator = MeshGenerator(resolution0=int(resolution0),
                                        upsampling_steps=int(upsampling_steps),
-                                       threshold=float(threshold), box_size=self.box_size)
+                                       threshold=float(threshold), box_size=self.box_size,
+                                       method=extract_method)
         nn0 = int(resolution0) + 1
         self.slab_group = min(nn0, max(1, int(round(slab_points / (nn0 * nn0)))))
         self._flip = torch.tensor(_FLIP, dtype=torch.float32, device=self.device)
 
     # -- queries -------------------------------------------------------------
 
-    def _query_indices(self, packed, trans: torch.Tensor, idx: np.ndarray, res: int,
-                       obj: int) -> np.ndarray:
-        """Logits of object ``obj`` of the batch at flat lattice indices
-        ``idx = x*n^2 + y*n + z``, chunk by chunk; trans (1, 4, 3) is its
-        projection."""
-        n = res + 1
+    def _logits(self, cond: Cond, obj: int, pts: torch.Tensor,
+                route: Optional[str] = None) -> torch.Tensor:
+        """Logits (inside positive) of object ``obj`` of the batch at world
+        points pts (M, 3) on the device; ``route`` overrides the head's."""
+        encoded, extras = cond
+        if self.is_disn:
+            pyramids, feat_global = encoded
+            trans_right, obj_rot = extras
+            pts = pts[None]
+            sdf = self.model.query([p[obj:obj + 1] for p in pyramids],
+                                   feat_global[obj:obj + 1], pts @ obj_rot[obj:obj + 1], pts,
+                                   trans_right[obj:obj + 1])
+            return -sdf[0]
         obj_index = torch.tensor([obj], device=self.device)
+        qry = (pts * self._flip)[None]
+        return -self.model.query_folded(encoded, qry, extras[0][obj:obj + 1], obj_index,
+                                        route=route)[0]
+
+    def _query_indices(self, cond: Cond, idx: np.ndarray, res: int, obj: int) -> np.ndarray:
+        """Logits of object ``obj`` of the batch at flat lattice indices
+        ``idx = x*n^2 + y*n + z``, chunk by chunk."""
+        n = res + 1
         out = []
         for s in range(0, len(idx), self.chunk_size):
             ix = torch.from_numpy(np.asarray(idx[s:s + self.chunk_size], np.int64))
             ix = ix.to(self.device)
             pts = torch.stack([ix // (n * n), (ix // n) % n, ix % n], -1).to(torch.float32)
-            qry = ((pts / res - 0.5) * self.box_size) * self._flip
-            out.append(-self.model.query_folded(packed, qry[None], trans, obj_index)[0])
+            out.append(self._logits(cond, obj, (pts / res - 0.5) * self.box_size))
         return torch.cat(out).cpu().numpy()
 
     def _dense_lattice(self, packed, trans: torch.Tensor, obj: int) -> np.ndarray:
-        """Coarse-level logits of object ``obj`` over groups of z-slabs,
-        separable sampling; trans (1, 4, 3) is its projection."""
+        """Coarse-level logits of object ``obj`` of a folded model over
+        groups of z-slabs, separable sampling; trans (1, 4, 3) is its
+        projection."""
         n0 = self.generator.resolution0
         nn0 = n0 + 1
         axis = (torch.arange(nn0, dtype=torch.float32, device=self.device) / n0 - 0.5) \
@@ -142,48 +187,65 @@ class Reconstructor:
     # -- reconstruction --------------------------------------------------------
 
     def _stack_inputs(self, feeds: Sequence[Dict[str, np.ndarray]]
-                      ) -> Tuple[torch.Tensor, np.ndarray]:
+                      ) -> Tuple[torch.Tensor, Tuple[np.ndarray, ...]]:
         """B feeds -> (the model's images (B, ...) on the device, the
-        projections (B, 4, 3) on the host)."""
+        per-object camera matrices on the host): the projections (B, 4, 3),
+        or DISN's full projections (B, 4, 3) and rotations (B, 3, 3)."""
         key = "img_slices" if isinstance(self.model, GTSliceModel) else "img_input"
         imgs = np.stack([np.asarray(f[key], np.float32) for f in feeds])
-        trans = np.stack([np.asarray(f["trans_mat_wo_rot_tp"], np.float32) for f in feeds])
-        return torch.from_numpy(imgs).to(self.device), trans
+        names = (("trans_mat_right", "obj_rot_mat") if self.is_disn
+                 else ("trans_mat_wo_rot_tp",))
+        extras = tuple(np.stack([np.asarray(f[k], np.float32) for f in feeds]) for k in names)
+        return torch.from_numpy(imgs).to(self.device), extras
 
     @torch.no_grad()
-    def build_grids(self, feeds: Sequence[Dict[str, np.ndarray]]
-                    ) -> Tuple[List[np.ndarray], List[Dict]]:
-        """feeds: 1 to ``batch_size`` dicts of ``trans_mat_wo_rot_tp`` (4, 3)
-        and the model's images: ``img_input`` (H, W, 3) for SliceNet,
-        ``img_slices`` (12, H, W, 3) for GTSlice.  The objects are encoded in
-        one call; each then walks its own coarse lattice and refinement
-        chunks.  Returns (dense (res+1)^3 logit grids, stats) per object."""
+    def _build(self, feeds: Sequence[Dict[str, np.ndarray]]
+               ) -> Tuple[List[np.ndarray], List[Dict], Cond]:
+        """Encode the batch, build every object's grid; returns (grids,
+        stats, the encoded batch for the polish)."""
         if not 1 <= len(feeds) <= self.batch_size:
             raise ValueError(f"{len(feeds)} feeds for a batch of at most {self.batch_size}")
-        imgs, trans_np = self._stack_inputs(feeds)
-        trans = torch.from_numpy(trans_np).to(self.device)
+        imgs, extras_np = self._stack_inputs(feeds)
+        extras = tuple(torch.from_numpy(e).to(self.device) for e in extras_np)
         stats_list: List[Dict] = [{} for _ in feeds]
         t0 = time.perf_counter()
-        packed = self.model.encode_folded(imgs)
-        if isinstance(self.model, SliceNetModel):
-            packed = packed[0]
+        if self.is_disn:
+            encoded = self.model.encode(imgs)
+        else:
+            encoded = self.model.encode_folded(imgs)
+            if isinstance(self.model, SliceNetModel):
+                encoded = encoded[0]
+        cond = (encoded, extras)
         n0 = self.generator.resolution0
-        lattice = self.lattice_dense and all(projection_is_separable(t) for t in trans_np)
+        lattice = (not self.is_disn and self.lattice_dense
+                   and all(projection_is_separable(t) for t in extras_np[0]))
         coarse = np.arange((n0 + 1) ** 3, dtype=np.int64)
         dense = np.stack([
-            self._dense_lattice(packed, trans[i:i + 1], i) if lattice
-            else self._query_indices(packed, trans[i:i + 1], coarse, n0, i)
+            self._dense_lattice(encoded, extras[0][i:i + 1], i) if lattice
+            else self._query_indices(cond, coarse, n0, i)
             for i in range(len(feeds))])
 
         def evaluator(idxs: Sequence[np.ndarray], res: int) -> List[np.ndarray]:
             # one object's chunks after another, each against its own planes
-            return [self._query_indices(packed, trans[i:i + 1], ix, res, i) if len(ix)
+            return [self._query_indices(cond, ix, res, i) if len(ix)
                     else np.zeros((0,), np.float32) for i, ix in enumerate(idxs)]
 
         grids = self.generator.refiner().build_batch(evaluator, dense, stats_list)
         dt = time.perf_counter() - t0
         for stats in stats_list:
             stats["time_eval_points"] = dt
+        return grids, stats_list, cond
+
+    def build_grids(self, feeds: Sequence[Dict[str, np.ndarray]]
+                    ) -> Tuple[List[np.ndarray], List[Dict]]:
+        """feeds: 1 to ``batch_size`` dicts of the model's images
+        (``img_input`` (H, W, 3) for SliceNet and DISN, ``img_slices``
+        (12, H, W, 3) for GTSlice) and its camera (``trans_mat_wo_rot_tp``
+        (4, 3); DISN: ``trans_mat_right`` (4, 3) and ``obj_rot_mat`` (3, 3)).
+        The objects are encoded in one call; each then walks its own coarse
+        lattice and refinement chunks.  Returns (dense (res+1)^3 logit grids,
+        stats) per object."""
+        grids, stats_list, _ = self._build(feeds)
         return grids, stats_list
 
     def build_grid(self, feed: Dict[str, np.ndarray]) -> Tuple[np.ndarray, Dict]:
@@ -192,22 +254,46 @@ class Reconstructor:
         return grids[0], stats[0]
 
     def _march(self, grid: np.ndarray, stats: Dict) -> Mesh:
+        """Extract (and simplify) one mesh; runs on worker threads."""
         t0 = time.perf_counter()
-        mesh = extract_mesh_from_grid(grid, self.generator.logit_threshold, self.box_size)
+        mesh = extract_mesh_from_grid(grid, self.generator.logit_threshold, self.box_size,
+                                      method=self.generator.method)
+        if self.simplify_nfaces and not mesh.is_empty:
+            mesh = simplify_mesh(mesh, self.simplify_nfaces)
         stats["time_marching"] = time.perf_counter() - t0
         return mesh
+
+    def _maybe_refine(self, mesh: Mesh, cond: Cond, obj: int, stats: Dict) -> Mesh:
+        """The polish of ``refine_steps`` steps against object ``obj``'s
+        field (the reference's refine_mesh), on the caller's thread."""
+        if not self.refine_steps or mesh.is_empty:
+            return mesh
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            verts, losses = refine_mesh(
+                mesh.vertices, mesh.faces,
+                lambda p: self._logits(cond, obj, p, route="plain"),
+                steps=self.refine_steps, threshold=self.generator.threshold,
+                face_chunk=self.chunk_size, device=self.device)
+        stats["time_refine"] = time.perf_counter() - t0
+        # the first and last steps' losses, each at its own step's draws
+        stats["refine_loss_first"] = float(losses[0])
+        stats["refine_loss_last"] = float(losses[-1])
+        return Mesh(vertices=verts, faces=mesh.faces)
 
     def reconstruct(self, feed: Dict[str, np.ndarray]) -> Tuple[Mesh, Dict]:
         """One object (a batch of 1): feed -> (mesh in world coordinates,
         stats)."""
-        grid, stats = self.build_grid(feed)
-        return self._march(grid, stats), stats
+        grids, stats_list, cond = self._build([feed])
+        mesh = self._march(grids[0], stats_list[0])
+        return self._maybe_refine(mesh, cond, 0, stats_list[0]), stats_list[0]
 
     def reconstruct_batch(self, feeds: Sequence[Dict[str, np.ndarray]]
                           ) -> List[Tuple[Mesh, Dict]]:
         """Up to ``batch_size`` objects encoded and evaluated together."""
-        grids, stats_list = self.build_grids(list(feeds))
-        return [(self._march(g, st), st) for g, st in zip(grids, stats_list)]
+        grids, stats_list, cond = self._build(list(feeds))
+        return [(self._maybe_refine(self._march(g, st), cond, i, st), st)
+                for i, (g, st) in enumerate(zip(grids, stats_list))]
 
     def reconstruct_all(self, feeds: Iterable[Dict[str, np.ndarray]],
                         on_result: Callable[[int, Mesh, Dict], None]) -> None:
@@ -216,8 +302,10 @@ class Reconstructor:
 
         The tail batch is padded with copies of its last feed, so every
         batch has the same size and an object's values do not depend on
-        where the split put it.  Marching (native code that releases the
-        GIL) of batch i runs on worker threads while batch i+1 evaluates.
+        where the split put it.  Marching and simplification (native code
+        that releases the GIL) of batch i run on worker threads while batch
+        i+1 evaluates; the polish, which runs the model, stays on this
+        thread.
         """
         b = self.batch_size
 
@@ -231,21 +319,22 @@ class Reconstructor:
             if group:
                 yield group
 
-        def finish(base, futures, stats_list):
+        def finish(base, futures, stats_list, cond):
             for j, fut in enumerate(futures):
-                on_result(base + j, fut.result(), stats_list[j])
+                mesh = self._maybe_refine(fut.result(), cond, j, stats_list[j])
+                on_result(base + j, mesh, stats_list[j])
 
         with ThreadPoolExecutor(max(min(b, 8), 1)) as pool:
             pending = None
             base = 0
             for group in batches():
                 n_real = len(group)
-                grids, stats_list = self.build_grids(group + [group[-1]] * (b - n_real))
+                grids, stats_list, cond = self._build(group + [group[-1]] * (b - n_real))
                 futures = [pool.submit(self._march, grids[j], stats_list[j])
                            for j in range(n_real)]
                 if pending is not None:
                     finish(*pending)
-                pending = (base, futures, stats_list)
+                pending = (base, futures, stats_list, cond)
                 base += n_real
             if pending is not None:
                 finish(*pending)

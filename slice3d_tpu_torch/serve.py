@@ -3,6 +3,8 @@
     python -m slice3d_tpu_torch.serve --name_model slicenet --name_exp exp1 \\
         --name_ckpt m.ckpt --mc_res0 64 --mc_up_steps 2 --port 8080 \\
         [--mc_batch_size 4 --batch_window_ms 80] [--device cpu]
+    python -m slice3d_tpu_torch.serve --name_model disn --random_init \\
+        [--mc_refine_steps 30 --simplify_nfaces 20000 --mc_extract tetrahedra]
 
 Builds the model and the ``Reconstructor`` once, warms them up (the first
 padded batch builds the kernels and the mesh library), then answers requests
@@ -73,9 +75,12 @@ class Slice3DService:
         self.opts = opts
         self.recon = recon
         self._lock = threading.Lock()
-        # the identity camera (az = el = 0, distance 1.2) of single-image input
-        _, proj = camera.camera_matrices(0.0, 0.0, 1.2)
+        # the identity camera (az = el = 0, distance 1.2) of single-image input;
+        # DISN projects with the full camera matrix and rotates its queries
+        rot, proj = camera.camera_matrices(0.0, 0.0, 1.2)
+        self._rot = rot.astype(np.float32)
         self._proj = proj.astype(np.float32)
+        self._full_proj = camera.full_projection_matrix(0.0, 0.0, 1.2).astype(np.float32)
         self.batch_size = int(recon.batch_size)
         self.batch_window_s = float(batch_window_ms) / 1e3
         self._stats_lock = threading.Lock()  # request threads append, /healthz reads
@@ -151,6 +156,9 @@ class Slice3DService:
         return preprocess_image(img, self.opts.img_size, self.opts.use_white_bg)
 
     def _feed_of(self, img: np.ndarray) -> Dict[str, np.ndarray]:
+        if self.opts.name_model == "disn":
+            return {"img_input": img.astype(np.float32), "trans_mat_right": self._full_proj,
+                    "obj_rot_mat": self._rot}
         return {"img_input": img.astype(np.float32), "trans_mat_wo_rot_tp": self._proj}
 
     def reconstruct_array(self, img: np.ndarray) -> Tuple[Mesh, Dict]:
@@ -200,8 +208,8 @@ def build_service(opts: Options, batch_window_ms: float = 10.0,
     its model with weights from ``--name_ckpt`` (or the seeded init), and a
     ``Reconstructor`` of batch ``--mc_batch_size``."""
     require_ported(opts)
-    if opts.name_model != "slicenet":
-        raise SystemExit("the service needs a single-image model (slicenet): the "
+    if opts.name_model not in ("slicenet", "disn"):
+        raise SystemExit("the service needs a single-image model (slicenet or disn): the "
                          "gtslice/LDM route needs slice images per request")
     from .models.build import load_model
     from .pipeline import Reconstructor
@@ -210,6 +218,8 @@ def build_service(opts: Options, batch_window_ms: float = 10.0,
     recon = Reconstructor(load_model(opts, ckpt_path), resolution0=opts.mc_res0,
                           upsampling_steps=opts.mc_up_steps, threshold=opts.mc_threshold,
                           chunk_size=opts.mc_chunk_size, batch_size=max(1, opts.mc_batch_size),
+                          simplify_nfaces=opts.simplify_nfaces,
+                          refine_steps=opts.mc_refine_steps, extract_method=opts.mc_extract,
                           device=device)
     return Slice3DService(opts, recon, batch_window_ms=batch_window_ms)
 

@@ -151,14 +151,14 @@ def test_reconstruct_all_in_order_with_a_padded_tail():
               chunk_size=512, device="cpu")
     batched = Reconstructor(model, batch_size=2, **kw)
     built = []  # (group size, grids) of every batch reconstruct_all evaluates
-    build = batched.build_grids
+    build = batched._build
 
     def recorded(group):
-        grids, stats = build(group)
+        grids, stats, cond = build(group)
         built.append((len(group), grids))
-        return grids, stats
+        return grids, stats, cond
 
-    batched.build_grids = recorded
+    batched._build = recorded
     results = []
     batched.reconstruct_all(iter(feeds), lambda j, mesh, st: results.append((j, mesh, st)))
     assert [j for j, _, _ in results] == [0, 1, 2]

@@ -11,6 +11,7 @@ fp32 here.  The ``.obj`` files must have equal face lists and vertices within
 
 import functools
 import os
+import re
 import shutil
 import sys
 import types
@@ -18,15 +19,24 @@ import types
 import numpy as np
 import pytest
 import torch
+from scipy.spatial import cKDTree
 
+import jax
+import jax.numpy as jnp
+
+from jax_weights import redraw
 from slice3d_tpu.data import Slice3DDataset as JaxDataset
 from slice3d_tpu.data.builders import create_synthetic_dataset
 from slice3d_tpu.models.build import init_variables
+from slice3d_tpu.models.camnet import CameraNet as JaxCameraNet
+from slice3d_tpu.models.disn import DISNModel as JaxDISN
 from slice3d_tpu.models.slicenet import SliceNetModel as JaxSliceNet
 from slice3d_tpu.pipeline import Reconstructor as JaxReconstructor
+from slice3d_tpu_torch import pipeline
 from slice3d_tpu_torch import reconstruct as port_cli
-from slice3d_tpu_torch.convert import slicenet_state_dict
+from slice3d_tpu_torch.convert import camnet_state_dict, disn_state_dict, slicenet_state_dict
 from slice3d_tpu_torch.data.dataset import Slice3DDataset
+from slice3d_tpu_torch.mesh.refine import refine_mesh
 from slice3d_tpu_torch.models.build import load_model
 from slice3d_tpu_torch.config import options_from_args
 from slice3d_tpu_torch.pipeline import Reconstructor
@@ -75,11 +85,7 @@ def test_cli_matches_root_cli(tmp_path, monkeypatch):
                             device="cpu").build_grid(feed)
     common += ["--mc_threshold", repr(float(1.0 / (1.0 + np.exp(-np.median(grid)))))]
 
-    sys.path.insert(0, ROOT)
-    try:
-        import reconstruct as root_cli
-    finally:
-        sys.path.remove(ROOT)
+    root_cli = _root_cli()
     monkeypatch.setattr(root_cli, "Reconstructor",
                         functools.partial(JaxReconstructor, transport_dtype="float32"))
     root_cli.main(common + ["--name_exp", "jax"])
@@ -96,13 +102,122 @@ def test_cli_matches_root_cli(tmp_path, monkeypatch):
         np.testing.assert_allclose(verts, j_verts, atol=1e-4, rtol=0)
 
 
+def _root_cli():
+    sys.path.insert(0, ROOT)
+    try:
+        import reconstruct as root_cli
+    finally:
+        sys.path.remove(ROOT)
+    return root_cli
+
+
+def _shared_draws(monkeypatch, steps, rows=1 << 15):
+    """The JAX polish's Dirichlet draws replaced by a numpy table, row block
+    i for the i-th key ``refine_mesh`` walks; the port's polish takes the
+    same table (tests/test_torch_refine.py holds the polish itself)."""
+    table = np.random.default_rng(5).dirichlet(np.full(3, 0.5), size=(steps, rows))
+    table = table.astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(0), steps)
+
+    def fake(key, alpha, shape):
+        i = jnp.argmax(jnp.all(key[None] == keys, axis=-1))
+        return jnp.asarray(table)[i, :int(np.prod(shape))].reshape(tuple(shape) + (3,))
+
+    monkeypatch.setattr(jax.random, "dirichlet", fake)
+    monkeypatch.setattr(pipeline, "refine_mesh",
+                        functools.partial(refine_mesh, draws=lambda step, n: table[step, :n]))
+
+
+@pytest.mark.parametrize("name_model,img,n_shapes,options", [
+    ("disn", 128, 2, ["--est_campose", "--mc_extract", "tetrahedra", "16"]),
+    ("slicenet", 32, 1, ["--mc_refine_steps", "2", "8"])])
+def test_cli_options_match_root_cli(tmp_path, monkeypatch, capsys, name_model, img,
+                                    n_shapes, options):
+    """DISN with CameraNet's pose estimate and marching tetrahedra, at img 128
+    (the JAX importer reads CameraNet's and DISN's global Linears over a 4x4
+    map only), and SliceNet with the polish, at img 32: both CLIs on one
+    synthetic dataset (one batch of 2, padded for the polish's one shape,
+    whose JAX trace compiles once an object) with one reference
+    checkpoint each for the model and CameraNet.  Equal points evaluated;
+    every vertex within 1e-3 of the other mesh's nearest one, both ways, and
+    face counts within 0.1%: random DISN weights give a nearly flat field
+    whose lattice values crowd the iso level, so fp32 rounding flips a few
+    of its 200,000 faces (the polish, for its part, moves a coordinate by up
+    to 3.2e-4 a step whatever its gradient's size; test_torch_refine.py)."""
+    create_synthetic_dataset(str(tmp_path / "data" / "synth"), n_shapes=n_shapes, img_size=img,
+                             n_sdf=64)
+    if name_model == "disn":
+        jmodel = JaxDISN()
+        sd = disn_state_dict(init_variables(jmodel, types.SimpleNamespace(img_size=img), seed=0))
+    else:
+        jmodel = JaxSliceNet(n_slices=12)
+        sd = slicenet_state_dict(init_variables(jmodel, types.SimpleNamespace(img_size=img),
+                                                seed=0))
+    zeros = np.zeros((1, img, img, 3), np.float32)
+    cam_sd = camnet_state_dict(redraw(JaxCameraNet().init(jax.random.PRNGKey(0), zeros), 2))
+    for exp, state in (("jax", sd), ("port", sd), ("cam", cam_sd)):
+        os.makedirs(tmp_path / "exp" / exp / "ckpt")
+        torch.save({"model": state}, tmp_path / "exp" / exp / "ckpt" / "ref.ckpt")
+    base = ["--name_model", name_model, "--dir_data", str(tmp_path / "data"),
+            "--name_dataset", "synth", "--mode", "test", "--dir_experiments",
+            str(tmp_path / "exp"), "--name_ckpt", "ref.ckpt", "--dtype", "float32",
+            "--img_size", str(img), "--mc_up_steps", "1", "--mc_res0", options[-1],
+            "--mc_chunk_size", "2048", "--mc_batch_size", "2", "--name_exp_cam", "cam",
+            "--name_ckpt_cam", "ref.ckpt"]
+    common = base + options[:-1]  # the last entry is --mc_res0's value
+    opts = options_from_args(common)
+    feed = Slice3DDataset(opts.dataset_root, split="test", img_size=img, load_slices=False,
+                          load_sdf=False, load_full_projection=True)[0]
+    if opts.est_campose:
+        feed = port_cli.campose_predictor(opts, "cpu")(feed)
+    model = load_model(opts, str(tmp_path / "exp" / "port" / "ckpt" / "ref.ckpt"))
+    grid, _ = Reconstructor(model, resolution0=opts.mc_res0, upsampling_steps=0,
+                            device="cpu").build_grid(feed)
+    # the iso level between the two middle coarse logits: on a lattice value
+    # itself, fp32 rounding would decide that point's side
+    mid = np.sort(grid.reshape(-1))[grid.size // 2:grid.size // 2 + 2].mean()
+    threshold = ["--mc_threshold", repr(float(1.0 / (1.0 + np.exp(-mid))))]
+    common += threshold
+    if "--mc_refine_steps" in options:
+        _shared_draws(monkeypatch, 2)
+
+    root_cli = _root_cli()
+    monkeypatch.setattr(root_cli, "Reconstructor",
+                        functools.partial(JaxReconstructor, transport_dtype="float32"))
+    capsys.readouterr()
+    root_cli.main(common + ["--name_exp", "jax"])
+    j_points = re.findall(r"over (\d+) pts", capsys.readouterr().out)
+    port_cli.main(common + ["--name_exp", "port", "--device", "cpu"])
+    points = re.findall(r"over (\d+) pts", capsys.readouterr().out)
+    assert len(points) == n_shapes and points == j_points
+    names = sorted(os.listdir(tmp_path / "exp" / "jax" / "results" / "synth"))
+    assert names == ["00000.obj", "00001.obj"][:n_shapes]
+    n_faces = []
+    for name in names:
+        j_verts, j_faces = _read_obj(tmp_path / "exp" / "jax" / "results" / "synth" / name)
+        verts, faces = _read_obj(tmp_path / "exp" / "port" / "results" / "synth" / name)
+        assert len(faces) > 0
+        assert abs(len(faces) - len(j_faces)) <= 1e-3 * len(j_faces)
+        assert cKDTree(j_verts).query(verts)[0].max() <= 1e-3
+        assert cKDTree(verts).query(j_verts)[0].max() <= 1e-3
+        n_faces.append(len(faces))
+
+    # simplification (held bit-equal to the JAX library's in
+    # test_torch_mesh_extra.py): the CLI hands the option through
+    port_cli.main(base + threshold + ["--name_exp", "port", "--device", "cpu",
+                                      "--overwrite_res", "--simplify_nfaces", "100"])
+    for name, n in zip(names, n_faces):
+        _, faces = _read_obj(tmp_path / "exp" / "port" / "results" / "synth" / name)
+        assert 0 < len(faces) < n / 2
+
+
 def test_cli_needs_the_card_or_device_cpu(tmp_path):
     create_synthetic_dataset(str(tmp_path / "synth"), n_shapes=1, n_views=6, img_size=32,
                              n_sdf=16)
     argv = ["--dir_data", str(tmp_path), "--name_dataset", "synth", "--random_init",
             "--img_size", "32", "--n_views", "6", "--dir_experiments", str(tmp_path / "exp")]
-    with pytest.raises(NotImplementedError, match="refine_mesh"):
-        port_cli.main(argv + ["--mc_refine_steps", "2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="sharding"):
+        port_cli.main(argv + ["--mc_shard_axis", "points", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             port_cli.main(argv)

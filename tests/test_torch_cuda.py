@@ -383,3 +383,120 @@ def test_batched_reconstruction_on_the_card(card):
         assert abs(st["n_points_evaluated"] - one_stats["n_points_evaluated"]) \
             <= 0.01 * one_stats["n_points_evaluated"]
         np.testing.assert_allclose(grid, one, atol=5e-2, rtol=0)
+
+
+@pytest.fixture
+def no_tf32():
+    """fp32 convolutions and matmuls on the card without TF32."""
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
+
+
+@pytest.mark.cuda
+def test_card_metrics_match_cpu(card):
+    """Chamfer, F-score, Hausdorff and ICP on the card (fp32 matmul blocks)
+    against the CPU (the JAX package's fused multiply-add chains): squared
+    distances within a few ulps of |a|^2, the means to relative 1e-5, the
+    threshold counts within 2 points."""
+    from slice3d_tpu_torch.eval import icp, metrics
+
+    rng = np.random.default_rng(40)
+    a = rng.uniform(-0.5, 0.5, (20000, 3)).astype(np.float32)
+    b = (a[:15000] + rng.normal(0, 0.006, (15000, 3))).astype(np.float32)
+    d2, idx = metrics.nearest(a, b)
+    c_d2, c_idx = metrics.nearest(a, b, device="cpu")
+    np.testing.assert_allclose(d2, c_d2, atol=1e-6, rtol=0)
+    assert (idx == c_idx).mean() > 0.999
+    small = metrics.nearest(a, b, block_elems=15000 * 1000)
+    np.testing.assert_array_equal(small[0], d2)
+    got, want = metrics.chamfer_metrics(a, b), metrics.chamfer_metrics(a, b, device="cpu")
+    for k in ("chamfer_l1", "chamfer_l2"):
+        assert got[k] == pytest.approx(want[k], rel=1e-5), k
+    for k, n in (("precision", len(a)), ("recall", len(b))):
+        assert abs(got[k] - want[k]) <= 2 / n, k
+    assert metrics.hausdorff_distance(a, b) == pytest.approx(
+        metrics.hausdorff_distance(a, b, device="cpu"), rel=1e-4)
+    ang = 0.1
+    r = np.array([[np.cos(ang), -np.sin(ang), 0], [np.sin(ang), np.cos(ang), 0], [0, 0, 1]])
+    dst = (a[:3000] @ r.T + 0.02)[rng.permutation(3000)]
+    tm, _, _ = icp.icp(a[:3000], dst)
+    c_tm, _, _ = icp.icp(a[:3000], dst, device="cpu")
+    np.testing.assert_allclose(tm, c_tm, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_refine_step_on_the_card_matches_cpu(card, no_tf32):
+    """One polish step against an analytic field, and two through SliceNet's
+    plain fp32 head, on the card and on the CPU with the same draws."""
+    from slice3d_tpu_torch import pipeline
+    from slice3d_tpu_torch.mesh import isosurface
+    from slice3d_tpu_torch.mesh.refine import refine_mesh
+
+    g = np.linspace(-0.5, 0.5, 17).astype(np.float32)
+    x, y, z = np.meshgrid(g, g, g, indexing="ij")
+    m = isosurface((0.3 - np.sqrt(x * x + y * y + z * z)).astype(np.float32), 0.0)
+    verts = (m.vertices / 16 - 0.5).astype(np.float32)
+    table = np.random.default_rng(41).dirichlet(np.full(3, 0.5), (2, 1 << 16)).astype(np.float32)
+
+    def draws(step, n):
+        return table[step, :n]
+
+    def logit(p):
+        return (0.3 - torch.linalg.vector_norm(p, dim=-1)) * 20.0
+
+    got, losses = refine_mesh(verts, m.faces, logit, steps=1, lr=1e-3, draws=draws)
+    want, c_losses = refine_mesh(verts, m.faces, logit, steps=1, lr=1e-3, draws=draws,
+                                 device="cpu")
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(losses, c_losses, rtol=1e-4)
+
+    model = init_slicenet(0, route="plain")
+    _, proj = camera.camera_matrices(0.0, 0.0, 1.2)
+    feed = {"img_input": np.random.default_rng(42).uniform(-1, 1, (64, 64, 3)).astype(np.float32),
+            "trans_mat_wo_rot_tp": proj.astype(np.float32)}
+    probe, _ = Reconstructor(model, resolution0=8, upsampling_steps=0,
+                             device="cpu").build_grid(feed)
+    mid = np.sort(probe.reshape(-1))[probe.size // 2:probe.size // 2 + 2].mean()
+    kw = dict(resolution0=16, upsampling_steps=0, refine_steps=2,
+              threshold=float(1 / (1 + np.exp(-mid))))
+    orig = pipeline.refine_mesh
+    # one draw table at both steps, so that the two steps' losses compare
+    pipeline.refine_mesh = lambda *a, **k: orig(*a, draws=lambda step, n: table[0, :n], **k)
+    try:
+        mesh, stats = Reconstructor(model, **kw).reconstruct(feed)
+        c_mesh, c_stats = Reconstructor(model, device="cpu", **kw).reconstruct(feed)
+    finally:
+        pipeline.refine_mesh = orig
+    np.testing.assert_array_equal(mesh.faces, c_mesh.faces)
+    np.testing.assert_allclose(mesh.vertices, c_mesh.vertices, atol=1e-3, rtol=0)
+    assert stats["refine_loss_last"] < stats["refine_loss_first"]
+
+
+@pytest.mark.cuda
+def test_disn_and_camnet_on_the_card(card, no_tf32):
+    """DISN's fp32 logit grid and CameraNet's fp32 pose on the card against
+    the CPU; the bf16 DISN grid within bf16 rounding of the fp32 one."""
+    from slice3d_tpu_torch.models.camnet import init_camnet
+    from slice3d_tpu_torch.models.disn import init_disn
+
+    rng = np.random.default_rng(43)
+    img = rng.uniform(-1, 1, (128, 128, 3)).astype(np.float32)
+    feed = {"img_input": img,
+            "trans_mat_right": camera.full_projection_matrix(0.4, 0.2, 1.2).astype(np.float32),
+            "obj_rot_mat": camera.camera_matrices(0.4, 0.2, 1.2)[0].astype(np.float32)}
+    kw = dict(resolution0=16, upsampling_steps=1, chunk_size=4096)
+    model = init_disn(0)
+    grid, stats = Reconstructor(model, **kw).build_grid(feed)
+    c_grid, c_stats = Reconstructor(model, device="cpu", **kw).build_grid(feed)
+    np.testing.assert_allclose(grid, c_grid, atol=1e-3, rtol=0)
+    bf16, _ = Reconstructor(init_disn(0, dtype=torch.bfloat16), **kw).build_grid(feed)
+    assert np.isfinite(bf16).all()
+    np.testing.assert_allclose(bf16, grid, atol=5e-2 * float(np.abs(grid).max()), rtol=0)
+    cam = init_camnet(0)
+    with torch.no_grad():
+        out = cam.to(card)(torch.from_numpy(img[None]).to(card))
+        c_out = cam.cpu()(torch.from_numpy(img[None]))
+    for k in out:
+        np.testing.assert_allclose(out[k].cpu().numpy(), c_out[k].numpy(), atol=1e-4, rtol=0)

@@ -41,7 +41,11 @@ def test_import_leaves_jax_out():
             "slice3d_tpu_torch.profile_training, slice3d_tpu_torch.serve, "
             "slice3d_tpu_torch.reconstruct, slice3d_tpu_torch.config, "
             "slice3d_tpu_torch.data.dataset, slice3d_tpu_torch.data.image, "
-            "slice3d_tpu_torch.models.build, slice3d_tpu_torch.ops.fused_ffn; "
+            "slice3d_tpu_torch.models.build, slice3d_tpu_torch.ops.fused_ffn, "
+            "slice3d_tpu_torch.models.disn, slice3d_tpu_torch.models.camnet, "
+            "slice3d_tpu_torch.mesh.refine, slice3d_tpu_torch.mesh.io, "
+            "slice3d_tpu_torch.mesh.voxels, slice3d_tpu_torch.eval.cli, "
+            "slice3d_tpu_torch.eval.__main__; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'slice3d_tpu' or m.startswith('slice3d_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -68,7 +72,9 @@ def test_no_jax_or_reference_imports(where):
         rel = {os.path.relpath(f, PKG) for f in files}
         assert {"serve.py", "reconstruct.py", "config.py", os.path.join("data", "image.py"),
                 os.path.join("data", "dataset.py"), os.path.join("ops", "fused_ffn.py"),
-                os.path.join("models", "build.py")} <= rel
+                os.path.join("models", "build.py"), os.path.join("models", "disn.py"),
+                os.path.join("models", "camnet.py"), os.path.join("mesh", "refine.py"),
+                os.path.join("eval", "metrics.py"), os.path.join("eval", "cli.py")} <= rel
     else:
         files = [os.path.join(ROOT, "chip_smoke.py")]
     assert files

@@ -4,7 +4,8 @@
 The service runs over HTTP in-process on the CPU (``device="cpu"``, img 32,
 res0 8, up 0), as tests/test_serve.py drives the JAX one: /healthz counts,
 400 on a bad image, 404, and micro-batching (2 concurrent requests in one
-``reconstruct_batch`` call at ``mc_batch_size`` 2).  The port's PNG codec,
+``reconstruct_batch`` call at ``mc_batch_size`` 2), and DISN against the root
+service on one checkpoint.  The port's PNG codec,
 bilinear resize and preprocessing are byte-equal to Pillow's and to the JAX
 package's ``preprocess_image``; its OBJ text is byte-identical to the JAX
 package's; its ``Options`` has the same fields and defaults, and every option
@@ -12,6 +13,7 @@ it does not port raises.
 """
 
 import dataclasses
+import functools
 import http.client
 import io
 import json
@@ -28,9 +30,13 @@ from PIL import Image
 
 from slice3d_tpu import config as jax_config
 from slice3d_tpu import mesh as jax_mesh
+from slice3d_tpu import pipeline as jax_pipeline
 from slice3d_tpu.data.dataset import preprocess_image as jax_preprocess_image
+from slice3d_tpu.models.build import init_variables
+from slice3d_tpu.models.disn import DISNModel as JaxDISN
 from slice3d_tpu_torch import config, serve
 from slice3d_tpu_torch.data import image
+from slice3d_tpu_torch.convert import disn_state_dict
 from slice3d_tpu_torch.data.dataset import preprocess_image
 from slice3d_tpu_torch.mesh import Mesh, export_obj, isosurface, obj_string, obj_string_py
 from slice3d_tpu_torch.models.build import build_model, load_model
@@ -151,6 +157,49 @@ def test_service_microbatches_concurrent_requests():
     assert service.serving_stats()["served"] == 2
 
 
+def _obj_arrays(text):
+    rows = [line.split() for line in text.splitlines()]
+    verts = np.array([r[1:] for r in rows if r[0] == "v"], np.float32).reshape(-1, 3)
+    faces = np.array([r[1:] for r in rows if r[0] == "f"], np.int64).reshape(-1, 3)
+    return verts, faces
+
+
+def test_disn_service_matches_root_service(tmp_path, monkeypatch):
+    """DISN (img 128: the JAX importer reads its global Linear over a 4x4
+    map only; res0 8, up 1, fp32) with marching tetrahedra, one reference
+    checkpoint: the port's service and the root one (its values shipped in
+    fp32, as the port's are) answer the same PNG with the same points
+    evaluated and the same mesh, vertices within 1e-3."""
+    variables = init_variables(JaxDISN(), types.SimpleNamespace(img_size=128), seed=0)
+    os.makedirs(tmp_path / "exp" / "e" / "ckpt")
+    torch.save({"model": disn_state_dict(variables)}, tmp_path / "exp" / "e" / "ckpt" / "d.ckpt")
+    kw = dict(name_model="disn", img_size=128, mc_res0=8, mc_up_steps=1, mc_chunk_size=2048,
+              dtype="float32", mc_extract="tetrahedra", dir_experiments=str(tmp_path / "exp"),
+              name_exp="e", name_ckpt="d.ckpt")
+    body = image.encode_png(_rgba())
+    service = serve.build_service(config.Options(**kw), device="cpu")
+    try:
+        probe, _ = service.recon.build_grid(service._feed_of(service.preprocess(body)))
+    finally:
+        service.close()
+    mid = np.sort(probe.reshape(-1))[probe.size // 2:probe.size // 2 + 2].mean()
+    kw["mc_threshold"] = float(1.0 / (1.0 + np.exp(-mid)))
+    service = serve.build_service(config.Options(**kw), device="cpu")
+    try:
+        obj, stats = service.reconstruct(body)
+    finally:
+        service.close()
+    jax_serve = _jax_serve()
+    monkeypatch.setattr(jax_pipeline, "Reconstructor",
+                        functools.partial(jax_pipeline.Reconstructor, transport_dtype="float32"))
+    j_obj, j_stats = jax_serve.build_service(jax_config.Options(**kw)).reconstruct(body)
+    assert stats["n_points_evaluated"] == j_stats["n_points_evaluated"] > 9 ** 3
+    (verts, faces), (j_verts, j_faces) = _obj_arrays(obj), _obj_arrays(j_obj)
+    assert len(faces) > 0
+    np.testing.assert_array_equal(faces, j_faces)
+    np.testing.assert_allclose(verts, j_verts, atol=1e-3, rtol=0)
+
+
 def test_service_raises_without_a_card_unless_asked():
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
@@ -256,15 +305,30 @@ def test_options_match_jax():
 
 
 @pytest.mark.parametrize("name,value", [
-    ("name_model", "disn"), ("est_campose", True), ("mc_refine_steps", 3),
-    ("simplify_nfaces", 5000), ("mc_extract", "tetrahedra"), ("mc_shard_axis", "points"),
-    ("multi_gpu", True), ("device_preprocess", True)])
+    ("mc_shard_axis", "points"), ("multi_gpu", True), ("device_preprocess", True)])
 def test_unported_options_raise(name, value):
     opts = config.Options(**dict(SMALL, **{name: value}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         config.require_ported(opts)
     with pytest.raises(NotImplementedError):
         serve.build_service(opts, device="cpu")
+
+
+@pytest.mark.parametrize("name,value", [
+    ("name_model", "disn"), ("est_campose", True), ("mc_refine_steps", 3),
+    ("simplify_nfaces", 5000), ("mc_extract", "tetrahedra")])
+def test_ported_options_are_accepted(name, value):
+    """The options this port once refused reach the service's Reconstructor."""
+    opts = config.Options(**dict(SMALL, **{name: value}))
+    config.require_ported(opts)
+    service = serve.build_service(opts, device="cpu")
+    try:
+        rec = service.recon
+        assert (rec.is_disn, rec.refine_steps, rec.simplify_nfaces, rec.generator.method) == (
+            opts.name_model == "disn", opts.mc_refine_steps, opts.simplify_nfaces,
+            opts.mc_extract)
+    finally:
+        service.close()
 
 
 def test_load_model(tmp_path):
