@@ -65,7 +65,21 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      ``--est_campose`` at batch 1 and at ``mc_batch_size`` 2 (answers within
      1e-2), one object by marching tetrahedra, the DISN service over HTTP,
      and ``python -m slice3d_tpu_torch.eval`` with ICP at 100,000 points on
-     the card, then card against CPU at 5,000 points with and without ICP.
+     the card, then card against CPU at 5,000 points with and without ICP;
+ 12. the generation route's on-disk CLIs: spatial_attention against its plain
+     version at the guided batch, (16, 8, 4096, 24) and (16, 8, 1024, 48);
+     then on a dataset of 8 objects x 12 views written into ``_smoke/`` (and
+     removed) with a full-width seeded LDM saved as a port checkpoint,
+     ``python -m slice3d_tpu_torch.main`` with
+     configs/objaverse-ldm-kl-8-infer.yaml: DDIM-200 eta 1, DPM-20, PLMS-50,
+     DDIM-50 at guidance 3 (one UNet call of batch 16 a step), the 1,000-step
+     ancestral chain and ``--mode rec`` (96 VAE round trips), each with its
+     exact attention launches and s per batch of 8; ``re_org_slices`` on the
+     DDIM montages, the GTSlice reconstruct CLI on the generated slices at
+     the serving point (8 OBJ files), SliceNet's slice dump (96 PNGs of 256
+     px); ms per UNet call at batch 8 and 16; and small-input checks of each
+     new sampler (kernel vs plain path in bf16 at full width, fp32 card vs
+     CPU on the tiny configuration).
 The last three lines are the paths' JSON record, the kernels' JSON record
 and the run's status JSON.
 """
@@ -74,6 +88,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
+import glob
 import http.client
 import io
 import json
@@ -136,6 +152,12 @@ ATTN_BWD_TOL = dict(atol=0.08, rtol=0.04)
 # vs the CPU (readings: 2.0e-5)
 ATLAS_TOL = dict(atol=0.2, rtol=0.01)
 ATLAS_FP32_TOL = dict(atol=1e-3, rtol=1e-3)
+# the same at guidance scale s = 3: eps = 3 e_c - 2 e_u carries each branch's
+# bf16 error up to 2s - 1 = 5 times over, so 5 x ATLAS_TOL (readings on an
+# NVIDIA H100 80GB HBM3 at 700 W, DDIM-4 eta 1, batch 1: largest error 0.457
+# at |p| 24, 0.362 where |p| < 1, against |p| up to 47; unguided PLMS-4 and
+# DPM-4 read 0.056 and 0.060, within ATLAS_TOL)
+GUIDED_ATLAS_TOL = dict(atol=1.0, rtol=0.05)
 GEN_BATCH, GEN_STEPS = 8, 200
 # the regression route's options (phase 11): 3 objects at the serving point,
 # the polish after simplification, the eval CLI at 100,000 points on the card
@@ -167,6 +189,24 @@ WITNESS_FACES, WITNESS_STEPS, WITNESS_ATOL, WITNESS_LOSS_RTOL = 4000, 10, 1e-3, 
 EVAL_PTS, EVAL_CHECK_PTS = 100000, 5000
 EVAL_RTOL, EVAL_ICP_RTOL, EVAL_ICP_ATOL = 1e-5, 1e-3, 1e-3
 SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke")
+# the generation CLIs (phase 12): GENCLI_OBJECTS objects (one batch of the
+# config's 8), each run's exact attention launches (10 a UNet call; PLMS-50
+# calls the UNet 51 times, its step 0 twice; guidance runs one call of batch
+# 2B a step) and the batch every launch must have; the ancestral chain walks
+# all 1,000 steps
+GENCLI_OBJECTS = 8
+GENCLI_RUNS = (("ddim", [], 10 * 200, 8),
+               ("dpm", ["--sampler", "dpm", "--ddim_steps", "20"], 10 * 20, 8),
+               ("plms", ["--sampler", "plms", "--ddim_steps", "50", "--ddim_eta", "0"],
+                10 * 51, 8),
+               ("guided", ["--ddim_steps", "50", "--guidance_scale", "3.0"], 10 * 50, 16),
+               ("ancestral", ["--sampler", "ancestral"], 10 * 1000, 8),
+               ("rec", ["--mode", "rec"], 0, 8))
+GENCLI_CHECK_T = 8  # the ancestral chain of the small-input checks: its lowest 8 steps
+GENCLI_CHECK_NAMES = {"plms": "PLMS-4", "dpm": "DPM-4",
+                      "ancestral": f"ancestral chain over its lowest {GENCLI_CHECK_T} steps",
+                      "guided": "DDIM-4 eta 1 at guidance 3 (one 2B call a step)"}
+GUIDED_ATTN_SHAPES = ((16, 8, 4096, 24), (16, 8, 1024, 48))  # the guided 2B batch
 # LDM training at configs/objaverse-ldm-kl-8.yaml's widths: batch 8 of 128 px,
 # 2 warm-up steps, then the timed ones
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 10
@@ -435,12 +475,12 @@ def attention_work(shape, sm_clock_hz: float):
     return flops, exps, nbytes, times[by] * 1e3, by
 
 
-def phase_attention(sm_clock_hz: float):
+def phase_attention(sm_clock_hz: float, shapes=ATTN_SHAPES):
     from slice3d_tpu_torch.ops import spatial_attention as sa
 
     g = torch.Generator(device="cuda").manual_seed(2)
     modes = []
-    for shape in ATTN_SHAPES:
+    for shape in shapes:
         # q, k ~ N(0, 4): logits of std ~4, a peaked softmax with outputs of
         # order 1 (a flat one would average v towards 0 and hide errors)
         q, k = (2.0 * torch.randn(shape, generator=g, device="cuda") for _ in range(2))
@@ -1237,16 +1277,22 @@ def phase_split(proj, imgs, threshold):
     return {"latency_s": lat, "head_calls": len(heads)}, counts
 
 
-def write_options_dataset(root: str, bodies, sphere_r: float = 0.3) -> str:
-    """A dataset tree for the CLIs: each PNG as view 004 of an object with
-    the service's identity camera in every view, all objects in the test
-    split and the first in the val split; and the analytic ground truth the
-    eval CLI reads, a sphere of radius ``sphere_r``: its 02_sdfs samples
-    (a surface band and volume points) and its mesh as <id>.obj in
-    ``root``/gt.  Returns the directory of GT meshes."""
+def write_options_dataset(root: str, bodies, sphere_r: float = 0.3, name: str = "opts",
+                          views=(4,), slices: bool = False) -> str:
+    """A dataset tree for the CLIs: each PNG as each of ``views`` (view 004
+    by default) of an object with the service's identity camera in every
+    view, all objects in the test and trainval splits and the first in the
+    val split; with ``slices``, 12 seeded noise RGBA slices of 128 px for
+    each of those views (01_img_slices, the LDM dataset's targets); and the
+    analytic ground truth the eval CLI reads, a sphere of radius
+    ``sphere_r``: its 02_sdfs samples (a surface band and volume points) and
+    its mesh as <id>.obj in ``root``/gt.  Returns the directory of GT
+    meshes."""
+    from slice3d_tpu_torch.data.dataset import SLICE_ORDER
+    from slice3d_tpu_torch.data.image import encode_png
     from slice3d_tpu_torch.mesh import Mesh, export_obj, isosurface
 
-    ds = os.path.join(root, "data", "opts")
+    ds = os.path.join(root, "data", name)
     gt_dir = os.path.join(root, "gt")
     os.makedirs(os.path.join(ds, "03_splits"))
     os.makedirs(os.path.join(ds, "02_sdfs"))
@@ -1260,8 +1306,15 @@ def write_options_dataset(root: str, bodies, sphere_r: float = 0.3) -> str:
     for sid, body in zip(ids, bodies):
         vdir = os.path.join(ds, "00_img_input", sid)
         os.makedirs(vdir)
-        with open(os.path.join(vdir, "004.png"), "wb") as f:
-            f.write(body)
+        for view in views:
+            with open(os.path.join(vdir, f"{view:03d}.png"), "wb") as f:
+                f.write(body)
+            if slices:
+                sdir = os.path.join(ds, "01_img_slices", sid, f"{view:03d}")
+                os.makedirs(sdir)
+                for axis, part in SLICE_ORDER:
+                    with open(os.path.join(sdir, f"{axis}_{part}.png"), "wb") as f:
+                        f.write(encode_png(rng.integers(0, 256, (128, 128, 4), dtype=np.uint8)))
         with open(os.path.join(vdir, "meta.pkl"), "wb") as f:
             pickle.dump([np.zeros((3, 3)), np.zeros(12), np.zeros(12), np.full(12, 1.2),
                          np.zeros((12, 3, 4)), 1.0, np.zeros(3)], f)
@@ -1273,8 +1326,9 @@ def write_options_dataset(root: str, bodies, sphere_r: float = 0.3) -> str:
         np.save(os.path.join(ds, "02_sdfs", f"{sid}.npy"),
                 np.concatenate([pts, sdf[:, None]], 1).astype(np.float32))
         export_obj(sphere, os.path.join(gt_dir, f"{sid}.obj"))
-    with open(os.path.join(ds, "03_splits", "test.lst"), "w") as f:
-        f.write("\n".join(ids) + "\n")
+    for split in ("test", "trainval"):
+        with open(os.path.join(ds, "03_splits", f"{split}.lst"), "w") as f:
+            f.write("\n".join(ids) + "\n")
     with open(os.path.join(ds, "03_splits", "val.lst"), "w") as f:
         f.write(ids[0] + "\n")
     return gt_dir
@@ -1603,6 +1657,258 @@ def phase_regression_options():
     return result, counts
 
 
+_BATCH_LINE = re.compile(r"batch (\d+) done \((\d+) cases in ([\d.]+) s\)")
+
+
+def run_main(tag: str, argv):
+    """``python -m slice3d_tpu_torch.main`` in this process with its output
+    kept and echoed under ``tag``; returns (logdir, [(batch, cases, s)],
+    seconds in all, attention launches, the batch of each launch)."""
+    from slice3d_tpu_torch import main as gen_main
+    from slice3d_tpu_torch.ops import spatial_attention as sa
+
+    batches = []
+    launch = sa._forward_kernel
+
+    def recorded(q, *args, **kwargs):
+        batches.append(q.shape[0])
+        return launch(q, *args, **kwargs)
+
+    out = _Tee(tag, sys.stdout)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    reset_counts()
+    sa._forward_kernel = recorded
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            logdir = gen_main.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        sa._forward_kernel = launch
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    per_batch = [(int(m[1]), int(m[2]), float(m[3]))
+                 for m in _BATCH_LINE.finditer(out.getvalue())]
+    print(f"[{tag}] {dt:.4f} s in all; launches {counts}")
+    return logdir, per_batch, dt, counts, batches
+
+
+def small_atlas(ldm, view, sampler: str, fixed: dict, device):
+    """One view's atlas under ``sampler`` on ``device`` with handed-in draws
+    (posterior noise, x_T and the step noises of ``fixed``): PLMS-4, DPM-4,
+    the ancestral chain over its lowest 8 steps, and DDIM-4 (eta 1) at
+    guidance 3 (one 2B call a step)."""
+    from slice3d_tpu_torch.diffusion.ancestral import ddpm_sample
+    from slice3d_tpu_torch.diffusion.ddim import ddim_sample
+    from slice3d_tpu_torch.diffusion.dpm import dpm_solver_sample
+    from slice3d_tpu_torch.diffusion.plms import plms_sample
+    from slice3d_tpu_torch.diffusion.sampler import atlas_shape, encode_condition, make_eps_fn
+    from slice3d_tpu_torch.diffusion.schedule import DDIMParams
+
+    ldm.to(device)
+    with torch.no_grad():
+        img = view.to(device)
+        cond = encode_condition(ldm, img, None, fixed["posterior_noise"])
+        shape = atlas_shape(ldm, img)
+        x_T = fixed["x_T"][:, :shape[1], :shape[2]].to(device)
+        noises = [n[:, :shape[1], :shape[2]].to(device) for n in fixed["noises"]]
+        if sampler == "plms":
+            return plms_sample(make_eps_fn(ldm, cond), DDIMParams.create(ldm.schedule, 4, 0.0),
+                               shape, x_T=x_T)
+        if sampler == "dpm":
+            return dpm_solver_sample(make_eps_fn(ldm, cond),
+                                     DDIMParams.create(ldm.schedule, 4, 0.0), shape, x_T=x_T)
+        if sampler == "ancestral":
+            return ddpm_sample(make_eps_fn(ldm, cond), ldm.schedule, shape, x_T=x_T,
+                               noises=noises[:GENCLI_CHECK_T], timesteps=GENCLI_CHECK_T)[0]
+        return ddim_sample(make_eps_fn(ldm, cond, guidance_scale=3.0),
+                           DDIMParams.create(ldm.schedule, 4, 1.0), shape, x_T=x_T,
+                           noises=noises[:4])
+
+
+def phase_generation_cli_checks(ldm):
+    """Small inputs on the card for every new sampler (PLMS-4, DPM-4,
+    ancestral over 8 steps, DDIM-4 at guidance 3), batch 1, handed-in
+    draws: the full-width bf16 model's kernel path vs its plain path, and
+    the tiny configuration's fp32 plain path card vs CPU."""
+    from slice3d_tpu_torch.diffusion.latent import init_latent_diffusion
+
+    rng = np.random.default_rng(13)
+    fixed = dict(posterior_noise=torch.from_numpy(rng.normal(size=(1, 16, 16, 4))
+                                                  .astype(np.float32)),
+                 x_T=torch.from_numpy(rng.normal(size=(1, 64, 64, 4)).astype(np.float32)),
+                 noises=[torch.from_numpy(rng.normal(size=(1, 64, 64, 4)).astype(np.float32))
+                         for _ in range(GENCLI_CHECK_T)])
+    view = torch.from_numpy(rng.uniform(-1, 1, (1, 128, 128, 3)).astype(np.float32))
+    tiny = init_latent_diffusion(seed=1, fused=False, **TRAIN_TINY)
+    tiny_view = view[:, :16, :16]
+    tiny_fixed = dict(fixed, posterior_noise=fixed["posterior_noise"][:, :8, :8])
+    errs = {}
+    for sampler in ("plms", "dpm", "ancestral", "guided"):
+        kern = small_atlas(ldm, view, sampler, fixed, "cuda")
+        set_fused(ldm, False)
+        plain = small_atlas(ldm, view, sampler, fixed, "cuda")
+        set_fused(ldm, True)
+        check(bool(torch.isfinite(kern).all()), f"{sampler}: non-finite kernel-path atlas")
+        check_close(kern, plain, GUIDED_ATLAS_TOL if sampler == "guided" else ATLAS_TOL,
+                    f"atlas, batch 1, {GENCLI_CHECK_NAMES[sampler]}, kernel path vs plain "
+                    "path (bf16)")
+        torch.backends.cudnn.allow_tf32 = False
+        gpu = small_atlas(tiny, tiny_view, sampler, tiny_fixed, "cuda").cpu()
+        torch.backends.cudnn.allow_tf32 = True
+        cpu = small_atlas(tiny, tiny_view, sampler, tiny_fixed, "cpu")
+        check_close(gpu, cpu, ATLAS_FP32_TOL, f"atlas, tiny configuration, "
+                    f"{GENCLI_CHECK_NAMES[sampler]}, fp32 card vs CPU (fp32 summation order)")
+        errs[sampler] = {"kernel_vs_plain": float((kern - plain).abs().max()),
+                         "card_vs_cpu": float((gpu - cpu).abs().max())}
+    return errs
+
+
+def phase_generation_cli(sm_clock_hz: float):
+    """The attention kernel against its plain version at the guided batch
+    (16, ``GUIDED_ATTN_SHAPES``), then the generation route's on-disk CLIs
+    on the card, at the configs' widths: ``python -m slice3d_tpu_torch.main`` with
+    configs/objaverse-ldm-kl-8-infer.yaml on a dataset of GENCLI_OBJECTS
+    objects and a full-width seeded LDM checkpoint, for every sampler, at
+    guidance 3 (batch 2B) and in ``--mode rec``, each with its attention
+    launches counted; ``re_org_slices`` on the DDIM montages, the GTSlice
+    reconstruct CLI on the generated slices and the SliceNet slice dump;
+    then the small-input checks of ``phase_generation_cli_checks``."""
+    from slice3d_tpu_torch import re_org_slices, reconstruct, reconstruct_slices
+    from slice3d_tpu_torch.data.dataset import Slice3DDataset
+    from slice3d_tpu_torch.data.image import load_image
+    from slice3d_tpu_torch.diffusion.latent import LatentDiffusion
+    from slice3d_tpu_torch.diffusion.sampler import encode_condition, make_eps_fn
+    from slice3d_tpu_torch.models.gtslice import init_gtslice
+    from slice3d_tpu_torch.models.random_init import random_init_
+    from slice3d_tpu_torch.train.train_ldm import LDMTrainer
+
+    t_phase = time.perf_counter()
+    guided_modes = phase_attention(sm_clock_hz, GUIDED_ATTN_SHAPES)
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    data = os.path.join(SMOKE_DIR, "data")
+    write_options_dataset(SMOKE_DIR, serving_pngs(GENCLI_OBJECTS, seed=41), name="gen",
+                          views=range(12), slices=True)
+    with torch.device("cuda"):
+        ldm = LatentDiffusion(dtype=torch.bfloat16)
+    random_init_(ldm, torch.Generator("cuda").manual_seed(0))
+    logdir = os.path.join(SMOKE_DIR, "ldm")
+    trainer = LDMTrainer(module=ldm)
+    t0 = time.perf_counter()
+    trainer.save(trainer.init_state(), os.path.join(logdir, "checkpoints", "last.ckpt"))
+    trainer.module = None
+    gc.collect()
+    setup_s = time.perf_counter() - t_phase
+    print(f"[gencli] dataset of {GENCLI_OBJECTS} objects x 12 views and the full-width "
+          f"checkpoint ({os.path.getsize(os.path.join(logdir, 'checkpoints', 'last.ckpt')) / 1e9:.3f} "
+          f"GB, saved in {time.perf_counter() - t0:.4f} s): {setup_s:.4f} s")
+
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                          "objaverse-ldm-kl-8-infer.yaml")
+    common = ["-b", config, "-r", logdir, "--data_root", os.path.join(data, "gen")]
+    runs, counts_all = {}, {}
+    sampled = os.path.join(logdir, "images_testing_sampled")
+    for name, extra, launches, batch in GENCLI_RUNS:
+        ret, per_batch, dt, counts, batches = run_main(f"gencli {name}", common + extra)
+        check(ret == logdir, f"{name}: wrote to {ret}, not {logdir}")
+        n_batches = 12 * GENCLI_OBJECTS // 8 if name == "rec" else 1
+        check(len(per_batch) == n_batches and all(c == 8 for _, c, _ in per_batch),
+              f"{name}: batches {per_batch}")
+        check(counts["spatial_attention"] == launches,
+              f"{name}: spatial_attention launched {counts['spatial_attention']} times, "
+              f"expected {launches}")
+        check(set(batches) <= {batch}, f"{name}: attention launched at batches {set(batches)}")
+        s_batch = [s for _, _, s in per_batch]
+        print(f"[gencli] {name}: {s_batch[0] if len(s_batch) == 1 else s_batch} s per batch "
+              f"of 8 (the card's work to the montages on the host), {launches} attention "
+              f"launches at batch {batch}, {dt:.4f} s for the CLI")
+        runs[name] = {"s_per_batch": s_batch, "cli_s": dt,
+                      "spatial_attention_launches": counts["spatial_attention"],
+                      "attention_batch": batch}
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+        if name == "rec":
+            rec = sorted(os.listdir(os.path.join(logdir, "images_reconstructed")))
+            check(len(rec) == 12 * GENCLI_OBJECTS, f"rec: {len(rec)} montages")
+            continue
+        mont = [load_image(os.path.join(sampled, f"0_{c}.png")) for c in range(8)]
+        check(all(m.shape == (512, 512, 3) for m in mont), "a montage of the wrong shape")
+        check(all(m[:384].std() > 0 for m in mont), "a constant montage")
+        if name == "ddim":  # the DDIM-200 montages go on to re_org and GTSlice
+            tiles = re_org_slices.main(["--dir_slices", sampled, "--type_slices", "gen",
+                                        "--name_dataset", "gen", "--dir_data", data,
+                                        "--img_size", "128", "--n_bs", "8"])
+            gen_dirs = glob.glob(os.path.join(data, "gen", "04_img_slices_gen", "*", "004"))
+            check(tiles == 12 * GENCLI_OBJECTS and len(gen_dirs) == GENCLI_OBJECTS
+                  and all(len(os.listdir(d)) == 12 for d in gen_dirs),
+                  f"re_org_slices wrote {tiles} tiles in {len(gen_dirs)} objects")
+            print(f"[gencli] re_org_slices: {tiles} tiles of 128 px in {len(gen_dirs)} objects")
+
+    # GTSlice on the generated slices, through the reconstruct CLI
+    feed = Slice3DDataset(os.path.join(data, "gen"), split="test", img_size=128,
+                          from_which_slices="gen", load_sdf=False)[0]
+    thr = probe_threshold(init_gtslice(0, dtype=torch.bfloat16), feed)
+    exp = os.path.join(SMOKE_DIR, "exp")
+    point = [f"--{k}={v}" for k, v in SERVE_POINT.items()]
+    argv = point + ["--dtype", "bfloat16", "--random_init", "--dir_data", data,
+                    "--name_dataset", "gen", "--mode", "test", "--dir_experiments", exp,
+                    "--name_model", "gtslice", "--from_which_slices", "gen",
+                    "--name_exp", "gen", "--mc_threshold", repr(thr)]
+    reset_counts()
+    _, objs, rec_s = run_cli("gencli reconstruct", reconstruct.main, argv)
+    rec_counts = read_counts()
+    check_objects("gencli reconstruct", objs, GENCLI_OBJECTS)
+    meshes = glob.glob(os.path.join(exp, "gen", "results", "gen", "*.obj"))
+    check(len(meshes) == GENCLI_OBJECTS and all(os.path.getsize(m) > 0 for m in meshes),
+          f"{len(meshes)} OBJ files from the generated slices")
+    check(rec_counts["fused_encoder_layer"] > 0, "GTSlice launched no fused_encoder_layer")
+    print(f"[gencli] reconstruct --name_model gtslice --from_which_slices gen: {rec_s:.4f} s "
+          f"for {GENCLI_OBJECTS} ({rec_s / GENCLI_OBJECTS:.4f} s an object, threshold "
+          f"{thr:.6f}); launches {rec_counts}")
+    for k, v in rec_counts.items():
+        counts_all[k] += v
+
+    # SliceNet's slice dump
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee("gencli slices", sys.stdout)):
+        out = reconstruct_slices.main(["--name_dataset", "gen", "--dir_data", data,
+                                       "--random_init", "--img_size", "128",
+                                       "--dir_experiments", exp, "--name_exp", "slices"])
+    dump_s = time.perf_counter() - t0
+    dumped = glob.glob(os.path.join(out, "*", "*.png"))
+    check(len(dumped) == 12 * GENCLI_OBJECTS
+          and all(load_image(p).shape == (256, 256, 3) for p in dumped),
+          f"reconstruct_slices wrote {len(dumped)} PNGs")
+    print(f"[gencli] reconstruct_slices: {len(dumped)} PNGs of 256 x 256 in {dump_s:.4f} s")
+    for k, v in read_counts().items():
+        counts_all[k] += v
+
+    # one UNet call at B 8 and the guided 2B call (B 16)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    views = torch.rand((8, 128, 128, 3), generator=g, device="cuda") * 2 - 1
+    with torch.no_grad():
+        cond = encode_condition(ldm, views, g, None)
+        x = torch.randn((8, 64, 64, 4), generator=g, device="cuda")
+        t = torch.full((8,), 500, dtype=torch.int64, device="cuda")
+        unet_ms = {"8": cuda_ms(lambda: make_eps_fn(ldm, cond)(x, t), 10),
+                   "16": cuda_ms(lambda: make_eps_fn(ldm, cond, guidance_scale=3.0)(x, t), 10)}
+    print(f"[gencli] UNet call (64 x 64 atlas, bf16): {unet_ms['8']:.4f} ms at batch 8, "
+          f"{unet_ms['16']:.4f} ms for the guided 2B call (batch 16)")
+
+    checks = phase_generation_cli_checks(ldm)
+    del ldm
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[gencli] phase 12 in {phase_s:.4f} s")
+    return {"setup_s": setup_s, "runs": runs, "unet_ms": unet_ms,
+            "reconstruct_s": rec_s, "reconstruct_s_per_object": rec_s / GENCLI_OBJECTS,
+            "reconstruct_objects": objs, "slice_dump_s": dump_s, "checks": checks,
+            "phase_s": phase_s}, counts_all, guided_modes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1643,11 +1949,13 @@ def main() -> int:
     split, split_counts = phase_split(proj, imgs, serving["threshold"])
     del model
     options, options_counts = phase_regression_options()
+    gencli, gencli_counts, guided_modes = phase_generation_cli(clock * 1e6)
+    attn_modes += guided_modes
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"regression": main_counts, "generation": gen["counts"],
                "training": train["counts"], "serving": serve_counts, "split": split_counts,
-               "options": options_counts}
+               "options": options_counts, "generation_cli": gencli_counts}
     full = modes[0]
     encoder = {"name": "fused_encoder_layer", "route": "cuda",
                "source": "slice3d_tpu_torch/csrc/fused_encoder.cu",
@@ -1698,7 +2006,8 @@ def main() -> int:
            "bound_share": full_ffn["bound_share"], "modes": ffn_modes}
     print(json.dumps({"generation": {k: v for k, v in gen.items() if k != "counts"},
                       "training": {k: v for k, v in train.items() if k != "counts"},
-                      "serving": serving, "split": split, "options": options}))
+                      "serving": serving, "split": split, "options": options,
+                      "generation_cli": gencli}))
     print(json.dumps({"kernels": [encoder, attention, attention_bwd, ffn]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -281,6 +281,15 @@ class Reconstructor:
         stats["refine_loss_last"] = float(losses[-1])
         return Mesh(vertices=verts, faces=mesh.faces)
 
+    @torch.no_grad()
+    def predicted_slices(self, img_input: np.ndarray) -> np.ndarray:
+        """SliceNet only: img_input (H, W, 3) -> its predicted slice images
+        (S, H, W, 3), fp32 in [-1, 1] (``reconstruct_slices``' dump)."""
+        if not isinstance(self.model, SliceNetModel):
+            raise ValueError("predicted_slices requires a SliceNet model")
+        img = torch.from_numpy(np.asarray(img_input, np.float32)[None]).to(self.device)
+        return self.model.encode(img)[1].float().cpu().numpy()
+
     def reconstruct(self, feed: Dict[str, np.ndarray]) -> Tuple[Mesh, Dict]:
         """One object (a batch of 1): feed -> (mesh in world coordinates,
         stats)."""

@@ -30,23 +30,38 @@ weights, so the gradients, AdamW's state and the EMA are fp32.  Each step's
 random draws (posterior noise, then t, then the noise) come from the
 caller's ``torch.Generator`` or are handed in (``draws``), so a test can
 replay the JAX package's.
+
+Sampling (``sample_slices`` with any sampler and guidance,
+``sample_progressive``) runs under the EMA weights; ``diffusion_row`` and
+``reconstruct_slices`` (the VAE round trip of ``main --mode rec``) read the
+frozen VAE only (``train_ldm.py:305-535``).  ``restore`` reads the port's
+own checkpoints and the JAX trainer's msgpack ones (``save``: variables, EMA,
+``scale_factor``, ``logvar``, step), whose optimizer state it leaves out:
+AdamW starts fresh.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import os
+import zipfile
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
 from .. import resolve_device
+import numpy as np
+
+from ..convert import ldm_train_payload
+from ..diffusion.ancestral import ddpm_sample
 from ..diffusion.latent import LatentDiffusion, init_latent_diffusion, p_losses
-from ..diffusion.sampler import sample_slices
+from ..diffusion.sampler import atlas_shape, encode_condition, make_eps_fn, sample_slices
 from ..diffusion.schedule import DiffusionSchedule
 from ..models.ema import ema_update
 from .checkpoint import restore_checkpoint, save_checkpoint
+from .flax_msgpack import read_flax_msgpack
 from .lr_schedules import from_scheduler_config
 
 __all__ = ["LDMTrainState", "LDMTrainer", "TRAINABLE_PREFIXES"]
@@ -154,6 +169,14 @@ class LDMTrainer:
             return state.ldm.encode_images(
                 images, noise=None if noise is None else self._tensor(noise),
                 generator=generator)
+
+    def _encode_slices(self, state: LDMTrainState, images, generator, posterior_noise
+                       ) -> torch.Tensor:
+        """The first 12 tiles of ``images`` (B, 12 or 13, H, W, 3) encoded, with
+        the posterior noise's first 12 tiles when it is given."""
+        return self._encode(state, self._tensor(images)[:, :12],
+                            None if posterior_noise is None else posterior_noise[:, :12],
+                            generator)
 
     def maybe_set_scale(self, state: LDMTrainState, batch: Mapping[str, Any],
                         generator: Optional[torch.Generator] = None, *,
@@ -269,6 +292,70 @@ class LDMTrainer:
             return sample_slices(state.ldm, self._tensor(img_input), device=self.device,
                                  **kwargs)
 
+    @torch.no_grad()
+    def sample_progressive(self, state: LDMTrainState, img_input, *, log_every_t: int = 200,
+                           generator: Optional[torch.Generator] = None, use_ema: bool = True,
+                           temperature: float = 1.0,
+                           posterior_noise: Optional[torch.Tensor] = None,
+                           x_T: Optional[torch.Tensor] = None,
+                           step_noises: Optional[Sequence[torch.Tensor]] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-T progressive denoising (reference ddpm.py:1213-1268, the
+        ``plot_progressive_rows`` of ``log_images``): the ancestral chain with
+        the running x0 estimate recorded every ``log_every_t`` steps, each
+        row decoded.  Draws as ``sample_slices`` (posterior noise of the input
+        view, x_T, one noise per step).  Returns (final slices (B, 12, H, W,
+        3), rows (n_log, B, 12, H, W, 3)) in [-1, 1], fp32."""
+        with self.ema_weights(state, use_ema):
+            ldm = state.ldm
+            img = self._tensor(img_input)
+            cond = encode_condition(ldm, img, generator, posterior_noise)
+            atlas, rows = ddpm_sample(make_eps_fn(ldm, cond), self.schedule,
+                                      atlas_shape(ldm, img), generator=generator,
+                                      device=self.device, x_T=x_T, noises=step_noises,
+                                      log_every_t=log_every_t, record="pred_x0",
+                                      temperature=temperature)
+            final = ldm.decode_atlas_images(atlas, keep=12).float()
+            return final, torch.stack([ldm.decode_atlas_images(r, keep=12).float()
+                                       for r in rows])
+
+    @torch.no_grad()
+    def diffusion_row(self, state: LDMTrainState, images, *, log_every_t: int = 200,
+                      generator: Optional[torch.Generator] = None,
+                      posterior_noise: Optional[torch.Tensor] = None,
+                      noises: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """Forward-noising rows (the ``plot_diffusion_rows`` of reference
+        ``log_images``, ddpm.py:1370-1385): the clean atlas of ``images``
+        (B, 12 or 13, H, W, 3; the first 12 are the slices) noised to each
+        logged t (``t % log_every_t == 0 or t == T - 1``) and decoded.  The
+        posterior noise (B, 12, h, w, 4) and one noise per logged t come from
+        ``generator`` unless given.  Returns (n_log, B, 12, H, W, 3) fp32."""
+        ldm = state.ldm
+        atlas0 = ldm.make_atlas(self._encode_slices(state, images, generator, posterior_noise))
+        t_total = self.schedule.num_timesteps
+        steps = [t for t in range(t_total) if t % log_every_t == 0 or t == t_total - 1]
+        if noises is not None and len(noises) != len(steps):
+            raise ValueError(f"need {len(steps)} noises, got {len(noises)}")
+        rows = []
+        for i, t in enumerate(steps):
+            noise = (self._tensor(noises[i]) if noises is not None else torch.randn(
+                atlas0.shape, generator=generator, device=self.device))
+            z_noisy = (float(self.schedule.sqrt_alphas_cumprod[t]) * atlas0
+                       + float(self.schedule.sqrt_one_minus_alphas_cumprod[t]) * noise)
+            rows.append(ldm.decode_atlas_images(z_noisy, keep=12).float())
+        return torch.stack(rows)
+
+    @torch.no_grad()
+    def reconstruct_slices(self, state: LDMTrainState, images, *,
+                           generator: Optional[torch.Generator] = None,
+                           posterior_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The VAE round trip of the slices (``main --mode rec``): ``images``
+        (B, 12 or 13, H, W, 3), the first 12 encoded (a posterior sample,
+        noise (B, 12, h, w, 4) from ``generator`` unless given) and decoded.
+        Returns (B, 12, H, W, 3) fp32 in [-1, 1]."""
+        z12 = self._encode_slices(state, images, generator, posterior_noise)
+        return state.ldm.decode_tiles(z12).float()
+
     # -- checkpoints ------------------------------------------------------------------
 
     def state_payload(self, state: LDMTrainState) -> Dict[str, Any]:
@@ -292,4 +379,18 @@ class LDMTrainer:
         return save_checkpoint(path, self.state_payload(state))
 
     def restore(self, state: LDMTrainState, path: str) -> LDMTrainState:
+        """In place, from the port's ``torch.save`` checkpoint or the JAX
+        trainer's msgpack one (its variables, EMA, ``scale_factor``,
+        ``logvar`` and step; AdamW starts fresh).  A JAX orbax directory
+        raises a ``ValueError`` naming its conversion to msgpack."""
+        if os.path.isdir(path) or not zipfile.is_zipfile(path):
+            tree = read_flax_msgpack(path)
+            variables = tree["variables"]
+            params = variables["params"]
+            # a run without EMA saved none: the weights are their own average
+            ema = tree["ema_params"] or {k: params[k] for k in ("model", "cond_stage")}
+            payload = ldm_train_payload(params, variables["batch_stats"], ema, tree["logvar"],
+                                        float(np.asarray(tree["scale_factor"])),
+                                        int(np.asarray(tree["step"])))
+            return self.load_payload(state, payload)
         return self.load_payload(state, restore_checkpoint(path, map_location=self.device))

@@ -45,7 +45,11 @@ def test_import_leaves_jax_out():
             "slice3d_tpu_torch.models.disn, slice3d_tpu_torch.models.camnet, "
             "slice3d_tpu_torch.mesh.refine, slice3d_tpu_torch.mesh.io, "
             "slice3d_tpu_torch.mesh.voxels, slice3d_tpu_torch.eval.cli, "
-            "slice3d_tpu_torch.eval.__main__; "
+            "slice3d_tpu_torch.eval.__main__, slice3d_tpu_torch.main, "
+            "slice3d_tpu_torch.re_org_slices, slice3d_tpu_torch.reconstruct_slices, "
+            "slice3d_tpu_torch.create_dataset_sin_img, slice3d_tpu_torch.diffusion.plms, "
+            "slice3d_tpu_torch.diffusion.dpm, slice3d_tpu_torch.diffusion.ancestral, "
+            "slice3d_tpu_torch.train.flax_msgpack, slice3d_tpu_torch.utils.yaml_config; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'slice3d_tpu' or m.startswith('slice3d_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -74,7 +78,14 @@ def test_no_jax_or_reference_imports(where):
                 os.path.join("data", "dataset.py"), os.path.join("ops", "fused_ffn.py"),
                 os.path.join("models", "build.py"), os.path.join("models", "disn.py"),
                 os.path.join("models", "camnet.py"), os.path.join("mesh", "refine.py"),
-                os.path.join("eval", "metrics.py"), os.path.join("eval", "cli.py")} <= rel
+                os.path.join("eval", "metrics.py"), os.path.join("eval", "cli.py"),
+                "main.py", "re_org_slices.py", "reconstruct_slices.py",
+                "create_dataset_sin_img.py", os.path.join("train", "flax_msgpack.py"),
+                os.path.join("utils", "yaml_config.py"), os.path.join("utils", "montage.py"),
+                os.path.join("data", "ldm_data.py"), os.path.join("data", "pipeline.py"),
+                os.path.join("data", "builders.py"), os.path.join("diffusion", "plms.py"),
+                os.path.join("diffusion", "dpm.py"),
+                os.path.join("diffusion", "ancestral.py")} <= rel
     else:
         files = [os.path.join(ROOT, "chip_smoke.py")]
     assert files
@@ -82,6 +93,23 @@ def test_no_jax_or_reference_imports(where):
         for name in _imports(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "slice3d_tpu"), (path, name)
+
+
+def test_no_third_party_import_but_torch_and_numpy():
+    """The card's machine has torch and numpy, and neither msgpack, PyYAML nor
+    Pillow: the port imports nothing else outside the standard library, save
+    Pillow as ``data/image.py``'s fallback for images that are no PNG."""
+    found = set()
+    for d, _, fs in os.walk(PKG):
+        for f in fs:
+            if f.endswith(".py"):
+                path = os.path.join(d, f)
+                found.update((name.split(".")[0], os.path.relpath(path, PKG))
+                             for name in _imports(path))
+    other = {(top, rel) for top, rel in found
+             if top not in sys.stdlib_module_names and top not in ("__future__", "torch",
+                                                                  "numpy")}
+    assert other == {("PIL", os.path.join("data", "image.py"))}
 
 
 def test_weight_bridge_round_trip():
