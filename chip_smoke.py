@@ -79,7 +79,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the serving point (8 OBJ files), SliceNet's slice dump (96 PNGs of 256
      px); ms per UNet call at batch 8 and 16; and small-input checks of each
      new sampler (kernel vs plain path in bf16 at full width, fp32 card vs
-     CPU on the tiny configuration).
+     CPU on the tiny configuration);
+ 13. regression training at the configs' widths (n_bs 16, img 128, 256
+     queries, 12 slices) on batches made on the card: SliceNet with the VGG19
+     perceptual term (seeded weights in torchvision's layout) in fp32 and in
+     bf16, GTSlice from GT slices and CameraNet, each 2 warm-up and 10 timed
+     steps (ms per step p50 / min / max, peak memory, the card's name and
+     power limit), with the checks: finite losses, every parameter with a
+     nonzero gradient moved, VGG19 bitwise unchanged, the running statistics
+     moved, the LR of every update the schedule's, no head kernel launched;
+     one tiny fp32 step of each trainer on the card and on the CPU, which
+     must agree with TF32 off and must not with TF32 on (the tolerance's
+     control); then on a synthetic dataset of 16 objects x 12 views of 128 px
+     written into ``_smoke/`` (and removed): ``python -m
+     slice3d_tpu_torch.train`` for one epoch and again with ``--resume``, with
+     ``--device_preprocess``, ``train_gt`` and ``train_cam``, and the
+     reconstruct CLI on one object from the SliceNet checkpoint trained there,
+     one fused_encoder_layer launch for each encoder layer its head runs.
 The last three lines are the paths' JSON record, the kernels' JSON record
 and the run's status JSON.
 """
@@ -207,6 +223,28 @@ GENCLI_CHECK_NAMES = {"plms": "PLMS-4", "dpm": "DPM-4",
                       "ancestral": f"ancestral chain over its lowest {GENCLI_CHECK_T} steps",
                       "guided": "DDIM-4 eta 1 at guidance 3 (one 2B call a step)"}
 GUIDED_ATTN_SHAPES = ((16, 8, 4096, 24), (16, 8, 1024, 48))  # the guided 2B batch
+# regression training (phase 13) at the configs' widths: n_bs 16 of 128 px,
+# 256 queries, 12 slices, 2 warm-up then 10 timed steps a trainer, 5 steps an
+# epoch and freq_decay 1 so that the timed steps cross two LR decays; the VGG
+# trunk's last BatchNorm feeds no output and does not run
+REG_BATCH, REG_IMG, REG_QRY, REG_WARMUP, REG_STEPS = 16, 128, 256, 2, 10
+REG_STEPS_PER_EPOCH = 5
+REG_UNUSED_BN = ("slices_generator.down5_.", "img_encoder.conv_last.")
+REG_CLI_SHAPES = 16  # one batch of 16 an epoch
+# one tiny fp32 step (img 32, batch 2) card vs CPU: logs to relative 5e-6,
+# gradients element-wise to 1e-3 G + 1e-3 |cpu|, G the model's largest
+# |gradient| (fp32 summation order through the U-Net, VGG16-BN, VGG19 and the
+# head), where at most 1e-4 of a tensor may exceed it (a max-pool near-tie
+# routes a gradient to another pixel, as the CPU tests saw move five elements
+# of a GTSlice conv by 7e-4 against the JAX package).  Readings on the H100
+# with TF32 off: logs 1.4e-6 relative, gradients 2.4e-4 G (1.8e-4 G with the
+# near-ties set aside) for SliceNet, 2.4e-7 and 4.4e-5 G for GTSlice, 8.7e-8
+# and 1.0e-5 G for CameraNet; with TF32 on (cuDNN and matmul), which the
+# phase runs as a control that must fail: logs 7.6e-5 to 3.9e-4, gradients
+# 7.8e-3 to 0.10 G
+REG_LOSS_RTOL = 5e-6
+REG_GRAD_FP32_TOL = dict(atol=1e-3, rtol=1e-3)
+REG_TIE_FRAC = 1e-4
 # LDM training at configs/objaverse-ldm-kl-8.yaml's widths: batch 8 of 128 px,
 # 2 warm-up steps, then the timed ones
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 10
@@ -1909,6 +1947,290 @@ def phase_generation_cli(sm_clock_hz: float):
             "phase_s": phase_s}, counts_all, guided_modes
 
 
+def _timed_steps(tag: str, step, state, batches, power: str, lr_of=None):
+    """Warm-up steps, then the timed ones (each closed by a synchronise) with
+    the launch counts read around them; the checks every trainer shares:
+    finite losses, every parameter with a nonzero last gradient moved, every
+    running statistic but the unused BatchNorm's moved, the LR of each update
+    ``lr_of(update)``, no head kernel launched."""
+    for batch in batches[:REG_WARMUP]:
+        step(state, batch)
+    torch.cuda.synchronize()
+    model = state.model
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.clone() for n, b in model.named_buffers()
+              if n.endswith(("running_mean", "running_var")) and not n.startswith(REG_UNUSED_BN)}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, losses = [], []
+    for batch in batches[REG_WARMUP:]:
+        t0 = time.perf_counter()
+        _, logs = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        logs = logs if isinstance(logs, dict) else {"loss": logs}
+        losses.append({k: float(v) for k, v in logs.items()})
+        if lr_of is not None:
+            lr = state.optimizer.param_groups[0]["lr"]
+            check(lr == lr_of(state.step - 1), f"{tag}: update {state.step - 1} ran at lr {lr}, "
+                  f"the schedule says {lr_of(state.step - 1)}")
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    params = dict(model.named_parameters())
+    live = [n for n, p in params.items() if p.grad is not None and bool(p.grad.any())]
+    moved = sum(not torch.equal(params[n], params0[n]) for n in live)
+    buffers = dict(model.named_buffers())
+    bn_moved = sum(not torch.equal(buffers[n], b) for n, b in stats0.items())
+    ms = {"p50": percentile(times, 0.5), "min": min(times), "max": max(times)}
+    print(f"[regtrain] {tag}: {len(times)} steps of batch {REG_BATCH}: ms per step p50 "
+          f"{ms['p50']:.4f}, min {ms['min']:.4f}, max {ms['max']:.4f}; peak memory "
+          f"{peak_gb:.4f} GB; {power}; TF32 convolutions "
+          f"{torch.backends.cudnn.allow_tf32}; launches {counts}")
+    print(f"[regtrain] {tag}: losses first {losses[0]}, last {losses[-1]}; moved {moved} / "
+          f"{len(live)} parameters with a nonzero gradient ({len(params)} in all), "
+          f"{bn_moved} / {len(stats0)} running statistics")
+    check(all(np.isfinite(v) for s in losses for v in s.values()), f"{tag}: a loss is not finite")
+    check(moved == len(live) > 0, f"{tag}: a parameter with a nonzero gradient did not move")
+    check(bn_moved == len(stats0) > 0, f"{tag}: a BatchNorm's running statistics did not move")
+    check(counts["fused_encoder_layer"] == 0 and counts["fused_ffn"] == 0,
+          f"{tag}: training launched a head kernel: {counts}")
+    return {"ms_per_step": ms, "step_ms": times, "peak_gb": peak_gb, "steps": len(times),
+            "batch": REG_BATCH, "losses": losses, "counts": counts}
+
+
+def phase_regression_training(power: str):
+    """Regression training at the configs' widths on batches made on the card:
+    SliceNet with the VGG19 term in fp32 and in bf16, GTSlice from GT slices,
+    CameraNet; then one tiny fp32 step per trainer on the card and on the CPU."""
+    from slice3d_tpu_torch.config import Options
+    from slice3d_tpu_torch.train.train_cam import CamTrainer
+    from slice3d_tpu_torch.profile_training import regression_batches, seeded_vgg19
+    from slice3d_tpu_torch.train.train_reg import RegressionTrainer, make_lr_schedule
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    batches = regression_batches(REG_WARMUP + REG_STEPS, g, b=REG_BATCH, size=REG_IMG,
+                                 n_qry=REG_QRY)
+    vgg = seeded_vgg19()
+    out = {}
+    for tag, name, dtype in (("slicenet fp32", "slicenet", "float32"),
+                             ("slicenet bf16", "slicenet", "bfloat16"),
+                             ("gtslice", "gtslice", "float32")):
+        opts = Options(name_model=name, n_bs=REG_BATCH, img_size=REG_IMG, n_qry=REG_QRY,
+                       train_dtype=dtype, freq_decay=1)
+        trainer = RegressionTrainer(opts, vgg19=vgg if name == "slicenet" else None,
+                                    steps_per_epoch=REG_STEPS_PER_EPOCH)
+        state = trainer.init_state()
+        frozen = trainer.vgg19
+        vgg0 = {n: t.clone() for n, t in frozen.state_dict().items()} if frozen else {}
+        schedule = make_lr_schedule(opts.lr, REG_STEPS_PER_EPOCH, opts.freq_decay,
+                                    opts.lr_decay_factor)
+        out[tag] = _timed_steps(tag, trainer.train_step, state, batches, power, schedule)
+        check(not frozen or all(torch.equal(t, vgg0[n])
+                                for n, t in frozen.state_dict().items()), f"{tag}: VGG19 changed")
+        if name == "slicenet":
+            check(out[tag]["losses"][-1]["loss_vgg"] > 0, f"{tag}: no perceptual term")
+        del trainer, state
+    cam = CamTrainer(img_size=REG_IMG)
+    out["cameranet"] = _timed_steps("cameranet", cam.train_step, cam.init_state(), batches,
+                                    power)
+    del batches
+    out["card_vs_cpu"] = _regression_card_vs_cpu(vgg)
+    return out
+
+
+def _regression_step_tiny(name, vgg, batch, dev):
+    """One tiny fp32 step of ``name``'s trainer on ``dev`` from seed 2:
+    (logs, gradients on the CPU)."""
+    from slice3d_tpu_torch.config import Options
+    from slice3d_tpu_torch.train.train_cam import CamTrainer
+    from slice3d_tpu_torch.train.train_reg import RegressionTrainer
+
+    if name == "cameranet":
+        tr = CamTrainer(img_size=32, device=dev)
+        st, loss = tr.train_step(tr.init_state(seed=2), batch)
+        logs = {"loss": float(loss)}
+    else:
+        tr = RegressionTrainer(Options(name_model=name, img_size=32, n_qry=16, n_bs=2),
+                               vgg19=vgg if name == "slicenet" else None, device=dev)
+        st, logs = tr.train_step(tr.init_state(seed=2), batch)
+        logs = {k: float(v) for k, v in logs.items()}
+    return logs, {n: p.grad.detach().cpu().clone() for n, p in st.model.named_parameters()}
+
+
+def regression_grad_readings(got: dict, want: dict, tol: dict) -> dict:
+    """Element-wise over every parameter tensor: |got - want| <= atol G +
+    rtol |want|, G the model's largest |gradient|, where at most
+    REG_TIE_FRAC of a tensor's elements may exceed it (a max-pool near-tie
+    routes a gradient to another pixel).  Readings: the largest error in
+    units of G, the largest once each tensor's allowed near-ties are set
+    aside, the largest L2 error of a tensor relative to its norm (tensors
+    above 1e-6 G), and the elements beyond the allowance."""
+    big = max(float(w.abs().max()) for w in want.values())
+    out = {"max_err_G": 0.0, "err_G_without_ties": 0.0, "max_rel_l2": 0.0, "violations": 0}
+    for name, w in want.items():
+        g, w = got[name].double(), w.double()
+        err = (g - w).abs().flatten()
+        allowed = int(REG_TIE_FRAC * err.numel())
+        n_over = int((err > tol["atol"] * big + tol["rtol"] * w.abs().flatten()).sum())
+        out["violations"] += max(0, n_over - allowed)
+        top = torch.sort(err, descending=True).values
+        out["max_err_G"] = max(out["max_err_G"], float(top[0]) / big)
+        if allowed < err.numel():
+            out["err_G_without_ties"] = max(out["err_G_without_ties"], float(top[allowed]) / big)
+        if float(w.abs().max()) >= 1e-6 * big:
+            out["max_rel_l2"] = max(out["max_rel_l2"], float(err.norm() / w.norm()))
+    return out
+
+
+def _regression_card_vs_cpu(vgg):
+    """One tiny fp32 step (img 32, batch 2, 16 queries) of each trainer on the
+    CPU (which the CPU tests hold against the JAX package) and on the card,
+    from the same weights and batch, logs and gradients compared: with TF32
+    off, which must agree, and with TF32 on (cuDNN and matmul), which must
+    not, so that the tolerance is shown to tell fp32 from TF32."""
+    from slice3d_tpu_torch.profile_training import regression_batches
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    batch = {k: v.cpu() for k, v in regression_batches(1, g, b=2, size=32, n_qry=16,
+                                                        n_pcd=64)[0].items()}
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    readings = {}
+    try:
+        for name in ("slicenet", "gtslice", "cameranet"):
+            c_logs, cpu = _regression_step_tiny(name, vgg, batch, "cpu")
+            readings[name] = {"cpu": c_logs}
+            for tf32 in (False, True):
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+                g_logs, gpu = _regression_step_tiny(name, vgg, batch, "cuda")
+                r = regression_grad_readings(gpu, cpu, REG_GRAD_FP32_TOL)
+                r["log_rel_err"] = max(abs(g_logs[k] - c_logs[k]) / abs(c_logs[k])
+                                       for k in c_logs)
+                r["card"] = g_logs
+                ok = r["violations"] == 0 and r["log_rel_err"] <= REG_LOSS_RTOL
+                mode = "TF32 on" if tf32 else "fp32"
+                print(f"[check] regression step {name}, tiny, card ({mode}) vs CPU fp32: logs "
+                      f"{r['log_rel_err']:.6g} apart, relative (tolerance {REG_LOSS_RTOL}); "
+                      f"gradients max_abs_err {r['max_err_G']:.6g} G, "
+                      f"{r['err_G_without_ties']:.6g} G with at most {REG_TIE_FRAC} of a "
+                      f"tensor set aside, largest tensor L2 error / its norm "
+                      f"{r['max_rel_l2']:.6g}; tolerance |card-cpu| <= "
+                      f"{REG_GRAD_FP32_TOL['atol']}*G + {REG_GRAD_FP32_TOL['rtol']}*|cpu|, "
+                      f"violations {r['violations']}: {'agree' if ok else 'disagree'}")
+                check(ok != tf32, f"{name} step, card ({mode}) vs CPU: "
+                      + ("the check did not see TF32" if tf32 else "disagree"))
+                readings[name]["tf32" if tf32 else "fp32"] = r
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
+    return readings
+
+
+def _run_train_cli(tag: str, main, argv):
+    """A training CLI's ``main(argv)`` with its output echoed under ``tag``;
+    returns (that output, seconds)."""
+    out = _Tee(tag, sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"[{tag}] {dt:.4f} s in all")
+    return out.getvalue(), dt
+
+
+def phase_regression_clis():
+    """The three training CLIs on a synthetic dataset of REG_CLI_SHAPES
+    objects x 12 views of 128 px written into ``_smoke/`` (and removed):
+    ``train`` for one epoch with the VGG19 term and again with ``--resume``
+    (the step count and the halved LR carry on), ``train --device_preprocess``,
+    ``train_gt`` and ``train_cam`` for one epoch each, then the reconstruct CLI
+    on one object from the SliceNet checkpoint trained here, through
+    fused_encoder_layer."""
+    from slice3d_tpu_torch import reconstruct
+    from slice3d_tpu_torch import train_cam, train_gt
+    from slice3d_tpu_torch.config import Options
+    from slice3d_tpu_torch.data.builders import create_synthetic_dataset
+    from slice3d_tpu_torch.data.dataset import Slice3DDataset
+    from slice3d_tpu_torch.models.build import load_model
+    from slice3d_tpu_torch.models.layers import TransformerEncoder
+    from slice3d_tpu_torch.profile_training import seeded_vgg19
+    from slice3d_tpu_torch.train import __main__ as train_cli
+
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    data = os.path.join(SMOKE_DIR, "data")
+    t0 = time.perf_counter()
+    create_synthetic_dataset(os.path.join(data, "objaverse"), n_shapes=REG_CLI_SHAPES,
+                             n_views=12, img_size=REG_IMG, n_sdf=2048, seed=3)
+    vgg_path = os.path.join(SMOKE_DIR, "vgg19.pth")
+    torch.save(seeded_vgg19().state_dict(), vgg_path)
+    print(f"[regcli] dataset of {REG_CLI_SHAPES} objects x 12 views ({REG_IMG} px) written in "
+          f"{time.perf_counter() - t0:.4f} s")
+    exp = os.path.join(SMOKE_DIR, "exp")
+    common = ["--dir_data", data, "--name_dataset", "objaverse", "--img_size", str(REG_IMG),
+              "--n_bs", str(REG_BATCH), "--n_qry", str(REG_QRY), "--n_views", "12",
+              "--freq_log", "1", "--freq_ckpt", "1", "--freq_decay", "1", "--n_wk", "8",
+              "--dir_experiments", exp]
+    times = {}
+    text, times["train"] = _run_train_cli("regcli train", train_cli.main, common + [
+        "--name_exp", "reg", "--n_epochs", "1", "--vgg19_ckpt", vgg_path])
+    check("[train] epoch 0 iter 1 lr 0.0003 " in text and "loss_vgg" in text,
+          "train: no step at lr 3e-4 with the perceptual term")
+    text, times["train_resume"] = _run_train_cli("regcli resume", train_cli.main, common + [
+        "--name_exp", "reg", "--n_epochs", "2", "--vgg19_ckpt", vgg_path, "--resume"])
+    check("at epoch 1" in text and "[train] epoch 1 iter 2 lr 0.00015 " in text,
+          "train --resume: the step count or the schedule did not carry on")
+    ckpts = sorted(os.listdir(os.path.join(exp, "reg", "ckpt")))
+    check(len(ckpts) == 2 and ckpts[-1].startswith("1_2_"), f"train checkpoints {ckpts}")
+    text, times["train_device_preprocess"] = _run_train_cli(
+        "regcli devpre", train_cli.main, common + ["--name_exp", "devpre", "--n_epochs", "1",
+                                                   "--device_preprocess"])
+    check("[train] epoch 0 iter 1 " in text, "train --device_preprocess took no step")
+    text, times["train_gt"] = _run_train_cli("regcli train_gt", train_gt.main, common + [
+        "--name_exp", "gt", "--n_epochs", "1"])
+    check("[train] epoch 0 iter 1 " in text and os.listdir(os.path.join(exp, "gt", "ckpt")),
+          "train_gt took no step or saved no checkpoint")
+    text, times["train_cam"] = _run_train_cli("regcli train_cam", train_cam.main, common + [
+        "--name_exp_cam", "cam", "--n_epochs", "1"])
+    check("[cam] epoch 0 step 1 " in text and os.listdir(os.path.join(exp, "cam", "ckpt")),
+          "train_cam took no step or saved no checkpoint")
+
+    # the trained SliceNet through the reconstruct CLI, one object at the
+    # serving point (fused route)
+    with open(os.path.join(data, "objaverse", "03_splits", "test.lst"), "w") as f:
+        f.write("00000")
+    opts = Options(name_model="slicenet", img_size=REG_IMG, dtype="bfloat16")
+    feed = Slice3DDataset(os.path.join(data, "objaverse"), split="test", img_size=REG_IMG,
+                          load_slices=False, load_sdf=False)[0]
+    thr = probe_threshold(load_model(opts, os.path.join(exp, "reg", "ckpt", ckpts[-1]))
+                          .to("cuda"), feed)
+    point = [f"--{k}={v}" for k, v in SERVE_POINT.items()]
+    # the head's encoder layers run in this reconstruction, counted by a
+    # forward hook on every TransformerEncoder (the SDF head's only), each
+    # layer one fused_encoder_layer launch
+    layers = []
+    hook = torch.nn.modules.module.register_module_forward_hook(
+        lambda mod, args, out: layers.append(len(mod.layers))
+        if isinstance(mod, TransformerEncoder) else None)
+    reset_counts()
+    try:
+        _, objs, rec_s = run_cli("regcli reconstruct", reconstruct.main, point + [
+            "--dir_data", data, "--name_dataset", "objaverse", "--mode", "test",
+            "--n_views", "12", "--dir_experiments", exp, "--name_exp", "reg",
+            "--name_ckpt", ckpts[-1], "--dtype", "bfloat16", "--mc_threshold", repr(thr)])
+    finally:
+        hook.remove()
+    counts = read_counts()
+    check_objects("regcli reconstruct", objs, 1)
+    check(counts["fused_encoder_layer"] == sum(layers) > 0 and counts["fused_ffn"] == 0,
+          f"the trained checkpoint's reconstruction launched {counts}, its head ran "
+          f"{sum(layers)} encoder layers in {len(layers)} calls")
+    print(f"[regcli] reconstruct --name_ckpt {ckpts[-1]}: {rec_s:.4f} s for 1 object "
+          f"(threshold {thr:.6f}); launches {counts}, {len(layers)} head calls of "
+          f"{sum(layers)} encoder layers")
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    return {"cli_s": times, "reconstruct_s": rec_s, "reconstruct_objects": objs,
+            "checkpoints": ckpts}, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1926,7 +2248,8 @@ def main() -> int:
     clock = float(smi("clocks.max.sm").split()[0])  # "1980 MHz"
     print(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"max SM clock {clock:.0f} MHz")
-    print(smi("name,power.limit"))
+    power = smi("name,power.limit")
+    print(power)
 
     t_start = time.perf_counter()
     phase_build()
@@ -1951,11 +2274,21 @@ def main() -> int:
     options, options_counts = phase_regression_options()
     gencli, gencli_counts, guided_modes = phase_generation_cli(clock * 1e6)
     attn_modes += guided_modes
+    t_phase = time.perf_counter()
+    regtrain = phase_regression_training(power)
+    regcli, regcli_counts = phase_regression_clis()
+    regtrain["cli"] = regcli
+    regtrain["phase_s"] = time.perf_counter() - t_phase
+    print(f"[regtrain] phase 13 in {regtrain['phase_s']:.4f} s")
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"regression": main_counts, "generation": gen["counts"],
                "training": train["counts"], "serving": serve_counts, "split": split_counts,
-               "options": options_counts, "generation_cli": gencli_counts}
+               "options": options_counts, "generation_cli": gencli_counts,
+               "regression_training": {k: sum(r["counts"][k] for r in regtrain.values()
+                                              if isinstance(r, dict) and "counts" in r)
+                                       for k in regcli_counts},
+               "regression_cli": regcli_counts}
     full = modes[0]
     encoder = {"name": "fused_encoder_layer", "route": "cuda",
                "source": "slice3d_tpu_torch/csrc/fused_encoder.cu",
@@ -2007,7 +2340,7 @@ def main() -> int:
     print(json.dumps({"generation": {k: v for k, v in gen.items() if k != "counts"},
                       "training": {k: v for k, v in train.items() if k != "counts"},
                       "serving": serving, "split": split, "options": options,
-                      "generation_cli": gencli}))
+                      "generation_cli": gencli, "regression_training": regtrain}))
     print(json.dumps({"kernels": [encoder, attention, attention_bwd, ffn]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -4,7 +4,8 @@ field, so the CLIs of both packages take the same command lines.
 ``Options``, ``get_parser`` and ``options_from_args`` are the JAX package's
 (``slice3d_tpu/config.py``), which mirror the reference flag surface.
 ``require_ported`` raises for the options whose machinery the port does not
-have yet, so none is silently ignored.
+have yet, so none is silently ignored; ``dump_options`` writes a run's
+``opts.txt``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import dataclasses
 import os
 from dataclasses import dataclass
 
-__all__ = ["Options", "get_parser", "options_from_args", "require_ported"]
+__all__ = ["Options", "get_parser", "options_from_args", "require_ported", "dump_options"]
 
 
 @dataclass
@@ -74,9 +75,10 @@ class Options:
     # the loss stay float32; only layer compute runs bf16).  float32 default
     # reproduces the reference's torch numerics exactly.
     train_dtype: str = "float32"
-    # composite/resize/normalize on the device (not ported)
+    # composite/resize/normalize on the device (regression training)
     device_preprocess: bool = False
-    # the JAX package's training-checkpoint format (read by neither CLI here)
+    # the JAX package's training-checkpoint format (the port writes torch.save
+    # files and reads the JAX package's msgpack ones)
     ckpt_backend: str = "msgpack"
     vgg19_ckpt: str = ""  # torch vgg19 weights for the perceptual loss
     random_init: bool = False  # run with random weights (benchmarks/smoke)
@@ -125,8 +127,14 @@ _UNPORTED = {
     "mc_shard_axis": ("batch", "sharding the query points over devices",
                       "ROADMAP Queue 1 item 12"),
     "multi_gpu": (False, "more than one device", "ROADMAP Queue 1 item 12"),
-    "device_preprocess": (False, "on-device image preprocessing", "ROADMAP Queue 1 item 8"),
 }
+
+
+def dump_options(opts: Options, path: str) -> None:
+    """Write every option as ``name: value``, one a line."""
+    with open(path, "w") as f:
+        for k, v in dataclasses.asdict(opts).items():
+            f.write(f"{k}: {v}\n")
 
 
 def require_ported(opts: Options) -> None:

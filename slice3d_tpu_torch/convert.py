@@ -28,7 +28,7 @@ import torch
 __all__ = ["slicenet_state_dict", "gtslice_state_dict", "disn_state_dict",
            "camnet_state_dict", "vae_state_dict",
            "ldm_unet_state_dict", "cond_encoder_state_dict",
-           "latent_diffusion_state_dict", "ldm_train_payload"]
+           "latent_diffusion_state_dict", "ldm_train_payload", "train_reg_payload"]
 
 # (conv index, conv block, conv child, bn block, bn child) of the reference's
 # sliced VGG16-BN: blocks are features[:4] [4:11] [11:21] [21:31] [31:41]
@@ -322,3 +322,27 @@ def ldm_train_payload(params: Mapping, batch_stats: Mapping, ema_params: Mapping
     ema = ldm_unet_state_dict(ema_params["model"], "model.diffusion_model")
     ema.update(cond_encoder_state_dict({"params": ema_params["cond_stage"]}))
     return {"model": model, "ema": ema, "logvar": _t(logvar), "step": int(step)}
+
+
+_STATS = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def train_reg_payload(tree: Mapping, name_model: str) -> Dict:
+    """A JAX ``train_reg`` checkpoint (``RegressionTrainer.save``'s tree:
+    ``variables``, optax.adam's ``opt_state``, ``n_epoch``, ``n_iter``) ->
+    the port's ``RegressionTrainer`` payload: the model's state_dict, Adam's
+    moments by parameter name (optax's ``mu`` / ``nu`` through the same
+    layout map as the parameters become torch's ``exp_avg`` /
+    ``exp_avg_sq``; its ``count`` the step), and the epoch and step."""
+    to_sd = slicenet_state_dict if name_model == "slicenet" else gtslice_state_dict
+    variables = tree["variables"]
+    adam = tree["opt_state"]["0"]  # (ScaleByAdamState, ScaleByScheduleState)
+
+    def moments(m):
+        sd = to_sd({"params": m, "batch_stats": variables["batch_stats"]})
+        return {k: v for k, v in sd.items() if not k.endswith(_STATS)}
+
+    return {"model": to_sd(variables),
+            "adam": {"count": int(np.asarray(adam["count"])), "exp_avg": moments(adam["mu"]),
+                     "exp_avg_sq": moments(adam["nu"])},
+            "n_epoch": int(np.asarray(tree["n_epoch"])), "n_iter": int(np.asarray(tree["n_iter"]))}

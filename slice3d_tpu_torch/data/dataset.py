@@ -17,8 +17,11 @@ meta.pkl; per-object SDF rescaling with the 0.003 level shift; view 4 and
 seed 1234 for val/test.  Images are uint8 numpy arrays read by
 ``data/image.py`` (Pillow's decode and bilinear resize, without Pillow);
 arrays out are NHWC float32.  ``load_full_projection`` adds DISN's full
-projection (``trans_mat_right``).  The JAX package's on-device
-preprocessing is not ported.
+projection (``trans_mat_right``).  ``device_preprocess`` emits the input
+view and the GT slices as raw uint8 RGBA (``img_input_raw``,
+``img_slices_raw``) for ``data/device_transforms.py`` to composite, resize
+and normalise on the card (the JAX package's raw mode,
+``slice3d_tpu/data/dataset.py:169-237``).
 """
 
 from __future__ import annotations
@@ -98,6 +101,9 @@ class Slice3DDataset:
     load_sdf: bool = True
     load_full_projection: bool = False  # 'trans_mat_right' for DISN
     categories: Sequence[str] = ("",)
+    # raw uint8 RGBA under *_raw keys; composite, resize and normalise then
+    # run on the card (data.device_transforms.DeviceTransformLoader)
+    device_preprocess: bool = False
 
     def __post_init__(self):
         self.files: List[Tuple[str, str]] = []
@@ -114,6 +120,7 @@ class Slice3DDataset:
         }[self.from_which_slices]
         self.dir_img_slices = os.path.join(self.root, slices_dir)
         self.dir_sdf = os.path.join(self.root, "02_sdfs")
+        self._raw_hw: Dict[str, Tuple[int, int]] = {}  # first raw size per feed
 
     def __len__(self) -> int:
         return len(self.files)
@@ -172,6 +179,29 @@ class Slice3DDataset:
         )
         return pts.astype(np.float32), vals.astype(np.float32)
 
+    def load_raw_rgba(self, path: str, group: str = "input") -> np.ndarray:
+        """(H, W, 4) uint8 for the device-side preprocessing: grey and RGB
+        gain an opaque alpha, grey is spread to three channels.
+
+        Raw images are stacked per feed key before the resize on the card, so
+        every source PNG of a ``group`` ("input" or "slices") must share one
+        resolution; a mixed one raises naming the file (the host path resizes
+        each image and takes mixed sizes)."""
+        arr = load_image(path)
+        if arr.ndim == 2:
+            arr = arr[..., None]
+        if arr.shape[-1] in (1, 2):
+            arr = np.concatenate([arr[..., :1]] * 3 + [arr[..., 1:]], axis=-1)
+        if arr.shape[-1] == 3:
+            arr = np.concatenate([arr, np.full_like(arr[..., :1], 255)], axis=-1)
+        first = self._raw_hw.setdefault(group, arr.shape[:2])
+        if arr.shape[:2] != first:
+            raise ValueError(
+                f"device_preprocess needs uniform source resolutions per feed: {path} is "
+                f"{arr.shape[:2]}, {group} images started with {first} (resize the renders "
+                f"or disable device_preprocess)")
+        return np.ascontiguousarray(arr, np.uint8)
+
     # -- sample assembly ---------------------------------------------------
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
@@ -179,17 +209,24 @@ class Slice3DDataset:
         view = self.view_index()
 
         obj_rot, trans_tp, scale, offset = self.load_camera(shape_id, view)
-        feed: Dict[str, np.ndarray] = {
-            "obj_rot_mat": obj_rot,
-            "trans_mat_wo_rot_tp": trans_tp,
-            "img_input": self.load_input_view(shape_id, view).astype(np.float32),
-        }
+        feed: Dict[str, np.ndarray] = {"obj_rot_mat": obj_rot, "trans_mat_wo_rot_tp": trans_tp}
+        if self.device_preprocess:
+            feed["img_input_raw"] = self.load_raw_rgba(
+                os.path.join(self.dir_img_input, shape_id, "%03d.png" % view))
+        else:
+            feed["img_input"] = self.load_input_view(shape_id, view).astype(np.float32)
         if self.load_full_projection:
             meta = self.load_meta(shape_id)
             feed["trans_mat_right"] = camera.full_projection_matrix(
                 meta[1][view], meta[2][view], meta[3][view]).astype(np.float32)
         if self.load_slices:
-            feed["img_slices"] = self.load_slice_images(shape_id, view).astype(np.float32)
+            if self.device_preprocess and self.from_which_slices == "gt":
+                vdir = os.path.join(self.dir_img_slices, shape_id, "%03d" % view)
+                feed["img_slices_raw"] = np.stack([
+                    self.load_raw_rgba(os.path.join(vdir, f"{a}_{p}.png"), group="slices")
+                    for a, p in SLICE_ORDER])
+            else:
+                feed["img_slices"] = self.load_slice_images(shape_id, view).astype(np.float32)
         if self.load_sdf:
             pts, vals = self.load_sdf_samples(shape_id, scale, offset)
             if self.split == "train":

@@ -15,13 +15,13 @@ does the same for the camera pose estimator of ``--est_campose``, from
 from __future__ import annotations
 
 import os
-import zipfile
 from typing import Optional, Union
 
 import torch
 
 from .. import convert
 from ..config import Options
+from ..train.checkpoint import is_torch_file
 from ..train.flax_msgpack import ORBAX_MESSAGE, read_flax_msgpack
 from .camnet import CameraNet, init_camnet
 from .disn import DISNModel, init_disn
@@ -62,14 +62,6 @@ def build_model(opts: Options) -> Model:
     return cls(opts.n_slices, route=route, dtype=dtype).eval()
 
 
-def _is_torch_file(path: str) -> bool:
-    """torch.save's zip format (or its legacy pickle)."""
-    if zipfile.is_zipfile(path):
-        return True
-    with open(path, "rb") as f:
-        return f.read(2) in (b"\x80\x02", b"\x80\x04")
-
-
 def _state_dict(ckpt_path: str, name: str):
     """The ``state_dict`` of model ``name`` in a checkpoint: a reference torch
     file's (the file's, or the one it holds under ``"model"``), or a JAX
@@ -78,7 +70,7 @@ def _state_dict(ckpt_path: str, name: str):
     that names their conversion to msgpack."""
     if os.path.isdir(ckpt_path):
         raise ValueError(ORBAX_MESSAGE.format(path=ckpt_path))
-    if _is_torch_file(ckpt_path):
+    if is_torch_file(ckpt_path):
         payload = torch.load(ckpt_path, map_location="cpu", weights_only=True)
         return payload.get("model", payload) if isinstance(payload, dict) else payload
     tree = read_flax_msgpack(ckpt_path)

@@ -17,7 +17,8 @@ import torch
 
 from ..ops.projection import project_points
 from .random_init import random_init_
-from .sdf_head import SDFTransformerHead, pack_planes, relu_mlp, sample_packed_sum
+from .sdf_head import (SDFTransformerHead, pack_planes, prepare_queries, relu_mlp,
+                       sample_packed_sum)
 from .vgg import REF_ENCODER_BLOCKS, VGG16BNBackbone
 
 __all__ = ["GTSliceModel", "init_gtslice"]
@@ -47,6 +48,13 @@ class GTSliceModel(SDFTransformerHead):
         x = img_slices.reshape(b * s, h, w, c).permute(0, 3, 1, 2)
         taps = self.img_encoder(x.to(self.dtype or x.dtype).contiguous())
         return [t.permute(0, 2, 3, 1) for t in taps]
+
+    def forward(self, img_slices: torch.Tensor, qry_norot: torch.Tensor,
+                trans_mat_tp: torch.Tensor, obj_rot_mat: Optional[torch.Tensor] = None, *,
+                test_mode: bool = False) -> torch.Tensor:
+        """The training entry: sdf (B, M) fp32."""
+        qry = prepare_queries(qry_norot, obj_rot_mat, test_mode=test_mode)
+        return self.query(self.encode(img_slices), qry, trans_mat_tp)
 
     def encode_folded(self, img_slices: torch.Tensor) -> List[torch.Tensor]:
         """Encode, fold ``fc_local``'s first Linear into the planes and pack

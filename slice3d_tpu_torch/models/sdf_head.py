@@ -14,6 +14,12 @@ pyramid level by its slice of that Linear once per object,
 :func:`pack_planes` puts the 12 slices of a pixel in one row,
 :func:`sample_packed_sum` samples and sums the 128-wide folded levels per
 point, and the rest of the local transform runs after sampling.
+
+Training path: :func:`prepare_queries` turns canonical queries into the
+camera-aligned frame, :func:`sample_slice_pyramids` samples the unfolded
+pyramids, and :meth:`SDFTransformerHead.query` applies the whole local
+transform to the sampled features; nothing is folded, so the gradients
+reach every pyramid level.
 """
 
 from __future__ import annotations
@@ -25,14 +31,26 @@ from torch import nn
 
 from ..ops.grid_sample import grid_sample_2d
 from ..ops.hat_sample import hat_sample_sum
+from ..ops.projection import project_points
 from .layers import Linear, TransformerEncoder
 
 __all__ = ["pack_planes", "sample_packed_sum", "sample_slice_pyramids", "relu_mlp",
-           "SDFTransformerHead"]
+           "prepare_queries", "SDFTransformerHead"]
 
 # levels with h * w at most this many rows sample through the hat matmul,
 # larger ones through four row gathers
 HAT_MAX_ROWS = 1024
+
+
+def prepare_queries(qry_norot: torch.Tensor, obj_rot_mat: Optional[torch.Tensor], *,
+                    test_mode: bool = False) -> torch.Tensor:
+    """Canonical-frame queries (B, M, 3) -> the camera-aligned frame: rotated
+    by the recorded object rotation (B, 3, 3) in training, or with y and z
+    flipped in test mode (the MISE grid queries; reference models.py:53-60)."""
+    if test_mode:
+        return qry_norot * torch.tensor([1.0, -1.0, -1.0], dtype=qry_norot.dtype,
+                                        device=qry_norot.device)
+    return torch.einsum("bmi,bij->bmj", qry_norot, obj_rot_mat.to(qry_norot.dtype))
 
 
 def pack_planes(planes: Sequence[torch.Tensor], n_slices: int) -> List[torch.Tensor]:
@@ -158,6 +176,16 @@ class SDFTransformerHead(nn.Module):
             outs.append(folded)
             offset += c
         return outs
+
+    def query(self, pyramids: Sequence[torch.Tensor], qry: torch.Tensor,
+              trans_mat_tp: torch.Tensor) -> torch.Tensor:
+        """The training path's decode of a model with ``n_slices``: qry
+        (B, M, 3) camera-aligned, projected and sampled from the unfolded
+        pyramids [(B*S, h, w, c_l)] -> sdf (B, M), the whole local transform
+        applied after sampling."""
+        uv = project_points(qry, trans_mat_tp)
+        local = sample_slice_pyramids(pyramids, uv, self.n_slices)
+        return self.from_folded(qry, self.local_first(local))
 
     def from_folded(self, qry: torch.Tensor, sampled_sum: torch.Tensor,
                     route: Optional[str] = None) -> torch.Tensor:

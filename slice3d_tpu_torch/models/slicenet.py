@@ -18,7 +18,7 @@ from torch import nn
 
 from ..ops.projection import project_points
 from .layers import Linear, TransformerEncoderLayer
-from .sdf_head import SDFTransformerHead, pack_planes, sample_packed_sum
+from .sdf_head import SDFTransformerHead, pack_planes, prepare_queries, sample_packed_sum
 from .unet_slices import SliceUNet
 
 __all__ = ["SliceNetModel", "init_slicenet"]
@@ -45,6 +45,14 @@ class SliceNetModel(SDFTransformerHead):
         feats, slices = self.slices_generator(x)
         nhwc = [f.permute(0, 2, 3, 1) for f in feats]
         return nhwc, slices.permute(0, 2, 3, 1)
+
+    def forward(self, img_input: torch.Tensor, qry_norot: torch.Tensor,
+                trans_mat_tp: torch.Tensor, obj_rot_mat: Optional[torch.Tensor] = None, *,
+                test_mode: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The training entry: (sdf (B, M) fp32, slices_rec (B*S, H, W, 3))."""
+        qry = prepare_queries(qry_norot, obj_rot_mat, test_mode=test_mode)
+        pyramids, slices_rec = self.encode(img_input)
+        return self.query(pyramids, qry, trans_mat_tp), slices_rec
 
     def encode_folded(self, img_input: torch.Tensor):
         """Encode, fold ``fc_s`` into the planes, pack the slice axis.

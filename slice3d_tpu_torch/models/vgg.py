@@ -11,19 +11,24 @@ The block names are a constructor argument: SliceNet's slice U-Net calls
 them ``down1 .. down5_``; GTSlice's ``img_encoder`` and the LDM
 conditioner's ``cond_stage_model`` call them ``conv1_2, conv2_2, conv3_3,
 conv4_3, conv5_3, conv_last``.
+
+``VGG19Features`` is the perceptual loss's trunk (the JAX package's
+``slice3d_tpu/models/vgg.py:94-124``): torchvision's ``vgg19().features``
+up to conv5_2, under its ``features.N`` names, returning the five taps as
+the reference executes them (see the class).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
 
 from .layers import BatchNorm2d, Conv2d
 
-__all__ = ["VGG16BNBackbone", "vgg16_bn_features", "imagenet_renorm",
-           "SLICENET_BLOCKS", "REF_ENCODER_BLOCKS"]
+__all__ = ["VGG16BNBackbone", "VGG19Features", "vgg16_bn_features", "imagenet_renorm",
+           "load_vgg19_features", "SLICENET_BLOCKS", "REF_ENCODER_BLOCKS"]
 
 SLICENET_BLOCKS = ("down1", "down2", "down3", "down4", "down5", "down5_")
 REF_ENCODER_BLOCKS = ("conv1_2", "conv2_2", "conv3_3", "conv4_3", "conv5_3", "conv_last")
@@ -79,3 +84,53 @@ class VGG16BNBackbone(nn.Module):
                 x = layer(x, train) if isinstance(layer, BatchNorm2d) else layer(x)
             taps.append(x)
         return (taps[:5], taps[5]) if self.with_final else taps
+
+
+# torchvision's vgg19 (config E) features up to conv5_2 (child 30); the taps
+# are the outputs of children 3, 8, 13 and 22 (the ReLUs after conv1_2,
+# conv2_2, conv3_2 and conv4_2) and of child 30 (conv5_2 itself)
+_VGG19_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
+              512, 512, 512, 512, "M", 512, 512]
+VGG19_TAPS = (3, 8, 13, 22, 30)
+
+
+class VGG19Features(nn.Module):
+    """Plain VGG19 trunk returning the five perceptual taps, NCHW.
+
+    The reference cuts vgg19 at the pre-ReLU conv outputs, but torchvision's
+    ``ReLU(inplace=True)`` overwrites the kept tensors of conv1_2 .. conv4_2
+    with their post-ReLU values before the loss reads them; only conv5_2,
+    which feeds nothing further, stays pre-ReLU.  This module computes that
+    as-executed function with out-of-place ReLUs and stops at conv5_2.
+    Parameters keep fp32 and follow the input's dtype at use."""
+
+    def __init__(self):
+        super().__init__()
+        layers: List[nn.Module] = []
+        cin = 3
+        for v in _VGG19_CFG:
+            if v == "M":
+                layers.append(nn.MaxPool2d(2, 2))
+            else:
+                layers += [Conv2d(cin, v, 3, padding=1), nn.ReLU()]
+                cin = v
+        self.features = nn.Sequential(*layers[:VGG19_TAPS[-1] + 1])
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        taps = []
+        for i, layer in enumerate(self.features):
+            x = layer(x)
+            if i in VGG19_TAPS:
+                taps.append(x)
+        return taps
+
+
+def load_vgg19_features(sd: Mapping[str, torch.Tensor]) -> VGG19Features:
+    """A frozen ``VGG19Features`` from a torchvision vgg19 ``state_dict``
+    (``features.N.*`` keys, the classifier ignored) or from its ``features``
+    alone (``N.*`` keys); the convs past conv5_2 are not read."""
+    model = VGG19Features()
+    own = model.state_dict()
+    prefix = "features." if any(k.startswith("features.") for k in sd) else ""
+    model.load_state_dict({k: sd[prefix + k[len("features."):]] for k in own})
+    return model.requires_grad_(False).eval()

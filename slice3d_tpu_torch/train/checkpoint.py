@@ -14,11 +14,13 @@ from __future__ import annotations
 
 import glob
 import os
+import zipfile
 from typing import Any, Dict, Optional, Union
 
 import torch
 
-__all__ = ["save_checkpoint", "restore_checkpoint", "latest_checkpoint", "TopKCheckpointer"]
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_checkpoint", "is_torch_file",
+           "TopKCheckpointer"]
 
 
 def save_checkpoint(path: str, state: Dict[str, Any]) -> str:
@@ -35,6 +37,15 @@ def restore_checkpoint(path: str, map_location: Union[str, torch.device, None] =
     """Read a file written by :func:`save_checkpoint` (tensors, numbers and
     containers only: ``weights_only``)."""
     return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def is_torch_file(path: str) -> bool:
+    """torch.save's zip format (or its legacy pickle), as opposed to the JAX
+    package's msgpack files."""
+    if zipfile.is_zipfile(path):
+        return True
+    with open(path, "rb") as f:
+        return f.read(2) in (b"\x80\x02", b"\x80\x04")
 
 
 def latest_checkpoint(ckpt_dir: str, pattern: str = "*.ckpt") -> Optional[str]:

@@ -500,3 +500,88 @@ def test_disn_and_camnet_on_the_card(card, no_tf32):
         c_out = cam.cpu()(torch.from_numpy(img[None]))
     for k in out:
         np.testing.assert_allclose(out[k].cpu().numpy(), c_out[k].numpy(), atol=1e-4, rtol=0)
+
+
+def _reg_batch(seed, b=2, size=32, q=16):
+    rng = np.random.default_rng(seed)
+    cams = [camera.camera_matrices(az, el, 1.2) for az, el in
+            rng.uniform((0.0, -0.17), (2 * np.pi, 0.7), (b, 2))]
+    qry = rng.uniform(-0.5, 0.5, (b, q, 3)).astype(np.float32)
+    sdf = (np.linalg.norm(qry, axis=-1) - 0.3).astype(np.float32)
+    return {"img_input": rng.uniform(-1, 1, (b, size, size, 3)).astype(np.float32),
+            "img_slices": rng.uniform(-1, 1, (b, 12, size, size, 3)).astype(np.float32),
+            "qry_norot": qry, "sdf": sdf, "occ": (sdf <= 0).astype(np.float32),
+            "obj_rot_mat": np.stack([c[0] for c in cams]).astype(np.float32),
+            "trans_mat_wo_rot_tp": np.stack([c[1] for c in cams]).astype(np.float32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["slicenet", "gtslice"])
+def test_regression_train_step_on_the_card_matches_cpu(card, no_tf32, name):
+    """One fp32 step (SliceNet with the VGG19 term) on the card and on the CPU
+    from the same weights: logs to relative 1e-4, gradients within 5e-3 of
+    the largest gradient + 1e-2 relative (chip_smoke.py's REG_GRAD_FP32_TOL),
+    BatchNorm statistics at 1e-5; no head kernel launches."""
+    from slice3d_tpu_torch.config import Options
+    from slice3d_tpu_torch.models.random_init import random_init_
+    from slice3d_tpu_torch.models.vgg import VGG19Features
+    from slice3d_tpu_torch.train.train_reg import RegressionTrainer
+
+    vgg = random_init_(VGG19Features(), torch.Generator().manual_seed(1))
+    batch = _reg_batch(2)
+    runs = {}
+    fe.launches = ff.launches = 0
+    for dev in ("cpu", "cuda"):
+        tr = RegressionTrainer(Options(name_model=name, img_size=32, n_qry=16, n_bs=2),
+                               vgg19=vgg if name == "slicenet" else None, device=dev)
+        st, logs = tr.train_step(tr.init_state(seed=3), batch)
+        runs[dev] = ({k: float(v) for k, v in logs.items()},
+                     {n: p.grad.cpu() for n, p in st.model.named_parameters()},
+                     {n: b.cpu() for n, b in st.model.named_buffers()})
+    torch.cuda.synchronize()
+    assert fe.launches == ff.launches == 0
+    (c_logs, c_grads, c_bufs), (g_logs, g_grads, g_bufs) = runs["cpu"], runs["cuda"]
+    for k, v in c_logs.items():
+        assert g_logs[k] == pytest.approx(v, rel=1e-4, abs=1e-7), k
+    big = max(float(g.abs().max()) for g in c_grads.values())
+    for n, g in c_grads.items():
+        torch.testing.assert_close(g_grads[n], g, atol=5e-3 * big, rtol=1e-2, msg=n)
+    for n, b in c_bufs.items():
+        if n.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(g_bufs[n], b, atol=1e-5, rtol=0, msg=n)
+
+
+@pytest.mark.cuda
+def test_regression_train_step_bf16_on_the_card(card):
+    """train_dtype bfloat16: bf16 layers on fp32 master weights, fp32 losses
+    near the fp32 step's."""
+    from slice3d_tpu_torch.config import Options
+    from slice3d_tpu_torch.train.train_reg import RegressionTrainer
+
+    batch = _reg_batch(4)
+    logs = {}
+    for dtype in ("float32", "bfloat16"):
+        tr = RegressionTrainer(Options(img_size=32, n_qry=16, n_bs=2, train_dtype=dtype))
+        st, out = tr.train_step(tr.init_state(seed=5), batch)
+        logs[dtype] = {k: float(v) for k, v in out.items()}
+        assert all(p.dtype == torch.float32 for p in st.model.parameters())
+    assert all(np.isfinite(v) for v in logs["bfloat16"].values())
+    assert logs["bfloat16"]["loss"] == pytest.approx(logs["float32"]["loss"], rel=2e-2)
+
+
+@pytest.mark.cuda
+def test_device_preprocess_on_the_card(card):
+    """The card's composite/resize/normalise: the host path's values bit for
+    bit at the source size, the CPU's resize within 1e-5."""
+    from slice3d_tpu_torch.data.dataset import preprocess_image
+    from slice3d_tpu_torch.data.device_transforms import preprocess_rgba_device
+
+    raw = np.random.default_rng(6).integers(0, 256, (4, 64, 64, 4), dtype=np.uint8)
+    raw[:, :8, :8, 3] = 0
+    for white_bg in (False, True):
+        got = preprocess_rgba_device(torch.from_numpy(raw).to(card), 64, white_bg).cpu().numpy()
+        want = np.stack([preprocess_image(r, 64, white_bg) for r in raw])
+        np.testing.assert_array_equal(got, want)
+    got = preprocess_rgba_device(torch.from_numpy(raw).to(card), 16).cpu()
+    torch.testing.assert_close(got, preprocess_rgba_device(torch.from_numpy(raw), 16),
+                               atol=1e-5, rtol=0)

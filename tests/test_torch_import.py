@@ -49,7 +49,11 @@ def test_import_leaves_jax_out():
             "slice3d_tpu_torch.re_org_slices, slice3d_tpu_torch.reconstruct_slices, "
             "slice3d_tpu_torch.create_dataset_sin_img, slice3d_tpu_torch.diffusion.plms, "
             "slice3d_tpu_torch.diffusion.dpm, slice3d_tpu_torch.diffusion.ancestral, "
-            "slice3d_tpu_torch.train.flax_msgpack, slice3d_tpu_torch.utils.yaml_config; "
+            "slice3d_tpu_torch.train.flax_msgpack, slice3d_tpu_torch.utils.yaml_config, "
+            "slice3d_tpu_torch.train.train_reg, slice3d_tpu_torch.train.train_cam, "
+            "slice3d_tpu_torch.train.__main__, slice3d_tpu_torch.train_gt, "
+            "slice3d_tpu_torch.train_cam, slice3d_tpu_torch.models.perceptual, "
+            "slice3d_tpu_torch.data.device_transforms; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'slice3d_tpu' or m.startswith('slice3d_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -85,7 +89,10 @@ def test_no_jax_or_reference_imports(where):
                 os.path.join("data", "ldm_data.py"), os.path.join("data", "pipeline.py"),
                 os.path.join("data", "builders.py"), os.path.join("diffusion", "plms.py"),
                 os.path.join("diffusion", "dpm.py"),
-                os.path.join("diffusion", "ancestral.py")} <= rel
+                os.path.join("diffusion", "ancestral.py"), os.path.join("train", "train_reg.py"),
+                os.path.join("train", "train_cam.py"), os.path.join("train", "__main__.py"),
+                "train_gt.py", "train_cam.py", os.path.join("models", "perceptual.py"),
+                os.path.join("data", "device_transforms.py")} <= rel
     else:
         files = [os.path.join(ROOT, "chip_smoke.py")]
     assert files

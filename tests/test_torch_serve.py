@@ -304,8 +304,7 @@ def test_options_match_jax():
         os.path.join("d", "shapenet"), os.path.join("experiments", "default_exp"), ["a", "b"])
 
 
-@pytest.mark.parametrize("name,value", [
-    ("mc_shard_axis", "points"), ("multi_gpu", True), ("device_preprocess", True)])
+@pytest.mark.parametrize("name,value", [("mc_shard_axis", "points"), ("multi_gpu", True)])
 def test_unported_options_raise(name, value):
     opts = config.Options(**dict(SMALL, **{name: value}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -316,7 +315,7 @@ def test_unported_options_raise(name, value):
 
 @pytest.mark.parametrize("name,value", [
     ("name_model", "disn"), ("est_campose", True), ("mc_refine_steps", 3),
-    ("simplify_nfaces", 5000), ("mc_extract", "tetrahedra")])
+    ("simplify_nfaces", 5000), ("mc_extract", "tetrahedra"), ("device_preprocess", True)])
 def test_ported_options_are_accepted(name, value):
     """The options this port once refused reach the service's Reconstructor."""
     opts = config.Options(**dict(SMALL, **{name: value}))
