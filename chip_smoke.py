@@ -59,7 +59,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      removes) with an analytic sphere as ground truth: ``reconstruct
      --est_campose`` on SliceNet (CameraNet, seeded weights; the fused
      route, launches counted), simplification to 10,000 faces at res0 32 /
-     up 1, the polish of one object at the serving point (30 steps at one
+     up 1, the polish of one object at res0 32 / up 1 (30 steps at one
      draw table; its loss must fall) with a patch of that mesh polished in
      fp32 on the card and on the CPU as its witness, DISN with
      ``--est_campose`` at batch 1 and at ``mc_batch_size`` 2 (answers within
@@ -95,7 +95,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      slice3d_tpu_torch.train`` for one epoch and again with ``--resume``, with
      ``--device_preprocess``, ``train_gt`` and ``train_cam``, and the
      reconstruct CLI on one object from the SliceNet checkpoint trained there,
-     one fused_encoder_layer launch for each encoder layer its head runs.
+     one fused_encoder_layer launch for each encoder layer its head runs;
+ 14. the generation route's training CLIs on a synthetic dataset of 16
+     objects x 12 views of 128 px written into ``_smoke/`` (and removed):
+     ``python -m slice3d_tpu_torch.main -t`` with configs/objaverse-ldm-kl-8.yaml
+     for 6 steps (checkpoints and validation every 3, images with DDIM-20 at
+     6) and resumed to step 8, with the attention launches the flags imply
+     (exactly), ms per step, peak memory and the checkpoints, images and
+     steps each run must leave; with configs/autoencoder_kl_f8_finetune.yaml
+     and drawn LPIPS weights for 6 steps, the GAN from step 3 on (finite
+     logs, the adaptive weight in [0, 1e4], D unmoved before and moved after,
+     its statistics moving from step 1, LPIPS frozen, the top-k file on
+     val/rec_loss); one tiny fp32 finetune step card vs CPU with TF32 off
+     (must agree) and on (must not); ``--mode rec`` of
+     configs/autoencoder_kl_f8_infer.yaml from the finetuned run.
 The last three lines are the paths' JSON record, the kernels' JSON record
 and the run's status JSON.
 """
@@ -187,7 +200,7 @@ OPT_OBJECTS = 3
 # meshes have ~970,000 faces, on which the JAX package's quadric simplifier
 # (copied bit for bit) did not end in 13 minutes
 OPT_SIMPLIFY, OPT_SIMPLIFY_POINT = 10000, (32, 1)
-# the polish at the serving point, one object, at the reference's 30 steps,
+# the polish of one object, at the reference's 30 steps,
 # every step at one Dirichlet draw table so that the step losses compare:
 # RMSprop's first step (second moment from 0) moves a coordinate by up to
 # lr / sqrt(0.1) and raises this loss, the later steps bring it down
@@ -195,6 +208,12 @@ OPT_SIMPLIFY, OPT_SIMPLIFY_POINT = 10000, (32, 1)
 # +3.4% after the first step, then -0.2% a step; at step 9 still 1.8% above
 # the start, below it from step 19, -2.0% at step 29)
 OPT_REFINE_STEPS, OPT_DRAW_SEED = 30, 5
+# the polish runs on the mesh of res0 32 / up 1 (~1/20 of the serving
+# point's faces), which keeps the script within its time; the readings above
+# are of the serving point's 966,844-face mesh (on the res0 32 / up 1 mesh of
+# 43,176 faces: +1.8% after the first step, below the start from step 4,
+# -3.8% at step 29)
+OPT_POLISH_POINT = (32, 1)
 # the witness: a patch of the nearest faces of that mesh, polished in fp32 on
 # the card and on the CPU (the CPU tests hold the CPU's polish against the
 # JAX package's); the tolerance as in tests/test_torch_cuda.py's polish case
@@ -245,6 +264,20 @@ REG_CLI_SHAPES = 16  # one batch of 16 an epoch
 REG_LOSS_RTOL = 5e-6
 REG_GRAD_FP32_TOL = dict(atol=1e-3, rtol=1e-3)
 REG_TIE_FRAC = 1e-4
+# the generation route's training CLIs (phase 14) on a synthetic dataset of
+# GENTRAIN_SHAPES objects x 12 views of 128 px: the LDM at
+# configs/objaverse-ldm-kl-8.yaml as it is (batch 8; validation one batch of 8),
+# 6 steps with every 3rd checkpointed and validated (with and without the EMA)
+# and images at step 6 (DDIM-20), then resumed to step 8; the VAE finetune at
+# configs/autoencoder_kl_f8_finetune.yaml as it is (2 stacks of 13 images a
+# step; validation one batch) with the GAN from step GENTRAIN_DISC_START on;
+# --mode rec of configs/autoencoder_kl_f8_infer.yaml over 2 trainval objects
+GENTRAIN_SHAPES, GENTRAIN_VAL, GENTRAIN_REC = 16, 8, 2
+GENTRAIN_LDM = dict(max_steps=6, ckpt_every=3, val_every=3, log_images_every=6, ddim_steps=20)
+GENTRAIN_RESUME_STEPS = 8
+GENTRAIN_VAE_STEPS, GENTRAIN_DISC_START = 6, 3
+# one tiny fp32 VAE finetune step (img 32, 4 images, GAN on, LPIPS) card vs
+# CPU: logs and gradients as the regression trainers' step above (REG_*)
 # LDM training at configs/objaverse-ldm-kl-8.yaml's widths: batch 8 of 128 px,
 # 2 warm-up steps, then the timed ones
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 10
@@ -1418,17 +1451,19 @@ def run_cli(tag: str, main, argv):
     return ret, objects, dt
 
 
-def check_objects(tag: str, objects, n: int) -> None:
+def check_objects(tag: str, objects, n: int, res0: int = SERVE_POINT["mc_res0"]) -> None:
+    """``n`` objects with meshes, each evaluated at more points than its
+    coarse lattice of ``res0``: the refinement levels ran."""
     check(len(objects) == n, f"{tag}: {len(objects)} objects reported, expected {n}")
     for o in objects:
         check(o["faces"] > 0, f"{tag}: object {o['id']} has an empty mesh")
-        check(o["n_points_evaluated"] > (SERVE_POINT["mc_res0"] + 1) ** 3,
+        check(o["n_points_evaluated"] > (res0 + 1) ** 3,
               f"{tag}: the refinement levels did not run")
 
 
 def phase_polish(argv, threshold: float):
     """``reconstruct --mc_refine_steps`` on the val split's one object at
-    the serving point, every step at one draw table (seeded by
+    res0 32 / up 1 (``OPT_POLISH_POINT``), every step at one draw table (seeded by
     ``OPT_DRAW_SEED``), so that the step losses are those of one function;
     the loss must fall.  Then the witness: a patch of the
     ``WITNESS_FACES`` faces nearest the mesh's middle face, polished in fp32
@@ -1453,16 +1488,19 @@ def phase_polish(argv, threshold: float):
         reset_counts()
         _, objs, pol_s = run_cli("opts polish", reconstruct.main,
                                  argv("slicenet", "polish", "--mc_refine_steps",
-                                      str(OPT_REFINE_STEPS)) + ["--mode", "val"])
+                                      str(OPT_REFINE_STEPS), "--mc_res0",
+                                      str(OPT_POLISH_POINT[0]), "--mc_up_steps",
+                                      str(OPT_POLISH_POINT[1])) + ["--mode", "val"])
         counts = read_counts()
     finally:
         pipeline.refine_mesh = refine_mesh
-    check_objects("polish", objs, 1)
+    check_objects("polish", objs, 1, OPT_POLISH_POINT[0])
     check(len(seen) == 1, f"the polish ran {len(seen)} times for one object")
     (verts, faces, table, losses), o = seen[0], objs[0]
     chunk = SERVE_POINT["mc_chunk_size"]
     below = [k for k, x in enumerate(losses) if x < losses[0]]
-    print(f"[opts] polish {o['id']} at the serving point: {len(faces)} faces, "
+    print(f"[opts] polish {o['id']} at res0 {OPT_POLISH_POINT[0]} / up {OPT_POLISH_POINT[1]}: "
+          f"{len(faces)} faces, "
           f"{OPT_REFINE_STEPS} steps in {o['time_refine']:.4f} s "
           f"({o['time_refine'] / OPT_REFINE_STEPS:.4f} s a step, "
           f"{-(-len(faces) // chunk)} chunks of {chunk} faces); launches {counts}")
@@ -1484,8 +1522,8 @@ def phase_polish(argv, threshold: float):
     torch.backends.cudnn.allow_tf32 = False  # the encoder's convolutions in fp32
     for dev in ("cuda", "cpu"):
         model = init_slicenet(0, dtype=torch.float32, route="plain")
-        rec = Reconstructor(model, resolution0=SERVE_POINT["mc_res0"],
-                            upsampling_steps=SERVE_POINT["mc_up_steps"],
+        rec = Reconstructor(model, resolution0=OPT_POLISH_POINT[0],
+                            upsampling_steps=OPT_POLISH_POINT[1],
                             chunk_size=chunk, threshold=threshold, device=dev)
         imgs, extras = rec._stack_inputs([feed])
         with torch.no_grad():
@@ -1583,7 +1621,7 @@ def phase_regression_options():
         check(0 < o["faces"] <= 1.2 * OPT_SIMPLIFY, f"{o['id']}: simplified to {o['faces']} "
               f"faces, asked for {OPT_SIMPLIFY}")
 
-    # 3. the polish of one object at the serving point, and its witness
+    # 3. the polish of one object at OPT_POLISH_POINT, and its witness
     polish, pol_counts = phase_polish(argv, thr["slicenet"])
     counts = {k: v + counts[k] for k, v in pol_counts.items()}
 
@@ -2231,6 +2269,305 @@ def phase_regression_clis():
             "checkpoints": ckpts}, counts
 
 
+def ldm_cli_launches(first: int, last: int, val_batches: int, ckpt_every: int = 0,
+                     val_every: int = 0, log_images_every: int = 0, ddim_steps: int = 0,
+                     max_steps: int = 0):
+    """(forward, backward) attention launches of ``main -t`` from step
+    ``first`` to ``last`` as its flags imply, 10 a UNet call: one call a
+    step (and its backward), two a validation batch (with and without the
+    EMA), ``ddim_steps`` at each image log."""
+    steps = range(first + 1, last + 1)
+    vals = sum(1 for s in steps if val_every > 0 and s % val_every == 0)
+    logs = sum(1 for s in steps if log_images_every > 0 and s % log_images_every == 0)
+    return 10 * (len(steps) + 2 * val_batches * vals + ddim_steps * logs), 10 * len(steps)
+
+
+def run_train_main(tag: str, argv, trainer_cls, on_step=None):
+    """``python -m slice3d_tpu_torch.main -t`` in this process with its output
+    echoed under ``tag``, ``trainer_cls.train_step`` timed (closed by a
+    synchronise) and ``on_step(trainer, state)`` called before the first and
+    after every step; returns (logdir, [{step, ms, logs}], seconds, launch
+    counts, peak GB)."""
+    from slice3d_tpu_torch import main as gen_main
+
+    steps = []
+    real = trainer_cls.train_step
+
+    def timed(self, state, *args, **kwargs):
+        if on_step is not None and not steps:
+            on_step(self, state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, logs = real(self, state, *args, **kwargs)
+        torch.cuda.synchronize()
+        steps.append({"step": state.step, "ms": (time.perf_counter() - t0) * 1e3,
+                      "logs": {k: float(v) for k, v in logs.items()}})
+        if on_step is not None:
+            on_step(self, state)
+        return state, logs
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    trainer_cls.train_step = timed
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(_Tee(tag, sys.stdout)):
+            logdir = gen_main.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        trainer_cls.train_step = real
+    dt = time.perf_counter() - t0
+    counts, peak = read_counts(), torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{tag}] {dt:.4f} s in all, {len(steps)} steps, peak memory {peak:.4f} GB; "
+          f"launches {counts}")
+    return logdir, steps, dt, counts, peak
+
+
+def _ms_stats(steps) -> dict:
+    times = [s["ms"] for s in steps]
+    return {"p50": percentile(times, 0.5), "min": min(times), "max": max(times),
+            "steps": [s["step"] for s in steps]}
+
+
+def _ckpt_names(logdir: str):
+    return sorted(os.listdir(os.path.join(logdir, "checkpoints")))
+
+
+def _phase_ldm_train_cli(data: str, power: str):
+    """(a): ``main -t`` on configs/objaverse-ldm-kl-8.yaml, then resumed."""
+    from slice3d_tpu_torch.train.checkpoint import restore_checkpoint
+    from slice3d_tpu_torch.train.train_ldm import LDMTrainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    common = ["-b", os.path.join(here, "configs", "objaverse-ldm-kl-8.yaml"), "-t",
+              "--data_root", data, "-s", "3"]
+    flags = [f"--{k}={v}" for k, v in GENTRAIN_LDM.items()]
+    runs, counts_all = {}, {}
+    logdir = None
+    for name, argv, first, last in (
+            ("train", common + ["-l", os.path.join(SMOKE_DIR, "logs")] + flags, 0,
+             GENTRAIN_LDM["max_steps"]),
+            ("resume", None, GENTRAIN_LDM["max_steps"], GENTRAIN_RESUME_STEPS)):
+        if argv is None:
+            argv = common + ["-r", logdir, f"--max_steps={last}"] + flags[1:]
+        ret, steps, dt, counts, peak = run_train_main(f"gentrain ldm {name}", argv, LDMTrainer)
+        logdir = logdir or ret
+        check(ret == logdir, f"ldm {name}: wrote to {ret}, not {logdir}")
+        fwd, bwd = ldm_cli_launches(first, last, 1, **GENTRAIN_LDM)
+        check(counts["spatial_attention"] == fwd and counts["spatial_attention_bwd"] == bwd,
+              f"ldm {name}: attention launched {counts['spatial_attention']} / "
+              f"{counts['spatial_attention_bwd']} times (forward / backward), the flags imply "
+              f"{fwd} / {bwd}")
+        check([s["step"] for s in steps] == list(range(first + 1, last + 1)),
+              f"ldm {name}: steps {[s['step'] for s in steps]}")
+        check(all(np.isfinite(v) for s in steps for v in s["logs"].values()),
+              f"ldm {name}: a loss is not finite")
+        payload = restore_checkpoint(os.path.join(logdir, "checkpoints", "last.ckpt"))
+        check(payload["step"] == last, f"ldm {name}: last.ckpt at step {payload['step']}")
+        del payload
+        warm = steps[1:] if name == "train" else steps
+        ms = _ms_stats(warm)
+        print(f"[gentrain] ldm {name}: steps {first + 1}-{last}, ms per step over steps "
+              f"{ms['steps']}: p50 {ms['p50']:.4f}, min {ms['min']:.4f}, max {ms['max']:.4f}; "
+              f"peak memory {peak:.4f} GB; the CLI {dt:.4f} s; attention launches {fwd} "
+              f"forward, {bwd} backward (exact); {power}")
+        runs[name] = {"ms_per_step": ms, "step_ms": [s["ms"] for s in steps], "peak_gb": peak,
+                      "cli_s": dt, "launches": counts,
+                      "losses": [s["logs"] for s in steps]}
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+    names = _ckpt_names(logdir)
+    topk = [n for n in names if n.startswith("step=")]
+    check(sorted(n.split("-")[0] for n in topk) == ["step=000003", "step=000006"]
+          and all("-val_loss_simple_ema=" in n for n in topk), f"ldm checkpoints {names}")
+    images = sorted(os.listdir(os.path.join(logdir, "images", "train")))
+    check(images == [f"{n}_gs-000006.png" for n in ("inputs", "reconstruction", "samples")],
+          f"ldm images {images}")
+    print(f"[gentrain] ldm checkpoints {names}; images {images}")
+    return {"runs": runs, "checkpoints": names, "images": images, "logdir": logdir}, counts_all
+
+
+def _phase_vae_train_cli(data: str, power: str):
+    """(b): ``main -t`` on configs/autoencoder_kl_f8_finetune.yaml with drawn
+    LPIPS weights and the GAN from GENTRAIN_DISC_START on."""
+    from slice3d_tpu_torch.models.lpips import LPIPS
+    from slice3d_tpu_torch.models.random_init import random_init_
+    from slice3d_tpu_torch.train.train_vae import VAEFinetuneTrainer
+
+    lpips_path = os.path.join(SMOKE_DIR, "lpips.pth")
+    lp = random_init_(LPIPS(), torch.Generator().manual_seed(4))
+    sd = lp.state_dict()
+    for k in range(5):
+        sd[f"lin{k}.model.1.weight"].abs_()
+    torch.save(sd, lpips_path)
+    seen = {"disc": [], "stats": [], "lpips": []}
+
+    def on_step(trainer, state):
+        seen["disc"].append({n: p.detach().clone() for n, p in state.disc.named_parameters()})
+        seen["stats"].append({n: b.clone() for n, b in state.disc.named_buffers()
+                              if "running" in n})
+        seen["lpips"].append({n: t.clone() for n, t in trainer.lpips.state_dict().items()})
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    n = GENTRAIN_VAE_STEPS
+    argv = ["-b", os.path.join(here, "configs", "autoencoder_kl_f8_finetune.yaml"), "-t",
+            "--data_root", data, "-s", "3", "-l", os.path.join(SMOKE_DIR, "logs"),
+            f"--max_steps={n}", f"--val_every={n}", f"--log_images_every={n}",
+            f"--ckpt_every={n}", f"model.params.lossconfig.params.disc_start={GENTRAIN_DISC_START}",
+            f"model.params.lossconfig.params.lpips_ckpt={lpips_path}"]
+    logdir, steps, dt, counts, peak = run_train_main("gentrain vae", argv, VAEFinetuneTrainer,
+                                                     on_step)
+    check([s["step"] for s in steps] == list(range(1, n + 1)), f"vae steps {steps}")
+    check(all(np.isfinite(v) for s in steps for v in s["logs"].values()),
+          "vae: a log is not finite")
+    check(all(0 <= s["logs"]["d_weight"] <= 1e4 for s in steps), "vae: d_weight off [0, 1e4]")
+    d0 = seen["disc"][0]
+    off, on = range(1, GENTRAIN_DISC_START + 1), range(GENTRAIN_DISC_START + 1, n + 1)
+    check(all(torch.equal(seen["disc"][k][m], v) for k in off for m, v in d0.items()),
+          "vae: D's parameters moved before disc_start")
+    check(all(any(not torch.equal(seen["disc"][k][m], v) for m, v in d0.items()) for k in on),
+          "vae: D's parameters did not move after disc_start")
+    check(all(not torch.equal(seen["stats"][1][m], v) for m, v in seen["stats"][0].items()),
+          "vae: D's running statistics did not move at step 1")
+    check(all(torch.equal(seen["lpips"][-1][m], v) for m, v in seen["lpips"][0].items()),
+          "vae: the LPIPS weights changed")
+    check(all(s["logs"]["disc_loss"] == 0 for s in steps[:GENTRAIN_DISC_START])
+          and all(s["logs"]["disc_loss"] > 0 for s in steps[GENTRAIN_DISC_START:]),
+          f"vae: disc_loss {[s['logs']['disc_loss'] for s in steps]}")
+    names = _ckpt_names(logdir)
+    check("last.ckpt" in names and any(m.startswith(f"step={n:06d}-val_rec_loss=")
+                                       for m in names), f"vae checkpoints {names}")
+    check(counts["spatial_attention"] == 0 and counts["spatial_attention_bwd"] == 0
+          and counts["fused_encoder_layer"] == 0, f"vae launched a kernel: {counts}")
+    ms_off = _ms_stats(steps[1:GENTRAIN_DISC_START])
+    ms_on = _ms_stats(steps[GENTRAIN_DISC_START:])
+    print(f"[gentrain] vae finetune: 2 stacks of 13 images of 128 px a step; ms per step GAN "
+          f"off (steps {ms_off['steps']}) p50 {ms_off['p50']:.4f}, min {ms_off['min']:.4f}, "
+          f"max {ms_off['max']:.4f}; GAN on (steps {ms_on['steps']}) p50 {ms_on['p50']:.4f}, "
+          f"min {ms_on['min']:.4f}, max {ms_on['max']:.4f}; peak memory {peak:.4f} GB; the "
+          f"CLI {dt:.4f} s; d_weight {[round(s['logs']['d_weight'], 4) for s in steps]}; "
+          f"checkpoints {names}; {power}")
+    return {"ms_gan_off": ms_off, "ms_gan_on": ms_on, "step_ms": [s["ms"] for s in steps],
+            "peak_gb": peak, "cli_s": dt, "logs": [s["logs"] for s in steps],
+            "checkpoints": names, "logdir": logdir}, counts
+
+
+def _vae_step_tiny(dev: str, lpips_sd, batch, noise):
+    """One tiny fp32 VAE finetune step (GAN on) on ``dev`` from seed 2:
+    (logs, VAE gradients, D gradients), on the CPU."""
+    from slice3d_tpu_torch.train.train_vae import VAEFinetuneTrainer
+
+    tr = VAEFinetuneTrainer(img_size=32, vae_ch=32, vae_mult=(1, 2), vae_nres=1, lr=1e-4,
+                            disc_start=0, lpips_params=lpips_sd, device=dev)
+    st, logs = tr.train_step(tr.init_state(2), batch, draws={"posterior_noise": noise})
+    grads = [{n: p.grad.detach().cpu().clone() for n, p in net.named_parameters()}
+             for net in (st.vae, st.disc)]
+    return {k: float(v) for k, v in logs.items()}, grads
+
+
+def _vae_card_vs_cpu():
+    """(c): the tiny fp32 step on the CPU and on the card with TF32 off (must
+    agree) and on (printed beside it; must not agree)."""
+    from slice3d_tpu_torch.models.lpips import LPIPS
+    from slice3d_tpu_torch.models.random_init import random_init_
+
+    rng = np.random.default_rng(31)
+    batch = {"image": rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)}
+    noise = torch.from_numpy(rng.normal(size=(4, 16, 16, 4)).astype(np.float32))
+    lpips_sd = random_init_(LPIPS(), torch.Generator().manual_seed(5)).state_dict()
+    c_logs, cpu = _vae_step_tiny("cpu", lpips_sd, batch, noise)
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    readings = {"cpu": c_logs}
+    try:
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+            g_logs, gpu = _vae_step_tiny("cuda", lpips_sd, batch, noise)
+            r = {net: regression_grad_readings(g, c, REG_GRAD_FP32_TOL)
+                 for net, g, c in zip(("vae", "disc"), gpu, cpu)}
+            r["log_rel_err"] = max(abs(g_logs[k] - c_logs[k]) / max(abs(c_logs[k]), 1e-30)
+                                   for k in c_logs)
+            r["card"] = g_logs
+            ok = (r["vae"]["violations"] + r["disc"]["violations"] == 0
+                  and r["log_rel_err"] <= REG_LOSS_RTOL)
+            mode = "TF32 on" if tf32 else "fp32"
+            print(f"[check] vae finetune step, tiny, card ({mode}) vs CPU fp32: logs "
+                  f"{r['log_rel_err']:.6g} apart, relative (tolerance {REG_LOSS_RTOL}); "
+                  + "; ".join(f"{net} gradients max_abs_err {r[net]['max_err_G']:.6g} G, "
+                              f"{r[net]['err_G_without_ties']:.6g} G without near-ties, "
+                              f"largest tensor L2 error / its norm {r[net]['max_rel_l2']:.6g}, "
+                              f"violations {r[net]['violations']}" for net in ("vae", "disc"))
+                  + f"; tolerance |card-cpu| <= {REG_GRAD_FP32_TOL['atol']}*G + "
+                  f"{REG_GRAD_FP32_TOL['rtol']}*|cpu|: {'agree' if ok else 'disagree'}")
+            check(ok != tf32, f"vae finetune step, card ({mode}) vs CPU: "
+                  + ("the check did not see TF32" if tf32 else "disagree"))
+            readings["tf32" if tf32 else "fp32"] = r
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
+    return readings
+
+
+def phase_generation_training_cli(power: str):
+    """Phase 14: the generation route's training CLIs on the card on a
+    synthetic dataset written into ``_smoke/`` (and removed): (a) LDM ``-t``
+    and its resume, (b) the VAE finetune, (c) a tiny fp32 VAE step card vs
+    CPU, (d) ``--mode rec`` on the autoencoder infer config from (b)'s run."""
+    from slice3d_tpu_torch import main as gen_main
+    from slice3d_tpu_torch.data.builders import create_synthetic_dataset
+    from slice3d_tpu_torch.data.image import load_image
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    data = os.path.join(SMOKE_DIR, "data", "objaverse")
+    create_synthetic_dataset(data, n_shapes=GENTRAIN_SHAPES, n_views=12, img_size=128,
+                             n_sdf=64, seed=4)
+    ids = ["%05d" % i for i in range(GENTRAIN_SHAPES)]
+
+    def split(name, n):
+        with open(os.path.join(data, "03_splits", f"{name}.lst"), "w") as f:
+            f.write("\n".join(ids[:n]))
+
+    split("train", GENTRAIN_SHAPES)
+    split("val", GENTRAIN_VAL)
+    split("trainval", GENTRAIN_REC)
+    print(f"[gentrain] dataset of {GENTRAIN_SHAPES} objects x 12 views of 128 px in "
+          f"{time.perf_counter() - t_phase:.4f} s")
+    ldm, counts = _phase_ldm_train_cli(data, power)
+    shutil.rmtree(ldm["logdir"], ignore_errors=True)  # ~5 GB a checkpoint
+    split("val", 2)  # one batch of the finetune config's 2
+    vae, vae_counts = _phase_vae_train_cli(data, power)
+    for k, v in vae_counts.items():
+        counts[k] += v
+    card_vs_cpu = _vae_card_vs_cpu()
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    reset_counts()
+    with contextlib.redirect_stdout(_Tee("gentrain rec", sys.stdout)):
+        out = gen_main.main(["-b", os.path.join(here, "configs", "autoencoder_kl_f8_infer.yaml"),
+                             "-r", vae["logdir"], "--mode", "rec", "--data_root", data])
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    for k, v in read_counts().items():
+        counts[k] += v
+    rec = sorted(os.listdir(os.path.join(out, "images_reconstructed")))
+    check(out == vae["logdir"] and len(rec) == 12 * GENTRAIN_REC,
+          f"vae --mode rec wrote {len(rec)} montages to {out}")
+    mont = [load_image(os.path.join(out, "images_reconstructed", r)) for r in rec]
+    check(all(m.shape == (512, 512, 3) and m[:384].std() > 0 for m in mont),
+          "vae --mode rec: a montage of the wrong shape or constant")
+    print(f"[gentrain] vae --mode rec: {len(rec)} montages in {rec_s:.4f} s")
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[gentrain] phase 14 in {phase_s:.4f} s")
+    for r in (ldm, vae):
+        r.pop("logdir")
+    return {"ldm": ldm, "vae": vae, "vae_card_vs_cpu": card_vs_cpu, "rec_s": rec_s,
+            "rec_montages": len(rec), "phase_s": phase_s}, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2280,6 +2617,7 @@ def main() -> int:
     regtrain["cli"] = regcli
     regtrain["phase_s"] = time.perf_counter() - t_phase
     print(f"[regtrain] phase 13 in {regtrain['phase_s']:.4f} s")
+    gentrain, gentrain_counts = phase_generation_training_cli(power)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"regression": main_counts, "generation": gen["counts"],
@@ -2288,7 +2626,7 @@ def main() -> int:
                "regression_training": {k: sum(r["counts"][k] for r in regtrain.values()
                                               if isinstance(r, dict) and "counts" in r)
                                        for k in regcli_counts},
-               "regression_cli": regcli_counts}
+               "regression_cli": regcli_counts, "generation_training_cli": gentrain_counts}
     full = modes[0]
     encoder = {"name": "fused_encoder_layer", "route": "cuda",
                "source": "slice3d_tpu_torch/csrc/fused_encoder.cu",
@@ -2340,7 +2678,8 @@ def main() -> int:
     print(json.dumps({"generation": {k: v for k, v in gen.items() if k != "counts"},
                       "training": {k: v for k, v in train.items() if k != "counts"},
                       "serving": serving, "split": split, "options": options,
-                      "generation_cli": gencli, "regression_training": regtrain}))
+                      "generation_cli": gencli, "regression_training": regtrain,
+                      "generation_training_cli": gentrain}))
     print(json.dumps({"kernels": [encoder, attention, attention_bwd, ffn]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

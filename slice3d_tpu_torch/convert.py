@@ -5,8 +5,9 @@ The inverse of the JAX package's checkpoint importer
 ``init_variables``, the trainers or the torch importer produce it
 (``{"params": ..., "batch_stats": ...}`` with numpy or array leaves) becomes
 a ``state_dict`` under the reference torch names, which the port's models
-take as it is.  Covered: SliceNet, GTSlice, DISN, CameraNet and the
-latent-diffusion model (kl-f8 VAE, ADM UNet, VGG16-BN conditioner).
+take as it is.  Covered: SliceNet, GTSlice, DISN, CameraNet, the
+latent-diffusion model (kl-f8 VAE, ADM UNet, VGG16-BN conditioner), and the
+VAE finetune's PatchGAN discriminator and LPIPS.
 
 Layout rules: conv HWIO -> OIHW; Dense (in, out) -> (out, in); a Dense that
 the reference holds as a 1x1 Conv1d -> (out, in, 1); ConvTranspose
@@ -28,7 +29,8 @@ import torch
 __all__ = ["slicenet_state_dict", "gtslice_state_dict", "disn_state_dict",
            "camnet_state_dict", "vae_state_dict",
            "ldm_unet_state_dict", "cond_encoder_state_dict",
-           "latent_diffusion_state_dict", "ldm_train_payload", "train_reg_payload"]
+           "latent_diffusion_state_dict", "ldm_train_payload", "train_reg_payload",
+           "discriminator_state_dict", "lpips_state_dict", "vae_train_payload"]
 
 # (conv index, conv block, conv child, bn block, bn child) of the reference's
 # sliced VGG16-BN: blocks are features[:4] [4:11] [11:21] [21:31] [31:41]
@@ -327,6 +329,16 @@ def ldm_train_payload(params: Mapping, batch_stats: Mapping, ema_params: Mapping
 _STATS = ("running_mean", "running_var", "num_batches_tracked")
 
 
+def _adam_by_name(opt_state: Mapping, to_sd) -> Dict:
+    """optax.adam's serialised state (``{"0": {count, mu, nu}, ...}``, the
+    chain's ScaleByAdamState first) -> the port's Adam payload: ``count`` and
+    the moments by parameter name, mapped through ``to_sd`` as the
+    parameters are."""
+    adam = opt_state["0"]
+    return {"count": int(np.asarray(adam["count"])), "exp_avg": to_sd(adam["mu"]),
+            "exp_avg_sq": to_sd(adam["nu"])}
+
+
 def train_reg_payload(tree: Mapping, name_model: str) -> Dict:
     """A JAX ``train_reg`` checkpoint (``RegressionTrainer.save``'s tree:
     ``variables``, optax.adam's ``opt_state``, ``n_epoch``, ``n_iter``) ->
@@ -336,13 +348,59 @@ def train_reg_payload(tree: Mapping, name_model: str) -> Dict:
     ``exp_avg_sq``; its ``count`` the step), and the epoch and step."""
     to_sd = slicenet_state_dict if name_model == "slicenet" else gtslice_state_dict
     variables = tree["variables"]
-    adam = tree["opt_state"]["0"]  # (ScaleByAdamState, ScaleByScheduleState)
 
     def moments(m):
         sd = to_sd({"params": m, "batch_stats": variables["batch_stats"]})
         return {k: v for k, v in sd.items() if not k.endswith(_STATS)}
 
-    return {"model": to_sd(variables),
-            "adam": {"count": int(np.asarray(adam["count"])), "exp_avg": moments(adam["mu"]),
-                     "exp_avg_sq": moments(adam["nu"])},
+    return {"model": to_sd(variables), "adam": _adam_by_name(tree["opt_state"], moments),
             "n_epoch": int(np.asarray(tree["n_epoch"])), "n_iter": int(np.asarray(tree["n_iter"]))}
+
+
+def discriminator_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """``NLayerDiscriminator`` flax params (``conv0``, ``conv{i}`` and ``bn{i}``
+    for i = 1..n, ``conv_out``) and ``batch_stats`` -> taming's
+    ``main.{index}`` names (``loss.discriminator.main.*`` in a reference
+    autoencoder checkpoint); without ``batch_stats`` no running statistics."""
+    n = sum(1 for k in params if k.startswith("bn"))
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "main.0", params["conv0"])
+    for i in range(1, n + 1):
+        _conv(sd, f"main.{3 * i - 1}", params[f"conv{i}"])
+        _bn(sd, f"main.{3 * i}", params[f"bn{i}"],
+            None if batch_stats is None else batch_stats[f"bn{i}"])
+    _conv(sd, f"main.{3 * n + 2}", params["conv_out"])
+    return sd
+
+
+# the 13 VGG16 convs' torchvision feature indices and the taming LPIPS slice
+# each sits in (``net.slice{k}`` keeps the absolute indices)
+_VGG16_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+_LPIPS_SLICE_OF_CONV = (1, 1, 2, 2, 3, 3, 3, 4, 4, 4, 5, 5, 5)
+
+
+def lpips_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``LPIPS`` params (``net.conv0..12``, ``lin0..4``) -> taming's names
+    (``net.slice{k}.{i}``, ``lin{k}.model.1``), the inverse of
+    ``torch_import.lpips_model``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, (fi, k) in enumerate(zip(_VGG16_CONV_IDX, _LPIPS_SLICE_OF_CONV)):
+        _conv(sd, f"net.slice{k}.{fi}", params["net"][f"conv{i}"])
+    for k in range(5):
+        _conv(sd, f"lin{k}.model.1", params[f"lin{k}"])
+    return sd
+
+
+def vae_train_payload(tree: Mapping) -> Dict:
+    """A JAX VAE finetune checkpoint (``VAEFinetuneTrainer.state_payload``:
+    ``params``, ``disc_params``, ``disc_stats``, two optax.adam states,
+    ``step``) -> the port's ``VAEFinetuneTrainer`` payload: the VAE's and
+    the discriminator's state_dicts (statistics included), each optimizer's
+    moments by parameter name (``exp_avg`` / ``exp_avg_sq``) with its
+    ``count``, and the step."""
+    return {"vae": vae_state_dict(tree["params"]),
+            "disc": discriminator_state_dict(tree["disc_params"], tree["disc_stats"]),
+            "adam": _adam_by_name(tree["opt_state"], vae_state_dict),
+            "disc_adam": _adam_by_name(tree["disc_opt_state"], discriminator_state_dict),
+            "step": int(np.asarray(tree["step"]))}

@@ -193,6 +193,11 @@ class DiagonalGaussian:
                                 dtype=self.mean.dtype, device=self.mean.device)
         return self.mean + self.std * noise.to(self.mean)
 
+    def kl(self) -> torch.Tensor:
+        """KL to the standard normal, summed over (h, w, z): (N,)."""
+        return 0.5 * torch.sum(self.mean ** 2 + torch.exp(self.logvar) - 1.0 - self.logvar,
+                               dim=(1, 2, 3))
+
 
 class AutoencoderKL(nn.Module):
     """``dtype`` is the compute dtype (None: the input's); parameters stay
@@ -219,3 +224,10 @@ class AutoencoderKL(nn.Module):
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """(N, h, w, z) latents -> (N, f h, f w, 3) images."""
         return self.decoder(self.post_quant_conv(self._nchw(z))).permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """(N, H, W, 3) -> (reconstruction from a posterior sample, moments);
+        the sample's noise (N, h, w, z) from the caller or ``generator``."""
+        moments = self.encode_moments(x)
+        return self.decode(DiagonalGaussian(moments).sample(noise, generator)), moments

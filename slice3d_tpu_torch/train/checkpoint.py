@@ -20,7 +20,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_checkpoint", "is_torch_file",
-           "TopKCheckpointer"]
+           "adam_payload", "load_adam_payload", "TopKCheckpointer"]
 
 
 def save_checkpoint(path: str, state: Dict[str, Any]) -> str:
@@ -46,6 +46,32 @@ def is_torch_file(path: str) -> bool:
         return True
     with open(path, "rb") as f:
         return f.read(2) in (b"\x80\x02", b"\x80\x04")
+
+
+def adam_payload(optimizer: torch.optim.Optimizer, model: torch.nn.Module) -> Dict[str, Any]:
+    """Adam's state by ``model``'s parameter names: ``count`` (the updates
+    taken) and ``exp_avg`` / ``exp_avg_sq``, the layout that the JAX
+    trainers' optax moments map into (``convert.py``)."""
+    adam: Dict[str, Any] = {"count": 0, "exp_avg": {}, "exp_avg_sq": {}}
+    for name, p in model.named_parameters():
+        st = optimizer.state.get(p)
+        if st:
+            adam["count"] = int(st["step"])
+            adam["exp_avg"][name] = st["exp_avg"]
+            adam["exp_avg_sq"][name] = st["exp_avg_sq"]
+    return adam
+
+
+def load_adam_payload(optimizer: torch.optim.Optimizer, model: torch.nn.Module,
+                      adam: Dict[str, Any]) -> None:
+    """The inverse of :func:`adam_payload`, in place (``optimizer`` holds
+    ``model``'s parameters in their order)."""
+    sd = optimizer.state_dict()
+    names = [n for n, _ in model.named_parameters()]
+    sd["state"] = {i: {"step": torch.tensor(float(adam["count"])),
+                       "exp_avg": adam["exp_avg"][n], "exp_avg_sq": adam["exp_avg_sq"][n]}
+                   for i, n in enumerate(names) if n in adam["exp_avg"]}
+    optimizer.load_state_dict(sd)
 
 
 def latest_checkpoint(ckpt_dir: str, pattern: str = "*.ckpt") -> Optional[str]:

@@ -51,7 +51,8 @@ from ..models.gtslice import init_gtslice
 from ..models.perceptual import perceptual_loss
 from ..models.slicenet import init_slicenet
 from ..models.vgg import VGG19Features, load_vgg19_features
-from .checkpoint import is_torch_file, latest_checkpoint, restore_checkpoint, save_checkpoint
+from .checkpoint import (adam_payload, is_torch_file, latest_checkpoint, load_adam_payload,
+                         restore_checkpoint, save_checkpoint)
 from .flax_msgpack import read_flax_msgpack
 
 __all__ = ["RegTrainState", "RegressionTrainer", "make_lr_schedule", "sign_accuracy",
@@ -207,28 +208,15 @@ class RegressionTrainer:
     # -- checkpoints ------------------------------------------------------------------
 
     def state_payload(self, state: RegTrainState, epoch: int) -> Dict[str, Any]:
-        params = dict(state.model.named_parameters())
-        adam = {"count": 0, "exp_avg": {}, "exp_avg_sq": {}}
-        for name, p in params.items():
-            st = state.optimizer.state.get(p)
-            if st:
-                adam["count"] = int(st["step"])
-                adam["exp_avg"][name] = st["exp_avg"]
-                adam["exp_avg_sq"][name] = st["exp_avg_sq"]
-        return {"model": state.model.state_dict(), "adam": adam, "n_epoch": epoch,
+        return {"model": state.model.state_dict(),
+                "adam": adam_payload(state.optimizer, state.model), "n_epoch": epoch,
                 "n_iter": state.step}
 
     def load_payload(self, state: RegTrainState, payload: Mapping[str, Any]) -> RegTrainState:
         """In place: weights and statistics, Adam's moments (by parameter
         name) and step, and the trainer's step."""
         state.model.load_state_dict(payload["model"])
-        adam = payload["adam"]
-        sd = state.optimizer.state_dict()
-        names = [n for n, _ in state.model.named_parameters()]
-        sd["state"] = {i: {"step": torch.tensor(float(adam["count"])),
-                           "exp_avg": adam["exp_avg"][n], "exp_avg_sq": adam["exp_avg_sq"][n]}
-                       for i, n in enumerate(names) if n in adam["exp_avg"]}
-        state.optimizer.load_state_dict(sd)
+        load_adam_payload(state.optimizer, state.model, payload["adam"])
         state.step = int(payload["n_iter"])
         return state
 

@@ -44,6 +44,16 @@ TOL = dict(atol=5e-4, rtol=1e-3)
 IMG, M = 32, 61
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Tiny torch ops in one thread: the test workers share the machine's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want):
     np.testing.assert_allclose(got.detach().numpy() if hasattr(got, "detach") else got,
                                np.asarray(want), **TOL)

@@ -44,6 +44,16 @@ from slice3d_tpu_torch.pipeline import Reconstructor
 ATOL = 5e-4
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Tiny torch ops in one thread: the test workers share the machine's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(a):
     return torch.from_numpy(np.asarray(a, np.float32))
 

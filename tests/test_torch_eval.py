@@ -15,6 +15,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from slice3d_tpu.eval import icp as jax_icp
 from slice3d_tpu.eval import metrics as jax_metrics
@@ -26,6 +27,16 @@ from slice3d_tpu_torch.mesh import Mesh, export_obj, isosurface
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-5
 COUNTS = ("precision", "recall", "fscore")
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Tiny torch ops in one thread: the test workers share the machine's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def assert_metrics_close(got, want):

@@ -40,6 +40,16 @@ TINY = dict(timesteps=20, vae_ch=32, vae_mult=(1, 2), vae_nres=1, unet_channels=
             unet_inject_blocks=(0, 3), cond_widths=(32, 64), latent_size=IMG // 2)
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Tiny torch ops in one thread: the test workers share the machine's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def generated():
     trainer = LDMTrainer(img_size=IMG, batch_size=B, timesteps=20,

@@ -19,6 +19,7 @@ import os
 import pickle
 import random
 import shutil
+import types
 
 import numpy as np
 import pytest
@@ -42,6 +43,8 @@ from slice3d_tpu_torch import main as port_main
 from slice3d_tpu_torch.config import Options
 from slice3d_tpu_torch.data.ldm_data import LDMSliceDataset
 from slice3d_tpu_torch.data.pipeline import BatchLoader
+from slice3d_tpu_torch.train.checkpoint import restore_checkpoint
+from slice3d_tpu_torch.train.train_ldm import LDMTrainer
 from slice3d_tpu_torch.utils import montage
 from slice3d_tpu_torch.utils.yaml_config import dump_yaml, load_config, load_yaml
 
@@ -417,7 +420,7 @@ def test_create_dataset_sin_img_equals_the_root_cli(tmp_path):
     assert view[..., 3].any() and not np.array_equal(view, arr)  # moved to the middle
 
 
-# -- the device, training and autoencoder configs ----------------------------------------------
+# -- the device, and training from a root CLI checkpoint ----------------------------------------
 
 
 def test_entry_points_need_cuda_unless_asked_for_the_cpu(runs, data_root, monkeypatch):
@@ -434,11 +437,43 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu(runs, data_root, monkey
                                  "--img_size", "32", "--dtype", "float32"])
 
 
-def test_training_and_autoencoder_configs_are_refused(data_root, tmp_path):
-    for cfg, argv in ((tiny_cfg(data_root), ["-t"]), (vae_cfg(data_root), ["--mode", "rec"]),
-                      (vae_cfg(data_root), ["-t"])):
-        path = str(tmp_path / "cfg.yaml")
-        with open(path, "w") as f:
-            yaml.safe_dump(cfg, f)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            port_main.main(["-b", path, "--device", "cpu"] + argv)
+@pytest.fixture
+def one_torch_thread():
+    """Torch in one thread for a test that trains: the test workers share the
+    machine's cores (the other tests of this file compare montages with the
+    module fixture's, made at the default thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_training_resumes_a_root_cli_checkpoint(runs, data_root, monkeypatch,
+                                                one_torch_thread):
+    """``-t -r <run>`` on the JAX trainer's msgpack ``last.ckpt`` (what the
+    root ``main.py -t`` writes, ``LDMTrainer.save``) saved at step 3: the
+    port restores the weights, EMA, ``scale_factor`` and step, skips
+    ``maybe_set_scale`` and trains steps 4 and 5 (AdamW starts fresh)."""
+    tmp, cfg_path, jtrainer, state, _, _ = runs
+    run = str(tmp / "resume_root")
+    jtrainer.save(state.replace(step=jnp.int32(3)), os.path.join(run, "checkpoints",
+                                                                 "last.ckpt"))
+    steps = []
+    real = LDMTrainer.train_step
+
+    def spy(self, st, *a, **k):
+        st, logs = real(self, st, *a, **k)
+        steps.append((st.step, float(st.ldm.scale_factor)))
+        return st, logs
+
+    monkeypatch.setattr(LDMTrainer, "train_step", spy)
+    scalars = []
+    monkeypatch.setattr(port_main, "scalar_writer", lambda log_dir: types.SimpleNamespace(
+        add_scalar=lambda *a: scalars.append(a), close=lambda: None))
+    train = [f"data.params.train.params.{k}" for k in (f"root={data_root}", f"size={IMG}",
+                                                       f"n_views={N_VIEWS}")]
+    assert port_main.main(["-b", cfg_path, "-t", "-r", run, "--max_steps", "5",
+                           "--val_every", "0", "--log_images_every", "0", "--device", "cpu",
+                           "--dtype", "float32"] + train) == run
+    assert steps == [(4, pytest.approx(0.9)), (5, pytest.approx(0.9))]
+    assert restore_checkpoint(os.path.join(run, "checkpoints", "last.ckpt"))["step"] == 5

@@ -53,7 +53,8 @@ def test_import_leaves_jax_out():
             "slice3d_tpu_torch.train.train_reg, slice3d_tpu_torch.train.train_cam, "
             "slice3d_tpu_torch.train.__main__, slice3d_tpu_torch.train_gt, "
             "slice3d_tpu_torch.train_cam, slice3d_tpu_torch.models.perceptual, "
-            "slice3d_tpu_torch.data.device_transforms; "
+            "slice3d_tpu_torch.data.device_transforms, slice3d_tpu_torch.train.train_vae, "
+            "slice3d_tpu_torch.models.lpips, slice3d_tpu_torch.models.discriminator; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'slice3d_tpu' or m.startswith('slice3d_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -92,7 +93,9 @@ def test_no_jax_or_reference_imports(where):
                 os.path.join("diffusion", "ancestral.py"), os.path.join("train", "train_reg.py"),
                 os.path.join("train", "train_cam.py"), os.path.join("train", "__main__.py"),
                 "train_gt.py", "train_cam.py", os.path.join("models", "perceptual.py"),
-                os.path.join("data", "device_transforms.py")} <= rel
+                os.path.join("data", "device_transforms.py"),
+                os.path.join("train", "train_vae.py"), os.path.join("models", "lpips.py"),
+                os.path.join("models", "discriminator.py")} <= rel
     else:
         files = [os.path.join(ROOT, "chip_smoke.py")]
     assert files

@@ -35,6 +35,16 @@ from slice3d_tpu_torch.ops.resize import resize_nearest
 TOL = dict(atol=5e-4, rtol=1e-3)
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Tiny torch ops in one thread: the test workers share the machine's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, **tol):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **(tol or TOL))
 

@@ -28,6 +28,16 @@ from slice3d_tpu_torch.pipeline import Reconstructor
 N_SLICES, IMG, RES0, UP = 12, 32, 16, 1
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Tiny torch ops in one thread: the test workers share the machine's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def randomized_bn(variables, seed):
     """Non-trivial BatchNorm statistics, so a mean/var mix-up shows."""
     rng = np.random.default_rng(seed)

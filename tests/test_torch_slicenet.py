@@ -24,6 +24,16 @@ N_SLICES, IMG, M = 12, 32, 97
 TOL = dict(atol=5e-4, rtol=1e-3)
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Tiny torch ops in one thread: the test workers share the machine's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def randomized_bn(variables, seed):
     rng = np.random.default_rng(seed)
     stats = jax.tree_util.tree_map(lambda a: np.array(a, np.float32),
