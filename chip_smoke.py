@@ -108,7 +108,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      its statistics moving from step 1, LPIPS frozen, the top-k file on
      val/rec_loss); one tiny fp32 finetune step card vs CPU with TF32 off
      (must agree) and on (must not); ``--mode rec`` of
-     configs/autoencoder_kl_f8_infer.yaml from the finetuned run.
+     configs/autoencoder_kl_f8_infer.yaml from the finetuned run;
+ 15. the multi-card machinery on the one card: SliceNet bf16 at the serving
+     point over a mesh of two replicas on it, each its own copy of the
+     weights, the object batch (4 objects) and each head call's points (one
+     object, fused and split routes) split over the mesh, against the same
+     reconstruction unsharded (the same points and faces, the grids within
+     1e-2, s per object, no weight set prepared anew once both replicas'
+     are); ``RegressionTrainer`` (SliceNet bf16 with VGG19, n_bs 16) and
+     ``LDMTrainer`` (batch 8): 2 warm-up steps, then one step from that
+     state without and within an NCCL group of one, where every collective
+     runs (logs and gradients at phase 13's card tolerances), and 5 timed
+     steps each way (ms per step, exact attention launches); ``reconstruct
+     --multi_gpu --mc_shard_axis points`` against the same run without
+     them, and ``train --multi_gpu``.
 The last three lines are the paths' JSON record, the kernels' JSON record
 and the run's status JSON.
 """
@@ -116,6 +129,7 @@ and the run's status JSON.
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 import gc
 import glob
@@ -293,6 +307,16 @@ LOSS_RTOL = 2e-3
 # configuration, as above (fp32 summation order; readings: 4.5e-7 G, and 8.5e-6
 # of the tensor's own largest gradient; the losses equal)
 GRAD_FP32_TOL = dict(atol=2e-6, rtol=1e-4)
+# phase 15: sharded reconstruction at the serving point over a mesh of two
+# replicas on the one card, each its own weights; (tag, shard_axis, route,
+# objects)
+PAR_POINT = dict(resolution0=64, upsampling_steps=2, chunk_size=32768)
+PAR_RUNS = (("batch", "batch", "fused", 4), ("points", "points", "fused", 1),
+            ("points split", "points", "split", 1))
+PAR_GRID_TOL = 1e-2  # PERF.md section 2's limit for a reorganised evaluation
+PAR_WARMUP, PAR_STEPS = 2, 5  # training steps with and without the NCCL group
+PAR_REG_BATCH, PAR_LDM_BATCH = 16, 8
+PAR_CLI_SHAPES = 4  # the train CLI: one epoch of 2 steps at n_bs 2
 TRAIN_TINY = dict(timesteps=20, vae_ch=32, vae_mult=(1, 2), vae_nres=1, unet_channels=32,
                   unet_mult=(1, 2), unet_nres=1, unet_attention_ds=(1,),
                   unet_inject_blocks=(0, 3), cond_widths=(32, 64), latent_size=8)
@@ -2568,6 +2592,347 @@ def phase_generation_training_cli(power: str):
             "rec_montages": len(rec), "phase_s": phase_s}, counts
 
 
+def mid_threshold(model, feed) -> float:
+    """Iso level between the two middle coarse logits of a res0 16 probe: a
+    real surface, and no lattice value on it (at the median itself, the
+    iso level of ``probe_threshold``, rounding noise picks that value's
+    side)."""
+    from slice3d_tpu_torch.pipeline import Reconstructor
+
+    probe, _ = Reconstructor(model, resolution0=16, upsampling_steps=0).build_grid(feed)
+    mid = np.sort(probe.ravel())[probe.size // 2 - 1:probe.size // 2 + 1].mean()
+    return float(1.0 / (1.0 + np.exp(-mid)))
+
+
+def _own_replica(rec):
+    """Give the second data device of a sharded Reconstructor a weight set of
+    its own, a copy of the model on the same card: a mesh that names a
+    device twice shares one replica there, and this phase's mesh names the
+    one card twice."""
+    model, flip = rec._replicas[0]
+    rec._replicas[1] = (copy.deepcopy(model), flip.clone())
+    return rec
+
+
+def phase_parallel_reconstruction():
+    """Phase 15, reconstruction: SliceNet bf16 at the serving point over a mesh
+    of two replicas on the one card (``create_mesh((2, 1), devices=[cuda:0,
+    cuda:0])``, each replica its own copy of the weights, ``_own_replica``),
+    the object batch or each head call's points split over it, against the
+    same reconstruction unsharded: the same points and faces, the grids
+    within PAR_GRID_TOL, no weight set prepared anew once both replicas'
+    sets are (the prepared-weights cache holds both).  The batch
+    split's unsharded reference evaluates the same parts (2 objects each)
+    on one device: a bf16 encode of 4 images rounds otherwise than two of 2
+    (other convolution algorithms), which the batch of 4 on one device
+    shows beside it, held as phase 9 holds micro-batching (n_points within
+    SERVE_RTOL relative)."""
+    from slice3d_tpu_torch.models.slicenet import init_slicenet
+    from slice3d_tpu_torch.ops import prepared
+    from slice3d_tpu_torch.parallel import create_mesh
+    from slice3d_tpu_torch.pipeline import Reconstructor
+
+    model = init_slicenet(seed=0, dtype=torch.bfloat16).to("cuda")
+    feeds = make_feeds(4, seed=15)
+    thr = mid_threshold(model, feeds[0])
+    mesh = create_mesh((2, 1), devices=["cuda:0", "cuda:0"])
+    print(f"[parallel] mesh {mesh}; threshold {thr:.6f}")
+    out, counts = {}, {k: 0 for k in read_counts()}
+    for tag, axis, route, n in PAR_RUNS:
+        set_route(model, route)
+        kw = dict(PAR_POINT, threshold=thr, batch_size=n)
+        part = n // 2 if axis == "batch" else n  # what one device encodes at once
+        runs = {}
+        for name, rec, groups in (
+                ("unsharded", Reconstructor(model, **dict(kw, batch_size=part)),
+                 [feeds[i:i + part] for i in range(0, n, part)]),
+                ("sharded", _own_replica(Reconstructor(model, mesh=mesh, shard_axis=axis, **kw)),
+                 [feeds[:n]]),
+                ("one device", Reconstructor(model, **kw), [feeds[:n]])):
+            if name == "one device" and part == n:
+                continue
+            p0 = prepared.prepares
+            for group in groups:
+                rec.build_grids(group)  # warm
+            torch.cuda.synchronize()
+            warm_prepares = prepared.prepares - p0
+            reset_counts()
+            p0 = prepared.prepares
+            t0 = time.perf_counter()
+            built = [rec.build_grids(group) for group in groups]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            grids = [g for gs, _ in built for g in gs]
+            stats = [st for _, sts in built for st in sts]
+            runs[name] = dict(grids=grids, stats=stats, s=dt, counts=read_counts(),
+                              prepares=prepared.prepares - p0, warm_prepares=warm_prepares,
+                              meshes=[rec._march(g, st) for g, st in zip(grids, stats)])
+        a, b = runs["unsharded"], runs["sharded"]
+        if "one device" in runs:
+            whole = [st["n_points_evaluated"] for st in runs["one device"]["stats"]]
+            rel = max(abs(x["n_points_evaluated"] - y) / y for x, y in zip(b["stats"], whole))
+            print(f"[parallel] {tag}: the batch of {n} on one device: s per object "
+                  f"{runs['one device']['s'] / n:.4f}, n_points_evaluated {whole}, the "
+                  f"sharded run's within {rel:.3g} relative (limit {SERVE_RTOL})")
+            check(rel <= SERVE_RTOL, f"parallel {tag}: n_points off the batch of {n}'s")
+        err = max(float(np.abs(x - y).max()) for x, y in zip(a["grids"], b["grids"]))
+        pts = [[st["n_points_evaluated"] for st in r["stats"]] for r in (a, b)]
+        faces = [[len(m.faces) for m in r["meshes"]] for r in (a, b)]
+        same_faces = all(np.array_equal(x.faces, y.faces)
+                         for x, y in zip(a["meshes"], b["meshes"]))
+        c = b["counts"]
+        print(f"[parallel] {tag} ({route} route, {n} object(s), unsharded in parts of "
+              f"{part}): s per object sharded {b['s'] / n:.4f}, unsharded "
+              f"{a['s'] / n:.4f}; n_points_evaluated {pts[1]} "
+              f"(unsharded {pts[0]}); faces {faces[1]} (unsharded {faces[0]}), equal "
+              f"{same_faces}; grid max |sharded - unsharded| {err:.6g} (limit "
+              f"{PAR_GRID_TOL}); weight sets prepared in the warm-up {b['warm_prepares']} "
+              f"(unsharded {a['warm_prepares']}), then {b['prepares']}; launches {c}")
+        check(pts[0] == pts[1], f"parallel {tag}: n_points_evaluated {pts[1]} != {pts[0]}")
+        check(same_faces, f"parallel {tag}: the faces differ from the unsharded run's")
+        check(err <= PAR_GRID_TOL, f"parallel {tag}: grid differs by {err}")
+        check(b["prepares"] == 0, f"parallel {tag}: {b['prepares']} weight sets prepared anew")
+        check(b["warm_prepares"] > 0, f"parallel {tag}: the second replica shares the weights")
+        if route == "fused":
+            check(c["fused_encoder_layer"] > 0 and c["fused_ffn"] == 0,
+                  f"parallel {tag}: launches {c}")
+        else:
+            check(c["fused_ffn"] > 0 and c["fused_encoder_layer"] == 0,
+                  f"parallel {tag}: launches {c}")
+        counts = {k: counts[k] + v for k, v in c.items()}
+        out[tag] = {"s_per_object": b["s"] / n, "unsharded_s_per_object": a["s"] / n,
+                    "n_points_evaluated": pts[1], "faces": faces[1], "grid_max_err": err}
+    set_route(model, "fused")
+    return out, counts
+
+
+def _steps_with_and_without_group(tag, make, power):
+    """``make()`` -> (state, step(state, k) -> logs): PAR_WARMUP steps, then
+    from that state one step without a process group and the same step
+    within an NCCL group of one (the logs at REG_LOSS_RTOL, the gradients at
+    REG_GRAD_FP32_TOL, phase 13's card tolerances), then PAR_STEPS timed
+    steps each way.  Within the group every collective of the step runs, as
+    it does whenever a group is joined: the NCCL all-reduce of the
+    gradients and of the logs, and the BatchNorm statistics' all-reduce
+    under autograd, which sums and divides where the ungrouped step takes a
+    mean; so the difference is theirs and the card's run-to-run rounding,
+    and the time per step with the group holds their cost.  Returns the
+    readings, ms per step and the launch counts within the group."""
+    import torch.distributed as dist
+
+    state, step = make()
+    for k in range(PAR_WARMUP):
+        step(state, k)
+    runs = {}
+    for grouped in (False, True):
+        check(dist.is_initialized() == grouped, f"{tag}: group state")
+        st = copy.deepcopy(state)
+        reset_counts()
+        logs = {key: float(v) for key, v in step(st, PAR_WARMUP).items()}
+        grads = {n: p.grad.detach().clone() for n, p in _model_of(st).named_parameters()
+                 if p.grad is not None}
+        times = []
+        for k in range(PAR_WARMUP + 1, PAR_WARMUP + 1 + PAR_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(st, k)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        runs[grouped] = {"logs": logs, "grads": grads, "ms": percentile(times, 0.5),
+                         "ms_range": (min(times), max(times)), "counts": read_counts()}
+        if grouped:
+            allreduce = _allreduce_ms(st)
+        del st
+        if not grouped:
+            _init_group_of_one()
+    dist.destroy_process_group()
+    a, b = runs[True], runs[False]
+    worst = max(abs(a["logs"][k] - v) / max(abs(v), 1e-12) for k, v in b["logs"].items())
+    readings = regression_grad_readings(a["grads"], b["grads"], REG_GRAD_FP32_TOL)
+    grad_bytes = sum(g.numel() * g.element_size() for g in a["grads"].values())
+    print(f"[parallel] {tag}: ms per step p50 over {PAR_STEPS} steps with the NCCL group "
+          f"{a['ms']:.4f} (min {a['ms_range'][0]:.4f}, max {a['ms_range'][1]:.4f}), without "
+          f"{b['ms']:.4f} (min {b['ms_range'][0]:.4f}, max {b['ms_range'][1]:.4f}); the group "
+          f"all-reduces {grad_bytes} bytes of gradients a step, alone: {allreduce}; "
+          f"step {PAR_WARMUP} from one state with vs "
+          f"without the group: logs max relative difference {worst:.3g} (tolerance "
+          f"{REG_LOSS_RTOL}), gradients {readings} (tolerance {REG_GRAD_FP32_TOL} G, "
+          f"{REG_TIE_FRAC} of a tensor); launches within the group over "
+          f"{1 + PAR_STEPS} steps {a['counts']}; {power}")
+    check(worst <= REG_LOSS_RTOL, f"{tag}: the grouped step's logs differ")
+    check(readings["violations"] == 0, f"{tag}: the grouped step's gradients differ")
+    return {"ms_grouped": a["ms"], "ms_ungrouped": b["ms"], "log_rel_diff": worst,
+            "grads": readings, "grad_bytes": grad_bytes, "allreduce_ms": allreduce,
+            "logs": a["logs"]}, a["counts"]
+
+
+def _allreduce_ms(state, reps: int = 5) -> dict:
+    """Within the group, ms (p50 of ``reps``) of ``all_reduce_gradients``
+    alone on the state's gradients (its concatenation, the NCCL all-reduce,
+    the division and the copy back), and of one NCCL all-reduce of a flat
+    buffer of as many bytes."""
+    import torch.distributed as dist
+
+    from slice3d_tpu_torch.parallel import all_reduce_gradients
+
+    params = [p for p in _model_of(state).parameters() if p.grad is not None]
+    flat = torch.empty(sum(p.grad.numel() * p.grad.element_size() for p in params),
+                       dtype=torch.uint8, device="cuda")
+    out = {}
+    for name, fn in (("all_reduce_gradients", lambda: all_reduce_gradients(params)),
+                     ("one flat all-reduce", lambda: dist.all_reduce(flat))):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = percentile(times, 0.5)
+    return out
+
+
+def _model_of(state):
+    return state.model if hasattr(state, "model") else state.ldm
+
+
+def _init_group_of_one():
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", world_size=1, rank=0,
+                            init_method=f"tcp://127.0.0.1:{port}")
+
+
+def phase_parallel_training(power: str):
+    """Phase 15, training: ``RegressionTrainer`` (SliceNet bf16 with the VGG19
+    term, n_bs 16) and ``LDMTrainer`` (batch 8) without and within an NCCL
+    group of one this phase makes (``init_distributed`` is a no-op for one
+    process, as JAX's), from the same state and batches
+    (``_steps_with_and_without_group``); the LDM's attention launches
+    exact."""
+    from slice3d_tpu_torch.config import Options
+    from slice3d_tpu_torch.diffusion.latent import init_latent_diffusion
+    from slice3d_tpu_torch.profile_training import regression_batches, seeded_vgg19
+    from slice3d_tpu_torch.train.train_ldm import LDMTrainer
+    from slice3d_tpu_torch.train.train_reg import RegressionTrainer
+
+    steps = PAR_WARMUP + 1 + PAR_STEPS
+    reg_batches = regression_batches(steps, torch.Generator(device="cuda").manual_seed(15),
+                                     b=PAR_REG_BATCH, size=REG_IMG, n_qry=REG_QRY)
+    vgg = seeded_vgg19()
+
+    def make_reg():
+        opts = Options(name_model="slicenet", n_bs=PAR_REG_BATCH, img_size=REG_IMG,
+                       n_qry=REG_QRY, train_dtype="bfloat16")
+        trainer = RegressionTrainer(opts, vgg19=vgg)
+        return trainer.init_state(), lambda st, k: trainer.train_step(st, reg_batches[k])[1]
+
+    out, counts = {}, {}
+    out["regression"], counts["regression"] = _steps_with_and_without_group(
+        "regression training, SliceNet bf16 + VGG19", make_reg, power)
+    del reg_batches
+    ldm_batches = train_batches(steps, PAR_LDM_BATCH,
+                                torch.Generator(device="cuda").manual_seed(16))
+
+    def make_ldm():
+        trainer = LDMTrainer(module=init_latent_diffusion(seed=0, dtype=torch.bfloat16),
+                             batch_size=PAR_LDM_BATCH)
+        state = trainer.init_state()
+        trainer.maybe_set_scale(state, ldm_batches[0],
+                                torch.Generator(device="cuda").manual_seed(17))
+
+        def step(st, k):  # step k's draws from its own seed
+            g = torch.Generator(device="cuda").manual_seed(100 + k)
+            return trainer.train_step(st, ldm_batches[k], g)[1]
+
+        return state, step
+
+    out["ldm"], counts["ldm"] = _steps_with_and_without_group(
+        "LDM training, batch 8", make_ldm, power)
+    c, n = counts["ldm"], 1 + PAR_STEPS
+    check(c["spatial_attention"] == 10 * n and c["spatial_attention_bwd"] == 10 * n,
+          f"LDM training in the group launched {c}, expected 10 and 10 a step")
+    total = {k: counts["regression"][k] + c[k] for k in c}
+    check(counts["regression"]["fused_encoder_layer"] == 0, "regression training ran the head")
+    return out, total
+
+
+def phase_parallel_clis():
+    """Phase 15, the CLIs with the options: ``reconstruct --multi_gpu
+    --mc_shard_axis points`` on phase 11's option dataset against the same
+    run without them (on one card ``reconstruction_mesh`` returns None: the
+    same unsharded run), and ``train --multi_gpu`` for one epoch of 2 steps."""
+    from slice3d_tpu_torch import reconstruct
+    from slice3d_tpu_torch.data.builders import create_synthetic_dataset
+    from slice3d_tpu_torch.data.dataset import Slice3DDataset
+    from slice3d_tpu_torch.models.slicenet import init_slicenet
+    from slice3d_tpu_torch.parallel import device_count, reconstruction_mesh
+    from slice3d_tpu_torch.train import __main__ as train_cli
+
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    write_options_dataset(SMOKE_DIR, serving_pngs(OPT_OBJECTS, seed=21))
+    data, exp = os.path.join(SMOKE_DIR, "data"), os.path.join(SMOKE_DIR, "exp")
+    feed = Slice3DDataset(os.path.join(data, "opts"), split="test",
+                          img_size=SERVE_POINT["img_size"], load_slices=False,
+                          load_sdf=False)[0]
+    thr = mid_threshold(init_slicenet(0, dtype=torch.bfloat16).to("cuda"), feed)
+    argv = [f"--{k}={v}" for k, v in SERVE_POINT.items()] + [
+        "--dtype", "bfloat16", "--random_init", "--dir_data", data, "--name_dataset", "opts",
+        "--mode", "test", "--dir_experiments", exp, "--mc_threshold", repr(thr)]
+    mesh = reconstruction_mesh("points", 1, SERVE_POINT["mc_chunk_size"], device_count("cuda"))
+    print(f"[parallel] reconstruction_mesh('points', 1, {SERVE_POINT['mc_chunk_size']}, "
+          f"{device_count('cuda')} card(s)) = {mesh}: on one card the options leave the run "
+          f"unsharded")
+    reset_counts()
+    _, plain, plain_s = run_cli("parallel reconstruct", reconstruct.main,
+                                argv + ["--name_exp", "plain"])
+    _, sharded, sharded_s = run_cli("parallel reconstruct points", reconstruct.main,
+                                    argv + ["--name_exp", "points", "--multi_gpu",
+                                            "--mc_shard_axis", "points"])
+    check_objects("parallel reconstruct", sharded, OPT_OBJECTS)
+    key = ("id", "vertices", "faces", "n_points_evaluated")
+    check([[o[k] for k in key] for o in plain] == [[o[k] for k in key] for o in sharded],
+          "reconstruct --multi_gpu --mc_shard_axis points gave other objects")
+    for o in plain:
+        paths = [os.path.join(exp, name, "results", "opts", f"{o['id']}.obj")
+                 for name in ("plain", "points")]
+        with open(paths[0], "rb") as f0, open(paths[1], "rb") as f1:
+            check(f0.read() == f1.read(), f"{o['id']}: the OBJ files differ")
+    print(f"[parallel] reconstruct: {OPT_OBJECTS} objects in {plain_s:.4f} s, with "
+          f"--multi_gpu --mc_shard_axis points {sharded_s:.4f} s, the same OBJ files")
+    create_synthetic_dataset(os.path.join(data, "objaverse"), n_shapes=PAR_CLI_SHAPES,
+                             n_views=12, img_size=REG_IMG, n_sdf=2048, seed=5)
+    text, train_s = _run_train_cli("parallel train", train_cli.main, [
+        "--dir_data", data, "--name_dataset", "objaverse", "--img_size", str(REG_IMG),
+        "--n_bs", "2", "--n_qry", str(REG_QRY), "--n_views", "12", "--freq_log", "1",
+        "--n_epochs", "1", "--n_wk", "4", "--dir_experiments", exp, "--name_exp", "mgpu",
+        "--multi_gpu"])
+    check("[train] epoch 0 iter 2 " in text and os.listdir(os.path.join(exp, "mgpu", "ckpt")),
+          "train --multi_gpu did not take its 2 steps or saved no checkpoint")
+    counts = read_counts()
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    return {"reconstruct_s": plain_s, "reconstruct_points_s": sharded_s,
+            "train_s": train_s}, counts
+
+
+def phase_parallel(power: str):
+    """Phase 15: sharded reconstruction, training in an NCCL group of one and
+    the CLIs' multi-card options; the launches under the path "parallel"."""
+    t0 = time.perf_counter()
+    recon, c1 = phase_parallel_reconstruction()
+    train, c2 = phase_parallel_training(power)
+    clis, c3 = phase_parallel_clis()
+    counts = {k: c1[k] + c2[k] + c3[k] for k in c1}
+    dt = time.perf_counter() - t0
+    print(f"[parallel] phase 15 in {dt:.4f} s; launches {counts}; {power}")
+    return {"reconstruction": recon, "training": train, "clis": clis, "phase_s": dt}, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2618,6 +2983,7 @@ def main() -> int:
     regtrain["phase_s"] = time.perf_counter() - t_phase
     print(f"[regtrain] phase 13 in {regtrain['phase_s']:.4f} s")
     gentrain, gentrain_counts = phase_generation_training_cli(power)
+    parallel, parallel_counts = phase_parallel(power)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"regression": main_counts, "generation": gen["counts"],
@@ -2626,7 +2992,8 @@ def main() -> int:
                "regression_training": {k: sum(r["counts"][k] for r in regtrain.values()
                                               if isinstance(r, dict) and "counts" in r)
                                        for k in regcli_counts},
-               "regression_cli": regcli_counts, "generation_training_cli": gentrain_counts}
+               "regression_cli": regcli_counts, "generation_training_cli": gentrain_counts,
+               "parallel": parallel_counts}
     full = modes[0]
     encoder = {"name": "fused_encoder_layer", "route": "cuda",
                "source": "slice3d_tpu_torch/csrc/fused_encoder.cu",
@@ -2679,7 +3046,7 @@ def main() -> int:
                       "training": {k: v for k, v in train.items() if k != "counts"},
                       "serving": serving, "split": split, "options": options,
                       "generation_cli": gencli, "regression_training": regtrain,
-                      "generation_training_cli": gentrain}))
+                      "generation_training_cli": gentrain, "parallel": parallel}))
     print(json.dumps({"kernels": [encoder, attention, attention_bwd, ffn]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

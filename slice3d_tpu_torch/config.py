@@ -2,10 +2,8 @@
 field, so the CLIs of both packages take the same command lines.
 
 ``Options``, ``get_parser`` and ``options_from_args`` are the JAX package's
-(``slice3d_tpu/config.py``), which mirror the reference flag surface.
-``require_ported`` raises for the options whose machinery the port does not
-have yet, so none is silently ignored; ``dump_options`` writes a run's
-``opts.txt``.
+(``slice3d_tpu/config.py``), which mirror the reference flag surface;
+``dump_options`` writes a run's ``opts.txt``.
 """
 
 from __future__ import annotations
@@ -15,7 +13,7 @@ import dataclasses
 import os
 from dataclasses import dataclass
 
-__all__ = ["Options", "get_parser", "options_from_args", "require_ported", "dump_options"]
+__all__ = ["Options", "get_parser", "options_from_args", "dump_options"]
 
 
 @dataclass
@@ -42,7 +40,7 @@ class Options:
     n_epochs: int = 600
     lr: float = 3e-4
     n_dim: int = 128
-    multi_gpu: bool = False  # more than one device: not ported (require_ported)
+    multi_gpu: bool = False  # accepted for CLI compat; sharding is automatic
     freq_ckpt: int = 4
     freq_log: int = 200
     freq_decay: int = 100
@@ -61,8 +59,9 @@ class Options:
     simplify_nfaces: int = 0  # 0 = no simplification
     mc_refine_steps: int = 0  # refine_mesh RMSprop iterations (0 = off)
     mc_batch_size: int = 1  # objects per device dispatch at reconstruction
-    # sharding at reconstruction in the JAX package: batch | points (the
-    # port runs on one device; only the default is accepted)
+    # multi-card sharding at reconstruction: batch (throughput: objects
+    # shard over the cards) | points (latency: each head call's query points
+    # shard over the cards); parallel.reconstruction_mesh picks the mesh
     mc_shard_axis: str = "batch"
     mc_extract: str = "surface_nets"  # isosurfacer: surface_nets | tetrahedra
     # testing
@@ -122,25 +121,8 @@ def options_from_args(args=None) -> Options:
     return Options(**{f.name: getattr(ns, f.name) for f in dataclasses.fields(Options)})
 
 
-# option -> (its default, what is missing, where the work is queued)
-_UNPORTED = {
-    "mc_shard_axis": ("batch", "sharding the query points over devices",
-                      "ROADMAP Queue 1 item 12"),
-    "multi_gpu": (False, "more than one device", "ROADMAP Queue 1 item 12"),
-}
-
-
 def dump_options(opts: Options, path: str) -> None:
     """Write every option as ``name: value``, one a line."""
     with open(path, "w") as f:
         for k, v in dataclasses.asdict(opts).items():
             f.write(f"{k}: {v}\n")
-
-
-def require_ported(opts: Options) -> None:
-    """Raise for an option the port cannot honour yet: any option of
-    ``_UNPORTED`` set to anything but its default."""
-    for name, (default, what, where) in _UNPORTED.items():
-        value = getattr(opts, name)
-        if value != default:
-            raise NotImplementedError(f"--{name} {value}: {what} is not ported yet ({where})")

@@ -486,4 +486,41 @@ int prepare_ws_kernel(Kernel kernel, int smem_bytes, int min_regs) {
   return attr.numRegs >= min_regs ? 0 : -3;
 }
 
+// Devices a process may launch on; a launch on a higher ordinal returns -4.
+constexpr int MAX_DEVICES = 64;
+
+// A launcher's preparation, kept per device: the shared-memory attribute and
+// the register check belong to the (kernel, device) pair, the SM count to the
+// device.  status[d] is 1 until device d is prepared, then what preparing
+// returned; sms[d] is its SM count, the grid of a persistent kernel.
+struct DevicePrep {
+  int status[MAX_DEVICES];
+  int sms[MAX_DEVICES];
+  DevicePrep() {
+    for (int d = 0; d < MAX_DEVICES; ++d) {
+      status[d] = 1;
+      sms[d] = 0;
+    }
+  }
+};
+
+// Prepare `kernel` on the host thread's current device, the one `<<<>>>`
+// launches on, the first time it launches there.  Returns 0 with the
+// device's SM count in *sms, or what preparing returned (-4: an ordinal of
+// MAX_DEVICES or more).
+template <typename Kernel>
+int prepare_on_device(DevicePrep& prep, Kernel kernel, int smem_bytes, int min_regs, int* sms) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return int(err);
+  if (dev < 0 || dev >= MAX_DEVICES) return -4;
+  if (prep.status[dev] == 1) {
+    int s = prepare_ws_kernel(kernel, smem_bytes, min_regs);
+    if (s == 0) s = persistent_grid(&prep.sms[dev]);
+    prep.status[dev] = s;
+  }
+  *sms = prep.sms[dev];
+  return prep.status[dev];
+}
+
 }  // namespace s3d_attn

@@ -588,12 +588,9 @@ template <int HT>
 int launch(const void* x, const Maps& m, const Vectors& vec, void* out, int n, int t, int f,
            cudaStream_t stream) {
   using L = Layout<HT>;
-  static int prepared = 1;  // 1: not yet; then the result of preparing
-  static int grid = 0;
-  if (prepared == 1) {
-    prepared = prepare_ws_kernel(encoder_kernel<HT>, L::SMEM, WS::MIN_LAUNCH);
-    if (prepared == 0) prepared = persistent_grid(&grid);
-  }
+  static DevicePrep prep;
+  int grid = 0;
+  const int prepared = prepare_on_device(prep, encoder_kernel<HT>, L::SMEM, WS::MIN_LAUNCH, &grid);
   if (prepared != 0) return prepared;
   // every row of x (n t rows), and token 0 of every point (rows t apart)
   CUtensorMap tx, tx0;
@@ -646,7 +643,8 @@ int s3d_fused_encoder_blocks_per_sm(int head_tokens, int* blocks) {
 // s3d_fused_encoder_maps for this weight set; the vectors fp32.  Returns 0
 // on success, the cudaError_t of the launch, -1 for a shape the kernel does
 // not take, -2 if a map cannot be encoded, -3 if the kernel was built with
-// too few registers for its setmaxnreg.
+// too few registers for its setmaxnreg, -4 on a device ordinal past
+// MAX_DEVICES.  The kernel launches on the host thread's current device.
 int s3d_fused_encoder_layer(const void* x, const void* maps, const void* bqkv, const void* bo,
                             const void* g1, const void* be1, const void* b1, const void* b2,
                             const void* g2, const void* be2, void* out, int n, int t, int f,

@@ -163,19 +163,17 @@ int s3d_fused_ffn_blocks_per_sm(int* blocks) {
 // s3d_fused_ffn_maps for this weight set.  Returns 0 on success, the
 // cudaError_t of the launch, -1 for a shape the kernel does not take, -2 if
 // a map cannot be encoded, -3 if the kernel was built with too few
-// registers for its setmaxnreg.
+// registers for its setmaxnreg, -4 on a device ordinal past MAX_DEVICES.
+// The kernel launches on the host thread's current device.
 int s3d_fused_ffn(const void* x, const void* maps, const void* b1, const void* b2, void* out,
                   int n, int f, void* stream) {
   if (n <= 0) return 0;
   if (f <= 0 || f % FT) return -1;
   Maps m;
   memcpy(&m, maps, sizeof(Maps));
-  static int prepared = 1;  // 1: not yet; then the result of preparing
-  static int grid = 0;
-  if (prepared == 1) {
-    prepared = prepare_ws_kernel(ffn_kernel, SMEM, WS3::MIN_LAUNCH);
-    if (prepared == 0) prepared = persistent_grid(&grid);
-  }
+  static DevicePrep prep;
+  int grid = 0;
+  const int prepared = prepare_on_device(prep, ffn_kernel, SMEM, WS3::MIN_LAUNCH, &grid);
   if (prepared != 0) return prepared;
   CUtensorMap tx;
   if (encode_sw128(&tx, x, uint64_t(n), D, D * 2, TILE_ROWS)) return -2;

@@ -318,18 +318,11 @@ __global__ void __launch_bounds__(THREADS, 1) attention_fwd_kernel(
 template <int DH>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int bh, int t,
            float scale, cudaStream_t stream) {
-  static int prepared = 1;  // 1: not yet; then prepare_ws_kernel's result
-  if (prepared == 1)
-    prepared = prepare_ws_kernel(attention_fwd_kernel<DH>, Fwd<DH>::SMEM, WS::MIN_LAUNCH);
+  static DevicePrep prep;
+  int sms = 0;  // one persistent block an SM
+  const int prepared =
+      prepare_on_device(prep, attention_fwd_kernel<DH>, Fwd<DH>::SMEM, WS::MIN_LAUNCH, &sms);
   if (prepared != 0) return prepared;
-  static int sms = 0;  // one persistent block an SM
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return int(err);
-  }
   CUtensorMap tq, tk, tv;
   constexpr int W = HeadRows<DH>::W;
   if (encode_rows(&tq, q, bh, t, DH, W, BQ) || encode_rows(&tk, k, bh, t, DH, W, BK) ||
@@ -351,7 +344,9 @@ extern "C" {
 // (bh, t) or null (the rows' log-sum-exp of S * scale in log2 units, written
 // only when given).  Returns 0 on success, the cudaError_t of the launch, -1
 // for a shape the kernel does not take, -2 if a tensor map cannot be encoded,
-// -3 if the kernel was built with too few registers for its setmaxnreg.
+// -3 if the kernel was built with too few registers for its setmaxnreg, -4
+// on a device ordinal past MAX_DEVICES.  The kernel launches on the host
+// thread's current device.
 int s3d_spatial_attention(const void* q, const void* k, const void* v, void* out, void* lse,
                           int bh, int t, int dh, float scale, void* stream) {
   if (bh <= 0 || t <= 0 || t % BQ != 0 || t % BK != 0) return -1;

@@ -377,9 +377,10 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
            const float* lse, float* delta, float* dq_accum, void* dq, void* dk, void* dv,
            int bh, int t, float scale, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  static int prepared = 1;  // 1: not yet; then prepare_ws_kernel's result
-  if (prepared == 1)
-    prepared = prepare_ws_kernel(attention_bwd_kernel<DH>, Bwd<DH>::SMEM, WS::MIN_LAUNCH);
+  static DevicePrep prep;
+  int sms = 0;
+  const int prepared =
+      prepare_on_device(prep, attention_bwd_kernel<DH>, Bwd<DH>::SMEM, WS::MIN_LAUNCH, &sms);
   if (prepared != 0) return prepared;
   CUtensorMap tq, tk, tv, tdo;
   constexpr int W = HeadRows<DH>::W;
@@ -413,7 +414,8 @@ extern "C" {
 // (bh, t, dh) scratch, zero on entry.  Returns 0 on success, the cudaError_t
 // of a launch, -1 for a shape the kernels do not take, -2 if a tensor map
 // cannot be encoded, -3 if the kernel was built with too few registers for
-// its setmaxnreg.
+// its setmaxnreg, -4 on a device ordinal past MAX_DEVICES.  The kernels
+// launch on the host thread's current device.
 int s3d_spatial_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                               const void* dout, const void* lse, void* delta, void* dq_accum,
                               void* dq, void* dk, void* dv, int bh, int t, int dh, float scale,

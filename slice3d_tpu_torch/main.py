@@ -51,6 +51,13 @@ the merged config in ``configs/``.
   package's).  The root CLI builds an LDM trainer there and fails to restore
   a finetune checkpoint (ROADMAP.md Queue 3).
 
+With ``SLICE3D_COORDINATOR`` / ``SLICE3D_NUM_PROCESSES`` /
+``SLICE3D_PROCESS_ID`` set, ``-t`` trains data-parallel, one process a card
+(``parallel.init_distributed``): every process takes its loader shard and
+the trainers average over the group; rank 0 picks the logdir and writes the
+config, the checkpoints, the montages and the scalars; validation means are
+the whole split's.  Sampling and ``--mode rec`` run on rank 0 alone.
+
 Runs on CUDA unless ``--device cpu``; ``--dtype`` is the networks' compute
 dtype over fp32 master weights (``bfloat16``: the attention kernels, forward
 and backward; ``float32`` takes the attention's plain path).  The port writes
@@ -75,6 +82,8 @@ from .data.pipeline import BatchLoader
 from .diffusion.latent import LatentDiffusion
 from .diffusion.sampler import SAMPLERS
 from .models.random_init import random_init_
+from .parallel import (all_reduce_sum, barrier, broadcast_object, init_distributed,
+                       is_main_process)
 from .train.checkpoint import TopKCheckpointer, latest_checkpoint
 from .train.train_ldm import LDMTrainer
 from .train.train_reg import scalar_writer
@@ -219,15 +228,18 @@ def build_dataset(cfg, split: str, img_size: int, data_root: str) -> LDMSliceDat
                            n_views=int(sp.get("n_views", 12)))
 
 
-def validate_full(eval_fn, val_loader):
-    """The mean of each metric over the whole validation split, as
-    Lightning's validation loop (root ``main.py:108-117``)."""
-    sums, n = {}, 0
+def validate_full(eval_fn, val_loader, keys):
+    """The mean of each metric of ``keys`` over the whole validation split
+    (every process's shard in a group), as Lightning's validation loop (root
+    ``main.py:108-117``)."""
+    sums = torch.zeros(len(keys) + 1, dtype=torch.float64)
     for vb in val_loader:
-        for k, v in eval_fn(vb).items():
-            sums[k] = sums.get(k, 0.0) + float(v)
-        n += 1
-    return {k: v / max(n, 1) for k, v in sums.items()}
+        out = eval_fn(vb)
+        sums += torch.tensor([float(out[k]) for k in keys] + [1.0], dtype=torch.float64)
+    if torch.distributed.is_initialized() and torch.distributed.get_backend() == "nccl":
+        sums = sums.cuda()
+    sums = all_reduce_sum(sums).cpu()
+    return {k: float(sums[i] / max(float(sums[-1]), 1.0)) for i, k in enumerate(keys)}
 
 
 def write_sample_outputs(logdir: str, batch_idx: int, batch, gen: np.ndarray) -> None:
@@ -254,9 +266,11 @@ def _save_montage(img_dir: str, name: str, step: int, slices) -> None:
 
 
 def _resume_target(args):
-    """(logdir or None, checkpoint or None) of ``-r``."""
+    """(logdir or None, checkpoint or None) of ``-r``, read once every
+    process of a group has got here."""
     if not args.resume:
         return None, None
+    barrier()
     if os.path.isfile(args.resume):
         return os.path.dirname(os.path.dirname(args.resume)), args.resume
     logdir = args.resume.rstrip("/")
@@ -264,15 +278,19 @@ def _resume_target(args):
 
 
 def _new_logdir(cfg, args, logdir: Optional[str], default_name: str) -> str:
+    """The run's logdir (rank 0's choice in a group), its merged config
+    written by rank 0."""
     if logdir is None:
         now = datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
         name = args.name or (os.path.splitext(os.path.basename(args.base[0]))[0]
                              if args.base else default_name)
         logdir = os.path.join(args.logdir, f"{now}_{name}")
+    logdir = broadcast_object(logdir)
     os.makedirs(os.path.join(logdir, "checkpoints"), exist_ok=True)
     os.makedirs(os.path.join(logdir, "configs"), exist_ok=True)
-    with open(os.path.join(logdir, "configs", "merged.yaml"), "w") as f:
-        f.write(dump_yaml(cfg))
+    if is_main_process():
+        with open(os.path.join(logdir, "configs", "merged.yaml"), "w") as f:
+            f.write(dump_yaml(cfg))
     return logdir
 
 
@@ -310,6 +328,7 @@ def _train_ldm(cfg, args, trainer: LDMTrainer, state, logdir: str, img_size: int
     writer = scalar_writer(os.path.join(logdir, "tensorboard"))
     topk = TopKCheckpointer(ckpt_dir, monitor="val/loss_simple_ema", k=3)
     g = _seeded(device, args.seed)
+    main = is_main_process()
     t0 = time.time()
     step = state.step
     try:
@@ -319,27 +338,29 @@ def _train_ldm(cfg, args, trainer: LDMTrainer, state, logdir: str, img_size: int
                     trainer.maybe_set_scale(state, batch, g)
                 state, logs = trainer.train_step(state, batch, g)
                 step = state.step
-                if step % 50 == 0:
+                if main and step % 50 == 0:
                     print(f"step {step}: loss {float(logs['loss']):.5f} "
                           f"simple {float(logs['loss_simple']):.5f} ({time.time() - t0:.0f}s)")
                     for k in ("loss", "loss_simple", "loss_vlb"):
                         writer.add_scalar(f"train/{k}", float(logs[k]), step)
                     writer.add_scalar("lr_abs", trainer.current_lr(step), step)
-                if step % args.ckpt_every == 0 or want_ckpt["flag"]:
+                if main and (step % args.ckpt_every == 0 or want_ckpt["flag"]):
                     want_ckpt["flag"] = False
                     trainer.save(state, last)
                 if val_loader is not None and _every(step, args.val_every):
                     v, ve = (validate_full(lambda vb: trainer.eval_loss(
-                        state, vb, _seeded(device, 0), use_ema=ema), val_loader)
-                        for ema in (False, True))
-                    print(f"step {step}: val/loss_simple {v['loss_simple']:.5f} "
-                          f"ema {ve['loss_simple']:.5f}")
-                    writer.add_scalar("val/loss_simple", v["loss_simple"], step)
-                    writer.add_scalar("val/loss_simple_ema", ve["loss_simple"], step)
-                    kept = topk.update(ve["loss_simple"], step, trainer.state_payload(state))
-                    if kept:
-                        print(f"saved top-k checkpoint {kept}")
-                if _every(step, args.log_images_every):
+                        state, vb, _seeded(device, 0), use_ema=ema), val_loader,
+                        ("loss", "loss_simple", "loss_vlb")) for ema in (False, True))
+                    if main:
+                        print(f"step {step}: val/loss_simple {v['loss_simple']:.5f} "
+                              f"ema {ve['loss_simple']:.5f}")
+                        writer.add_scalar("val/loss_simple", v["loss_simple"], step)
+                        writer.add_scalar("val/loss_simple_ema", ve["loss_simple"], step)
+                        kept = topk.update(ve["loss_simple"], step,
+                                           trainer.state_payload(state))
+                        if kept:
+                            print(f"saved top-k checkpoint {kept}")
+                if main and _every(step, args.log_images_every):
                     img_dir = os.path.join(logdir, "images", "train")
                     os.makedirs(img_dir, exist_ok=True)
                     rec = trainer.reconstruct_slices(state, batch["image"],
@@ -362,11 +383,13 @@ def _train_ldm(cfg, args, trainer: LDMTrainer, state, logdir: str, img_size: int
                         _save_montage(img_dir, "diffusion_row", step,
                                       torch.cat(list(diff[:, 0]), dim=2).cpu())
                 if args.max_steps > 0 and step >= args.max_steps:
-                    trainer.save(state, last)
+                    if main:
+                        trainer.save(state, last)
                     return logdir
     except (Exception, KeyboardInterrupt):
-        trainer.save(state, last)
-        print(f"saved emergency checkpoint at step {step}")
+        if main:
+            trainer.save(state, last)
+            print(f"saved emergency checkpoint at step {step}")
         raise
 
 
@@ -397,6 +420,7 @@ def _finetune_vae(cfg, args, device, dtype: torch.dtype) -> str:
     writer = scalar_writer(os.path.join(logdir, "tensorboard"))
     topk = TopKCheckpointer(ckpt_dir, monitor="val/rec_loss", k=3)
     g = _seeded(device, args.seed)
+    main = is_main_process()
     t0 = time.time()
     step = state.step
     try:
@@ -404,24 +428,27 @@ def _finetune_vae(cfg, args, device, dtype: torch.dtype) -> str:
             for batch in loader:
                 state, logs = trainer.train_step(state, _flatten_stack(batch), g)
                 step = state.step
-                if step % 50 == 0:
+                if main and step % 50 == 0:
                     print(f"step {step}: rec {float(logs['rec_loss']):.5f} "
                           f"kl {float(logs['kl']):.3f} disc {float(logs['disc_loss']):.5f} "
                           f"({time.time() - t0:.0f}s)")
                     for k in ("rec_loss", "kl", "g_loss", "d_weight", "ae_loss", "disc_loss"):
                         writer.add_scalar(f"train/{k}", float(logs[k]), step)
-                if step % args.ckpt_every == 0:
+                if main and step % args.ckpt_every == 0:
                     trainer.save(state, last)
                 if val_loader is not None and _every(step, args.val_every):
+                    keys = ("rec_loss", "kl") + (("lpips",) if trainer.lpips is not None
+                                                 and trainer.perceptual_weight > 0 else ())
                     v = validate_full(lambda vb: trainer.eval_loss(
-                        state, _flatten_stack(vb), _seeded(device, 0)), val_loader)
-                    print(f"step {step}: val/rec_loss {v['rec_loss']:.5f}")
-                    for k, val in v.items():
-                        writer.add_scalar(f"val/{k}", val, step)
-                    kept = topk.update(v["rec_loss"], step, trainer.state_payload(state))
-                    if kept:
-                        print(f"saved top-k checkpoint {kept}")
-                if _every(step, args.log_images_every):
+                        state, _flatten_stack(vb), _seeded(device, 0)), val_loader, keys)
+                    if main:
+                        print(f"step {step}: val/rec_loss {v['rec_loss']:.5f}")
+                        for k, val in v.items():
+                            writer.add_scalar(f"val/{k}", val, step)
+                        kept = topk.update(v["rec_loss"], step, trainer.state_payload(state))
+                        if kept:
+                            print(f"saved top-k checkpoint {kept}")
+                if main and _every(step, args.log_images_every):
                     img_dir = os.path.join(logdir, "images", "train")
                     os.makedirs(img_dir, exist_ok=True)
                     rec = trainer.reconstruct(state, batch["image"][0],
@@ -429,11 +456,13 @@ def _finetune_vae(cfg, args, device, dtype: torch.dtype) -> str:
                     _save_montage(img_dir, "inputs", step, batch["image"][0, :12])
                     _save_montage(img_dir, "reconstruction", step, rec[:12].cpu())
                 if args.max_steps > 0 and step >= args.max_steps:
-                    trainer.save(state, last)
+                    if main:
+                        trainer.save(state, last)
                     return logdir
     except (Exception, KeyboardInterrupt):
-        trainer.save(state, last)
-        print(f"saved emergency checkpoint at step {step}")
+        if main:
+            trainer.save(state, last)
+            print(f"saved emergency checkpoint at step {step}")
         raise
 
 
@@ -451,7 +480,7 @@ def _reconstruct_with_vae(cfg, args, device, dtype: torch.dtype) -> str:
     ds.split = "trainval_rec"
     ds.__post_init__()
     for batch_idx, batch in enumerate(BatchLoader(ds, bs, shuffle=False, drop_last=False,
-                                                  num_workers=4)):
+                                                  num_workers=4, num_shards=1, shard=0)):
         x = np.asarray(batch["image"])[:, :12]
         t0 = time.perf_counter()
         rec = trainer.reconstruct(state, x.reshape((-1,) + x.shape[2:]),
@@ -468,6 +497,9 @@ def main(argv=None) -> Optional[str]:
     if args.ckpt_backend != "msgpack":
         raise ValueError(f"--ckpt_backend {args.ckpt_backend}: {_ORBAX}")
     cfg = load_config(args.base, unknown)
+    init_distributed(device=args.device)
+    if not args.train and not is_main_process():
+        return None  # sampling and --mode rec run on rank 0 alone
     device = resolve_device(args.device)
     dtype = DTYPES[args.dtype]
     if is_autoencoder_target(cfg):
@@ -497,7 +529,8 @@ def main(argv=None) -> Optional[str]:
     if mode == "rec":
         ds.split = "trainval_rec"
         ds.__post_init__()
-    loader = BatchLoader(ds, bs, shuffle=False, drop_last=False, num_workers=4)
+    loader = BatchLoader(ds, bs, shuffle=False, drop_last=False, num_workers=4, num_shards=1,
+                         shard=0)
     for batch_idx, batch in enumerate(loader):
         g = _seeded(device, args.seed + batch_idx)
         t0 = time.perf_counter()

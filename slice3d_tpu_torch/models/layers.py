@@ -12,11 +12,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_encoder import fused_encoder_layer, fused_encoder_layer_ref
 from ..ops.fused_ffn import fused_ffn
+from ..parallel.mesh import in_group
 
 __all__ = ["Conv2d", "ConvTranspose2d", "Linear", "BatchNorm2d", "GroupNorm",
            "TransformerEncoderLayer", "TransformerEncoder", "ROUTES"]
@@ -43,10 +45,18 @@ class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with eps 1e-5, as flax's ``BatchNorm`` in the JAX package.
 
     ``train`` (default: ``self.training``) normalises with the batch's fp32
-    mean and biased variance, ``E[x^2] - E[x]^2`` clipped at 0, and moves
-    the running statistics towards them by ``momentum`` (0.1: flax's 0.9),
-    the variance biased too (torch's own BatchNorm keeps the unbiased one).
-    Otherwise the running statistics normalise."""
+    mean and biased variance, ``E[x^2] - E[x]^2`` clipped at 0 (per-channel
+    sums over the count), and moves the running statistics towards them by
+    ``momentum`` (0.1: flax's 0.9), the variance biased too (torch's own
+    BatchNorm keeps the unbiased one).  Otherwise the running statistics
+    normalise.
+
+    In a process group (a group of one too) the training statistics are the
+    global batch's, as under the JAX package's jit over a sharded batch: one
+    all-reduce of the per-channel sum, sum of squares and count, which
+    autograd differentiates through (every process runs the same
+    BatchNorms in the same order).  Without a group the same sums are
+    taken, so the all-reduce is the only difference."""
 
     def forward(self, x, train: Optional[bool] = None):
         dt = x.dtype
@@ -54,8 +64,13 @@ class BatchNorm2d(nn.BatchNorm2d):
             return F.batch_norm(x, self.running_mean.to(dt), self.running_var.to(dt),
                                 self.weight.to(dt), self.bias.to(dt), False, 0.0, self.eps)
         xf = x.to(torch.promote_types(dt, torch.float32))
-        mean = xf.mean((0, 2, 3))
-        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        c = xf.shape[1]
+        count = torch.full((1,), xf.numel() / c, dtype=xf.dtype, device=xf.device)
+        totals = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count])
+        if in_group():  # the one arithmetic either way: a group of one changes no bit
+            totals = dist_nn.all_reduce(totals)
+        mean = totals[:c] / totals[2 * c]
+        var = (totals[c:2 * c] / totals[2 * c] - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)

@@ -20,6 +20,7 @@ import torch
 __all__ = ["Prepared", "prepare"]
 
 _MAX_ENTRIES = 64  # weight sets kept: every layer of the models a process serves
+prepares = 0  # weight sets made (a replica on another device is a set of its own)
 
 
 class Prepared:
@@ -59,6 +60,8 @@ def prepare(kind: str, weights: Sequence[torch.Tensor],
             and all(r() is t for r, t in zip(entry._refs, tensors))):
         _CACHE.move_to_end(key)
         return entry
+    global prepares
+    prepares += 1
     with torch.no_grad():
         ws = tuple(w.detach().to(torch.bfloat16).contiguous() for w in weights)
         vs = tuple(v.detach().to(torch.float32).contiguous() for v in vectors)

@@ -13,11 +13,14 @@ Takes the JAX package's root ``reconstruct.py`` flags (``config.Options``)
 plus ``--device`` (default ``cuda``), and writes the same layout:
 ``experiments/<exp>/results/<dataset>/<shape_id>.obj``.  Objects run through
 ``Reconstructor.reconstruct_all`` in batches of ``--mc_batch_size``, marching
-one batch on host threads while the next evaluates.  ``--est_campose``
+one batch on host threads while the next evaluates.  On more than one card
+the batch (``--mc_shard_axis batch``, when it divides) or each head call's
+points (``--mc_shard_axis points``) shard over the cards
+(``parallel.reconstruction_mesh``); ``--multi_gpu`` is accepted, as the
+sharding is automatic.  ``--est_campose``
 replaces each feed's ``obj_rot_mat`` and ``trans_mat_right`` with CameraNet's
 estimate (DISN reads them; SliceNet and GTSlice project with
-``trans_mat_wo_rot_tp`` and keep their answer).  Options whose machinery is
-not ported raise (``config.require_ported``).
+``trans_mat_wo_rot_tp`` and keep their answer).
 """
 
 from __future__ import annotations
@@ -31,11 +34,12 @@ import numpy as np
 import torch
 
 from . import camera, resolve_device
-from .config import Options, options_from_args, require_ported
+from .config import Options, options_from_args
 from .data.dataset import Slice3DDataset
 from .mesh import export_obj
 from .models.build import load_camnet, load_model
 from .models.camnet import ROT_MAT_INV
+from .parallel import device_count, reconstruction_mesh
 from .pipeline import Reconstructor
 
 __all__ = ["campose_predictor", "main"]
@@ -78,7 +82,6 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     own, rest = parser.parse_known_args(argv)
     opts = options_from_args(rest)
-    require_ported(opts)
 
     # the split follows --mode as in the reference CLI; train-mode
     # invocations still reconstruct the test split
@@ -91,12 +94,15 @@ def main(argv=None) -> None:
         categories=opts.categories)
 
     ckpt_path = os.path.join(opts.exp_dir, "ckpt", opts.name_ckpt) if opts.name_ckpt else None
+    batch = max(opts.mc_batch_size, 1)
+    mesh = reconstruction_mesh(opts.mc_shard_axis, batch, opts.mc_chunk_size,
+                               device_count(own.device))
     recon = Reconstructor(load_model(opts, ckpt_path), resolution0=opts.mc_res0,
                           upsampling_steps=opts.mc_up_steps, threshold=opts.mc_threshold,
-                          chunk_size=opts.mc_chunk_size, batch_size=max(opts.mc_batch_size, 1),
+                          chunk_size=opts.mc_chunk_size, batch_size=batch,
                           simplify_nfaces=opts.simplify_nfaces,
                           refine_steps=opts.mc_refine_steps, extract_method=opts.mc_extract,
-                          device=own.device)
+                          device=own.device, mesh=mesh, shard_axis=opts.mc_shard_axis)
     cam_predict = campose_predictor(opts, own.device) if opts.est_campose else None
 
     out_dir = os.path.join(opts.exp_dir, "results", opts.name_dataset)

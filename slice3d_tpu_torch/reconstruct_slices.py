@@ -18,10 +18,11 @@ import os
 
 import numpy as np
 
-from .config import options_from_args, require_ported
+from .config import options_from_args
 from .data.dataset import SLICE_ORDER, Slice3DDataset
 from .data.image import encode_png, resize_bilinear
 from .models.build import load_model
+from .parallel import device_count, reconstruction_mesh
 from .pipeline import Reconstructor
 
 __all__ = ["main"]
@@ -33,10 +34,12 @@ def main(argv=None) -> str:
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     own, rest = parser.parse_known_args(argv)
     opts = options_from_args(rest)
-    require_ported(opts)
     opts.name_model = "slicenet"
     ckpt_path = os.path.join(opts.exp_dir, "ckpt", opts.name_ckpt) if opts.name_ckpt else None
-    recon = Reconstructor(load_model(opts, ckpt_path), device=own.device)
+    mesh = reconstruction_mesh(opts.mc_shard_axis, 1, opts.mc_chunk_size,
+                               device_count(own.device))
+    recon = Reconstructor(load_model(opts, ckpt_path), chunk_size=opts.mc_chunk_size,
+                          device=own.device, mesh=mesh, shard_axis=opts.mc_shard_axis)
     dataset = Slice3DDataset(opts.dataset_root, split="test", img_size=opts.img_size,
                              n_views=opts.n_views, use_white_bg=opts.use_white_bg,
                              load_slices=False, load_sdf=False, categories=opts.categories)

@@ -42,7 +42,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from . import camera
-from .config import Options, options_from_args, require_ported
+from .config import Options, options_from_args
 from .data.dataset import preprocess_image
 from .data.image import center_rgba, decode_image
 from .mesh import Mesh, obj_string
@@ -206,21 +206,25 @@ def build_service(opts: Options, batch_window_ms: float = 10.0,
                   device: str = "cuda") -> Slice3DService:
     """The service of ``opts`` on ``device`` (CUDA unless asked otherwise):
     its model with weights from ``--name_ckpt`` (or the seeded init), and a
-    ``Reconstructor`` of batch ``--mc_batch_size``."""
-    require_ported(opts)
+    ``Reconstructor`` of batch ``--mc_batch_size``, sharded over the cards as
+    ``parallel.reconstruction_mesh`` picks (``--mc_shard_axis``)."""
     if opts.name_model not in ("slicenet", "disn"):
         raise SystemExit("the service needs a single-image model (slicenet or disn): the "
                          "gtslice/LDM route needs slice images per request")
     from .models.build import load_model
+    from .parallel import device_count, reconstruction_mesh
     from .pipeline import Reconstructor
 
     ckpt_path = os.path.join(opts.exp_dir, "ckpt", opts.name_ckpt) if opts.name_ckpt else None
+    batch = max(1, opts.mc_batch_size)
+    mesh = reconstruction_mesh(opts.mc_shard_axis, batch, opts.mc_chunk_size,
+                               device_count(device))
     recon = Reconstructor(load_model(opts, ckpt_path), resolution0=opts.mc_res0,
                           upsampling_steps=opts.mc_up_steps, threshold=opts.mc_threshold,
-                          chunk_size=opts.mc_chunk_size, batch_size=max(1, opts.mc_batch_size),
+                          chunk_size=opts.mc_chunk_size, batch_size=batch,
                           simplify_nfaces=opts.simplify_nfaces,
                           refine_steps=opts.mc_refine_steps, extract_method=opts.mc_extract,
-                          device=device)
+                          device=device, mesh=mesh, shard_axis=opts.mc_shard_axis)
     return Slice3DService(opts, recon, batch_window_ms=batch_window_ms)
 
 

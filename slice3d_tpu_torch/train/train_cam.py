@@ -10,7 +10,9 @@ from the recorded camera chain.  CameraNet runs its BatchNorms on batch
 statistics, Adam (b1 0.9, b2 0.999, eps 1e-8) at a constant LR minimises
 ``camera_pose_loss``, and checkpoints (the model's state_dict under
 ``"model"``) go to ``<dir_experiments>/<name_exp_cam>/ckpt``, where
-``models/build.py::load_camnet`` reads them.
+``models/build.py::load_camnet`` reads them.  In a process group the step is
+data-parallel as ``train_reg``'s: loader shards, global BatchNorm
+statistics, gradients and the loss averaged over the group, rank 0 writing.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..config import Options
 from ..data.dataset import Slice3DDataset
 from ..data.pipeline import BatchLoader
 from ..models.camnet import CameraNet, camera_pose_loss, init_camnet
+from ..parallel import all_reduce_gradients, all_reduce_mean, is_main_process
 from .checkpoint import save_checkpoint
 from .train_reg import reset_batchnorm_statistics
 
@@ -102,9 +105,9 @@ class CamTrainer:
 
     def train_step(self, state: CamTrainState, batch: Mapping[str, Any]
                    ) -> Tuple[CamTrainState, torch.Tensor]:
-        """One update (in place); returns (state, the loss as a 0-d tensor).
-        Each parameter's ``.grad`` keeps the applied gradient until the next
-        step."""
+        """One update (in place); returns (state, the loss as a 0-d tensor,
+        the group's mean).  Each parameter's ``.grad`` keeps the applied
+        gradient (averaged over the group) until the next step."""
         t = {k: torch.as_tensor(batch[k]).to(self.device, torch.float32)
              for k in ("img_input", "pcd", "regress_mat", "norm_mat", "K")}
         model = state.model.train()
@@ -113,9 +116,10 @@ class CamTrainer:
         loss, _ = camera_pose_loss(out["pred_RT_inv"], t["pcd"], t["regress_mat"],
                                    t["norm_mat"], t["K"])
         loss.backward()
+        all_reduce_gradients(state.model.parameters())
         state.optimizer.step()
         state.step += 1
-        return state, loss.detach()
+        return state, all_reduce_mean({"loss": loss.detach()})["loss"]
 
     def save(self, state: CamTrainState, dir_ckpt: str, epoch: int, loss: float) -> str:
         return save_checkpoint(os.path.join(dir_ckpt, f"{epoch}_{state.step}_{loss:.4}.ckpt"),
@@ -135,8 +139,8 @@ class CamTrainer:
             for batch in loader:
                 state, loss_t = self.train_step(state, batch)
                 loss = float(loss_t)
-                if state.step % opts.freq_log == 0:
+                if is_main_process() and state.step % opts.freq_log == 0:
                     print(f"[cam] epoch {epoch} step {state.step} loss {loss:.3e}")
-            if epoch % opts.freq_ckpt == 0:
+            if is_main_process() and epoch % opts.freq_ckpt == 0:
                 print(f"saved {self.save(state, dir_ckpt, epoch, loss)}")
         return state

@@ -10,8 +10,17 @@ AdamW (optax's defaults: b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4)
 updates the UNet and the conditioner, and ``logvar`` when it is learned; an
 EMA of the same parameters (not the BatchNorm statistics) follows each
 update.  ``scale_by_std`` sets the latents' scale factor to 1/std from the
-first batch.  The LR is ``accumulate * bs * base_lr`` on one card
-(``scale_lr``), times the ``scheduler_config`` multiplier.
+first batch.  The LR is ``accumulate * n * bs * base_lr`` over n processes
+of ``bs`` each (``scale_lr``; the JAX package's n is its device count),
+times the ``scheduler_config`` multiplier.
+
+In a process group (one process a card) the step is data-parallel and
+equals the one-process step on the global batch: each process's draws are
+its rank's rows of the global batch's (a handed draw is global, a missing
+one is drawn at the global size from the shared generator), the
+conditioner's BatchNorms take the global statistics, the gradients are
+averaged over the group before AdamW, the logs are the group's means and
+``scale_by_std`` takes the global batch's std.
 
 Differences from the JAX package, on purpose:
 
@@ -60,6 +69,8 @@ from ..diffusion.latent import LatentDiffusion, init_latent_diffusion, p_losses
 from ..diffusion.sampler import atlas_shape, encode_condition, make_eps_fn, sample_slices
 from ..diffusion.schedule import DiffusionSchedule
 from ..models.ema import ema_update
+from ..parallel import (all_reduce_gradients, all_reduce_mean, all_reduce_sum, in_group,
+                        rank_part, world_size)
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .flax_msgpack import read_flax_msgpack
 from .lr_schedules import from_scheduler_config
@@ -120,8 +131,8 @@ class LDMTrainer:
         self.accumulate = int(accumulate)
         self.learn_logvar = learn_logvar
         self.cond_train_bn = cond_train_bn
-        # one card: accumulate * 1 * bs * base_lr
-        self.lr = accumulate * batch_size * base_lr if scale_lr else base_lr
+        # accumulate * processes * bs * base_lr
+        self.lr = accumulate * world_size() * batch_size * base_lr if scale_lr else base_lr
         self.lr_multiplier = from_scheduler_config(scheduler_config)
 
     # -- state ------------------------------------------------------------------
@@ -178,26 +189,81 @@ class LDMTrainer:
                             None if posterior_noise is None else posterior_noise[:, :12],
                             generator)
 
+    def _posterior_noise(self, ldm: LatentDiffusion, images, generator,
+                         noise: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """This process's posterior noise (B, K, h, w, z) for ``images``: in a
+        group the rank's rows of the global batch's, ``noise`` if handed (it
+        is global), else drawn at the global size from ``generator`` in the
+        draw order of the one-process step; without a group ``noise`` as it
+        is."""
+        if not in_group():
+            return noise
+        b, k, hh, ww, _ = images.shape
+        f = ldm.downscale
+        zc = ldm.first_stage_model.post_quant_conv.in_channels
+        if noise is None:
+            noise = torch.randn((world_size() * b * k, hh // f, ww // f, zc),
+                                generator=generator, device=self.device)
+        return rank_part(self._tensor(noise).reshape(world_size() * b, k, hh // f, ww // f,
+                                                     zc), b)
+
+    def _step_draws(self, ldm: LatentDiffusion, images, generator,
+                    draws: Optional[Mapping[str, Any]]) -> Dict[str, Any]:
+        """A step's draws for this process (see ``_posterior_noise``): the
+        posterior noise, then t (B,), then the noise (the atlas's shape)."""
+        draws = dict(draws or {})
+        if not in_group():
+            return draws
+        n, b, k, hh, ww, _ = world_size(), *images.shape
+        f = ldm.downscale
+        zc = ldm.first_stage_model.post_quant_conv.in_channels
+        out = {"posterior_noise": self._posterior_noise(ldm, images, generator,
+                                                        draws.get("posterior_noise"))}
+        t = draws.get("t")
+        if t is None:
+            t = torch.randint(0, self.schedule.num_timesteps, (n * b,), generator=generator,
+                              device=self.device)
+        out["t"] = rank_part(torch.as_tensor(t).to(self.device), b)
+        noise = draws.get("noise")
+        if noise is None:
+            noise = torch.randn((n * b, 4 * (hh // f), 4 * (ww // f), zc), generator=generator,
+                                device=self.device)
+        out["noise"] = rank_part(self._tensor(noise), b)
+        return out
+
     def maybe_set_scale(self, state: LDMTrainState, batch: Mapping[str, Any],
                         generator: Optional[torch.Generator] = None, *,
                         noise: Optional[torch.Tensor] = None) -> LDMTrainState:
         """Before the first step with ``scale_by_std``: ``scale_factor`` =
-        1 / std of the batch's sampled latents (biased std, as ``jnp.std``);
-        the posterior noise from ``generator`` or ``noise`` (B, 13, h, w, 4)."""
+        1 / std of the batch's sampled latents (biased std, as ``jnp.std``;
+        the global batch's in a group); the posterior noise from
+        ``generator`` or ``noise`` (B, 13, h, w, 4; the global batch's in a
+        group)."""
         if not self.scale_by_std or state.step > 0:
             return state
-        z = self._encode(state, self._tensor(batch["image"]), noise, generator)
-        scale = 1.0 / z.std(correction=0)
+        images = self._tensor(batch["image"])
+        z = self._encode(state, images,
+                         self._posterior_noise(state.ldm, images, generator, noise), generator)
+        if not in_group():
+            std = z.std(correction=0)
+        else:
+            zd = z.double()
+            sums = all_reduce_sum(torch.stack([zd.sum(), (zd * zd).sum(),
+                                               torch.tensor(float(z.numel()), device=z.device,
+                                                            dtype=torch.float64)]))
+            mean = sums[0] / sums[2]
+            std = torch.sqrt(sums[1] / sums[2] - mean * mean).to(z.dtype)
+        scale = 1.0 / std
         state.ldm.scale_factor.copy_(scale)
         print(f"### USING STD-RESCALING: scale_factor = {float(scale):.6f} ###")
         return state
 
     def _loss(self, state: LDMTrainState, batch: Mapping[str, Any], *, cond_train: bool,
               generator: Optional[torch.Generator], draws: Optional[Mapping[str, Any]]):
-        draws = draws or {}
         ldm = state.ldm
-        z13 = self._encode(state, self._tensor(batch["image"]), draws.get("posterior_noise"),
-                           generator)
+        images = self._tensor(batch["image"])
+        draws = self._step_draws(ldm, images, generator, draws)
+        z13 = self._encode(state, images, draws.get("posterior_noise"), generator)
         cond = ldm.build_cond(z13, self._tensor(batch["img_ipt_view"]), train=cond_train)
         t, noise = draws.get("t"), draws.get("noise")
         return p_losses(ldm, self.schedule, ldm.make_atlas(z13), cond, logvar=state.logvar,
@@ -216,12 +282,13 @@ class LDMTrainer:
         conditioner's BatchNorms in train mode when ``cond_train_bn``, which
         moves their running statistics).  ``draws`` may hold
         ``posterior_noise`` (B, 13, h, w, 4), ``t`` (B,) and ``noise`` (the
-        atlas's shape); what it lacks comes from ``generator``.  Returns the
-        logs (0-d tensors)."""
+        atlas's shape); what it lacks comes from ``generator``.  In a group
+        the draws are the global batch's and the logs the group's means.
+        Returns the logs (0-d tensors)."""
         loss, logs = self._loss(state, batch, cond_train=self.cond_train_bn,
                                 generator=generator, draws=draws)
         (loss / self.accumulate).backward()
-        return {k: v.detach() for k, v in logs.items()}
+        return all_reduce_mean({k: v.detach() for k, v in logs.items()})
 
     def train_step(self, state: LDMTrainState, batch: Mapping[str, Any],
                    generator: Optional[torch.Generator] = None, *,
@@ -245,6 +312,8 @@ class LDMTrainer:
                 for p in group["params"]:
                     if p.grad is None:
                         p.grad = torch.zeros_like(p)
+            all_reduce_gradients(p for group in state.optimizer.param_groups
+                                 for p in group["params"])
             state.optimizer.step()
             if self.use_ema:
                 ema_update(state.ema, trainable_parameters(state.ldm), update)
@@ -277,7 +346,8 @@ class LDMTrainer:
                   draws: Optional[Mapping[str, Any]] = None,
                   use_ema: bool = True) -> Dict[str, float]:
         """Validation losses with the running BatchNorm statistics; with
-        ``use_ema`` the EMA weights are evaluated (the reference logs both)."""
+        ``use_ema`` the EMA weights are evaluated (the reference logs both).
+        In a group: this process's shard, its draws as the step's."""
         with self.ema_weights(state, use_ema):
             _, logs = self._loss(state, batch, cond_train=False, generator=generator,
                                  draws=draws)

@@ -28,6 +28,15 @@ and epoch), so ``--resume`` continues a JAX run.  A checkpoint holds the
 model's state_dict under ``"model"``, which ``models/build.py::load_model``
 reads for reconstruction.  ``<exp_dir>/code`` gets a snapshot of this
 package when it is absent; a resumed run keeps the first run's snapshot.
+
+In a process group (``parallel.init_distributed``; one process a card) the
+step is data-parallel: each process takes its loader shard, the BatchNorms
+normalise with the global batch's statistics, the gradients are averaged
+over the group before Adam, and the logs are the group's means, so the
+step is the one-process step on the global batch, as the JAX trainer's jit
+over a sharded batch.  Only rank 0 writes ``opts.txt``, the code snapshot,
+the scalars and the checkpoints; every process waits for the others before
+``--resume`` reads.
 """
 
 from __future__ import annotations
@@ -43,7 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import convert, resolve_device
-from ..config import Options, dump_options, require_ported
+from ..config import Options, dump_options
 from ..data.dataset import Slice3DDataset
 from ..data.device_transforms import DeviceTransformLoader
 from ..data.pipeline import BatchLoader
@@ -51,6 +60,7 @@ from ..models.gtslice import init_gtslice
 from ..models.perceptual import perceptual_loss
 from ..models.slicenet import init_slicenet
 from ..models.vgg import VGG19Features, load_vgg19_features
+from ..parallel import all_reduce_gradients, all_reduce_mean, barrier, is_main_process
 from .checkpoint import (adam_payload, is_torch_file, latest_checkpoint, load_adam_payload,
                          restore_checkpoint, save_checkpoint)
 from .flax_msgpack import read_flax_msgpack
@@ -173,9 +183,10 @@ class RegressionTrainer:
     def train_step(self, state: RegTrainState, batch: Mapping[str, Any]
                    ) -> Tuple[RegTrainState, Dict[str, torch.Tensor]]:
         """One update (in place): forward with batch-statistics BatchNorm,
-        backward, Adam at the schedule's LR of this update.  Each parameter's
-        ``.grad`` keeps the applied gradient until the next step.  Returns
-        (state, logs as 0-d tensors)."""
+        backward, the gradients averaged over the process group, Adam at the
+        schedule's LR of this update.  Each parameter's ``.grad`` keeps the
+        applied gradient until the next step.  Returns (state, logs as 0-d
+        tensors, the group's means)."""
         model = state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         loss, logs = self.losses(*self._forward(model, batch), batch)
@@ -186,15 +197,16 @@ class RegressionTrainer:
             for p in group["params"]:
                 if p.grad is None:  # optax sees a zero gradient there
                     p.grad = torch.zeros_like(p)
+        all_reduce_gradients(state.model.parameters())
         state.optimizer.step()
         state.step += 1
         logs["loss"] = loss
-        return state, {k: v.detach() for k, v in logs.items()}
+        return state, all_reduce_mean({k: v.detach() for k, v in logs.items()})
 
     @torch.no_grad()
     def eval_epoch(self, state: RegTrainState, loader) -> Dict[str, float]:
         """The mean of each log over ``loader``'s batches, on the running
-        BatchNorm statistics."""
+        BatchNorm statistics (over every process's shard in a group)."""
         model = state.model.eval()
         sums: Dict[str, float] = {}
         n = 0
@@ -203,7 +215,8 @@ class RegressionTrainer:
             for k, v in logs.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
             n += 1
-        return {k: v / max(n, 1) for k, v in sums.items()}
+        means = {k: torch.tensor(v / max(n, 1)) for k, v in sums.items()}
+        return {k: float(v) for k, v in all_reduce_mean(means).items()}
 
     # -- checkpoints ------------------------------------------------------------------
 
@@ -261,8 +274,18 @@ class _PrintWriter:
         pass
 
 
+class _NullWriter(_PrintWriter):
+    """The writer of a process other than rank 0: drops the scalars."""
+
+    def add_scalar(self, tag: str, value: float, step: int) -> None:
+        pass
+
+
 def scalar_writer(log_dir: str):
-    """TensorBoard's ``SummaryWriter`` when it imports, else a printer."""
+    """TensorBoard's ``SummaryWriter`` when it imports, else a printer; on a
+    process other than rank 0, nothing."""
+    if not is_main_process():
+        return _NullWriter()
     try:
         from torch.utils.tensorboard import SummaryWriter
     except ImportError:
@@ -280,15 +303,16 @@ def train(opts: Options, *,
     """The training run of root ``train.py`` / ``train_gt.py`` (reference
     train.py:105-183): datasets, loaders, ``--resume`` from the newest
     checkpoint, epochs of steps with a log line every ``freq_log`` steps,
-    validation and a checkpoint every ``freq_ckpt`` epochs.  Returns the
-    final state."""
+    validation and a checkpoint every ``freq_ckpt`` epochs.  In a process
+    group every process runs it on its shard and rank 0 writes.  Returns
+    the final state."""
     dev = resolve_device(device)
-    require_ported(opts)
-    os.makedirs(opts.exp_dir, exist_ok=True)
-    dump_options(opts, os.path.join(opts.exp_dir, "opts.txt"))
-    _backup_code(opts.exp_dir)
+    main = is_main_process()
     dir_ckpt = os.path.join(opts.exp_dir, "ckpt")
     os.makedirs(dir_ckpt, exist_ok=True)
+    if main:
+        dump_options(opts, os.path.join(opts.exp_dir, "opts.txt"))
+        _backup_code(opts.exp_dir)
     writer = scalar_writer(os.path.join(opts.exp_dir, "log"))
 
     # device_preprocess covers GT slice PNGs only (generated and
@@ -318,10 +342,12 @@ def train(opts: Options, *,
     state = trainer.init_state()
     epoch0 = 0
     if opts.resume:
+        barrier()  # rank 0's writes of an earlier run are done
         ckpt = latest_checkpoint(dir_ckpt)
         if ckpt:
             state, epoch0 = trainer.restore(state, ckpt)
-            print(f"resumed from {ckpt} at epoch {epoch0}")
+            if main:
+                print(f"resumed from {ckpt} at epoch {epoch0}")
 
     t0 = time.time()
     try:
@@ -329,7 +355,7 @@ def train(opts: Options, *,
             for batch in train_loader:
                 state, logs = trainer.train_step(state, batch)
                 step = state.step
-                if step % opts.freq_log == 0:
+                if main and step % opts.freq_log == 0:
                     line = ", ".join(f"{k}: {float(v):.5f}" for k, v in logs.items())
                     print(f"[train] epoch {epoch} iter {step} lr {trainer.schedule(step - 1):.6g} "
                           f"{line} ({time.time() - t0:.0f}s)")
@@ -337,6 +363,8 @@ def train(opts: Options, *,
                     writer.add_scalar("Acc/train", float(logs["acc"]), step)
             if epoch % opts.freq_ckpt == 0:
                 metrics = trainer.eval_epoch(state, val_loader)
+                if not main:
+                    continue
                 peak = (f", peak {torch.cuda.max_memory_allocated(dev) / 1e9:.4f} GB"
                         if dev.type == "cuda" else "")
                 print(f"[val] epoch {epoch} {metrics}{peak}")

@@ -36,6 +36,14 @@ JAX trainer's msgpack files (``convert.vae_train_payload``).
 The networks compute in ``dtype`` over fp32 master weights (so gradients
 and Adam's moments are fp32); the losses are fp32.  The posterior sample's
 noise comes from the caller's ``torch.Generator`` or ``draws``.
+
+In a process group (one process a card) the step is data-parallel and
+equals the one-process step on the global batch: the posterior noise is the
+rank's rows of the global batch's (handed, or drawn at the global size from
+the shared generator), D's BatchNorms take the global statistics, the two
+gradients of the adaptive weight are averaged over the group before their
+norms, both optimizers' gradients are averaged before their steps and the
+logs are the group's means.
 """
 
 from __future__ import annotations
@@ -54,6 +62,8 @@ from ..models.layers import BatchNorm2d
 from ..models.lpips import load_lpips
 from ..models.random_init import random_init_
 from ..models.vae import AutoencoderKL, DiagonalGaussian
+from ..parallel import (all_reduce_average, all_reduce_gradients, all_reduce_mean, in_group,
+                        rank_part, world_size)
 from .checkpoint import (adam_payload, is_torch_file, load_adam_payload, restore_checkpoint,
                          save_checkpoint)
 from .flax_msgpack import read_flax_msgpack
@@ -154,7 +164,13 @@ class VAEFinetuneTrainer:
     def _reconstruct(self, vae: AutoencoderKL, x: torch.Tensor, noise,
                      generator: Optional[torch.Generator]):
         """(rec, moments) in fp32, the posterior noise from ``noise`` or
-        ``generator``."""
+        ``generator``: in a group the rank's rows of the global batch's."""
+        if in_group():
+            n, hw = x.shape[0], x.shape[1] // vae.downscale
+            if noise is None:
+                noise = torch.randn((world_size() * n, hw, hw, vae.post_quant_conv.in_channels),
+                                    generator=generator, device=self.device)
+            noise = rank_part(self._tensor(noise), n)
         rec, moments = vae(x, None if noise is None else self._tensor(noise), generator)
         return rec.float(), moments.float()
 
@@ -190,6 +206,7 @@ class VAEFinetuneTrainer:
         last = vae.decoder.conv_out.weight
         nll_grad, = torch.autograd.grad(nll, last, retain_graph=True)
         g_grad, = torch.autograd.grad(g, last, retain_graph=True)
+        all_reduce_average([nll_grad, g_grad])  # the global batch's, as the weight's
         d_weight = adaptive_disc_weight(torch.linalg.vector_norm(nll_grad),
                                         torch.linalg.vector_norm(g_grad), self.disc_weight)
         ae_loss = nll + self.kl_weight * kl + d_weight * gan_on * g
@@ -211,11 +228,12 @@ class VAEFinetuneTrainer:
                 for p in group["params"]:
                     if p.grad is None:  # optax sees a zero gradient there
                         p.grad = torch.zeros_like(p)
+            all_reduce_gradients(p for group in opt.param_groups for p in group["params"])
             opt.step()
         state.step += 1
         logs = {"rec_loss": nll, "kl": kl, "g_loss": g, "d_weight": d_weight,
                 "ae_loss": ae_loss, "disc_loss": d_loss}
-        return state, {k: v.detach() for k, v in logs.items()}
+        return state, all_reduce_mean({k: v.detach() for k, v in logs.items()})
 
     # -- evaluation ---------------------------------------------------------------
 

@@ -4,7 +4,10 @@ reference reg_slices/train_gt.py).
     python -m slice3d_tpu_torch.train_gt --name_exp exp_gt --name_dataset objaverse \
         --from_which_slices gt_rec [--device cpu]
 
-Takes the root CLI's flags plus ``--device`` (default ``cuda``).
+Takes the root CLI's flags plus ``--device`` (default ``cuda``).  With
+``SLICE3D_COORDINATOR`` / ``SLICE3D_NUM_PROCESSES`` / ``SLICE3D_PROCESS_ID``
+set, each process joins one data-parallel group (``parallel.init_distributed``;
+``--multi_gpu`` is accepted, the sharding is automatic).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import argparse
 
 from .config import options_from_args
+from .parallel import init_distributed
 from .train.train_reg import train
 
 
@@ -20,6 +24,7 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     own, rest = parser.parse_known_args(argv)
     opts = options_from_args(rest)
+    init_distributed(device=own.device)
     opts.name_model = "gtslice"
     train(opts, device=own.device)
 

@@ -216,8 +216,8 @@ def test_cli_needs_the_card_or_device_cpu(tmp_path):
                              n_sdf=16)
     argv = ["--dir_data", str(tmp_path), "--name_dataset", "synth", "--random_init",
             "--img_size", "32", "--n_views", "6", "--dir_experiments", str(tmp_path / "exp")]
-    with pytest.raises(NotImplementedError, match="sharding"):
-        port_cli.main(argv + ["--mc_shard_axis", "points", "--device", "cpu"])
+    with pytest.raises(ValueError, match="shard_axis"):
+        port_cli.main(argv + ["--mc_shard_axis", "rows", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             port_cli.main(argv)

@@ -10,6 +10,7 @@ and meshes, on both coarse-level routes, as tests/test_torch_pipeline.py
 holds SliceNet's.
 """
 
+import os
 import types
 
 import numpy as np
@@ -122,3 +123,94 @@ def test_init_gtslice_draws_every_weight():
         if v.is_floating_point() and v.numel() > 1:
             assert not torch.equal(v, sc[k]), k  # drawn, not left at its init
     assert not a.training
+
+
+class _Float64Reconstructor(Reconstructor):
+    """The port's Reconstructor on a float64 model: the images, the lattice
+    points and every layer in float64.  The projection, the hat weights and
+    the head's last cast stay fp32, as the precision policy fixes them."""
+
+    def _stack_inputs(self, feeds, device=None):
+        imgs, extras = super()._stack_inputs(feeds, device)
+        return imgs.double(), tuple(e.astype(np.float64) for e in extras)
+
+    def _index_logits(self, enc, d, obj, idx, res):
+        n = res + 1
+        ix = torch.from_numpy(np.asarray(idx, np.int64))
+        pts = torch.stack([ix // (n * n), (ix // n) % n, ix % n], -1).double()
+        return self._logits(enc.conds[d], obj, (pts / res - 0.5) * self.box_size, d=d)
+
+
+@pytest.fixture(scope="module")
+def coarse_grids(models, recon):
+    """The coarse level (res0 16, no refinement) of the float64 port and of
+    JAX's fp32 Reconstructor on both routes, and the iso level."""
+    jmodel, variables, model, *_ = models
+    _, _, feed, kw = recon
+    kw0 = dict(kw, upsampling_steps=0)
+    m64 = GTSliceModel(N_SLICES).eval()
+    m64.load_state_dict(model.state_dict())
+    rec64 = _Float64Reconstructor(m64.double(), lattice_dense=False, device="cpu", **kw0)
+    rec64._replicas = [(rec64.model, rec64._flip.double())]
+    g64, _ = rec64.build_grid(feed)
+    jrec = JaxReconstructor(jmodel, jax.tree_util.tree_map(jnp.asarray, variables),
+                            transport_dtype="float32", **kw0)
+    j_grids = {}
+    for lattice in (True, False):
+        os.environ["SLICE3D_LATTICE_DENSE"] = "1" if lattice else "0"
+        j_grids[lattice] = np.asarray(jrec._build_grid(feed)[0])
+    os.environ.pop("SLICE3D_LATTICE_DENSE")
+    return g64, j_grids, rec64.generator.logit_threshold, kw0
+
+
+@pytest.mark.parametrize("threads", [1, 0], ids=["one_thread", "default_threads"])
+@pytest.mark.parametrize("lattice", [True, False], ids=["lattice", "gather"])
+def test_iso_level_ties_against_float64(models, recon, coarse_grids, lattice, threads):
+    """Why ``test_reconstruct_matches_jax`` fails with torch in one thread
+    (ROADMAP Queue 3): its refined grid then departs from JAX's by 2.16e-3
+    because the two refine different points, and they do because one coarse
+    value lies on the iso level: the fixture's level is the median coarse
+    logit, one lattice value (at (1, 14, 16); 1.4e-8 below it in float64,
+    less than one fp32 ulp), so fp32 noise of either package picks its side
+    (readings, printed: the port +4.5e-8 in one thread, -8.9e-8 and -1.5e-7
+    in the default threads, JAX -1.6e-7).  Both fp32 coarse grids hold to
+    the float64 one at 1e-6, and every coarse point that either package
+    puts on the other side of the iso level than float64 lies within that
+    1e-6 of it: a tie, not a fault of either.
+
+    The port's grid is no farther from float64 than JAX's on the same route:
+    its RMS error at most 0.9 of JAX's (readings: the port 1.41e-7 to
+    1.45e-7, JAX 1.69e-7 on the gather route and 1.71e-7 on the lattice
+    route; ratios 0.83 to 0.85), and its largest error at most 1.1 of
+    JAX's (readings: the port 6.41e-7 / 6.56e-7 on the lattice route, 5.4e-7
+    / 4.92e-7 on the gather route, default / one thread; JAX 6.33e-7 and
+    6.85e-7; ratios 0.72 to 1.04: the one point the port is farther at
+    lies 0.23e-7 beyond JAX's).  The float64 grid keeps the port's fp32
+    projection and hat weights, as the precision policy fixes them, so there
+    it shares the port's rounding."""
+    rms_ratio, max_ratio = 0.9, 1.1
+    _, _, model, *_ = models
+    g64, j_grids, thr, kw0 = coarse_grids
+    n = torch.get_num_threads()
+    if threads:
+        torch.set_num_threads(threads)
+    try:
+        grid, _ = Reconstructor(model, lattice_dense=lattice, device="cpu",
+                                **kw0).build_grid(recon[2])
+    finally:
+        torch.set_num_threads(n)
+    g64 = g64.astype(np.float64)
+    median = np.unravel_index(np.argsort(g64.ravel())[g64.size // 2], g64.shape)
+    errors = {}
+    for name, g in (("port", grid), ("jax", j_grids[lattice])):
+        flipped = (g > thr) != (g64 > thr)
+        e = np.abs(g - g64)
+        errors[name] = (float(np.sqrt(np.mean(e * e))), float(e.max()))
+        print(f"{name}: |fp32 - float64| rms {errors[name][0]:.3g}, max {errors[name][1]:.3g}; "
+              f"at the median point {median}: fp32 - level {g[median] - thr:.3g}, float64 - "
+              f"level {g64[median] - thr:.3g}; other side than float64 at "
+              f"{[tuple(int(i) for i in p) for p in np.argwhere(flipped)]}")
+        np.testing.assert_allclose(g, g64, atol=1e-6, rtol=0)
+        assert np.all(np.abs(g64[flipped] - thr) < 1e-6)
+    assert errors["port"][0] <= rms_ratio * errors["jax"][0], errors
+    assert errors["port"][1] <= max_ratio * errors["jax"][1], errors

@@ -304,28 +304,21 @@ def test_options_match_jax():
         os.path.join("d", "shapenet"), os.path.join("experiments", "default_exp"), ["a", "b"])
 
 
-@pytest.mark.parametrize("name,value", [("mc_shard_axis", "points"), ("multi_gpu", True)])
-def test_unported_options_raise(name, value):
-    opts = config.Options(**dict(SMALL, **{name: value}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config.require_ported(opts)
-    with pytest.raises(NotImplementedError):
-        serve.build_service(opts, device="cpu")
-
-
 @pytest.mark.parametrize("name,value", [
     ("name_model", "disn"), ("est_campose", True), ("mc_refine_steps", 3),
-    ("simplify_nfaces", 5000), ("mc_extract", "tetrahedra"), ("device_preprocess", True)])
+    ("simplify_nfaces", 5000), ("mc_extract", "tetrahedra"), ("device_preprocess", True),
+    ("mc_shard_axis", "points"), ("multi_gpu", True)])
 def test_ported_options_are_accepted(name, value):
-    """The options this port once refused reach the service's Reconstructor."""
+    """The options this port once refused reach the service's Reconstructor
+    (on the CPU's one device no mesh is made, as on one card)."""
     opts = config.Options(**dict(SMALL, **{name: value}))
-    config.require_ported(opts)
     service = serve.build_service(opts, device="cpu")
     try:
         rec = service.recon
-        assert (rec.is_disn, rec.refine_steps, rec.simplify_nfaces, rec.generator.method) == (
+        assert (rec.is_disn, rec.refine_steps, rec.simplify_nfaces, rec.generator.method,
+                rec.shard_axis, rec.mesh) == (
             opts.name_model == "disn", opts.mc_refine_steps, opts.simplify_nfaces,
-            opts.mc_extract)
+            opts.mc_extract, opts.mc_shard_axis, None)
     finally:
         service.close()
 

@@ -1,0 +1,388 @@
+"""Data-parallel cases for the port's multi-process tests, and the launcher
+that runs them in gloo processes.
+
+The workers import the port and this module only (no JAX).  Each case makes
+the global batches of ``PROCS`` processes from numpy seeds, takes this
+process's rows (all of them without a group: the one-process reference),
+takes STEPS steps and records every step's logs and the first step's
+gradients and update (``_record``).  ``run_workers`` starts ``PROCS`` Python
+processes joined by ``SLICE3D_COORDINATOR`` / ``SLICE3D_NUM_PROCESSES`` /
+``SLICE3D_PROCESS_ID`` into one gloo group on a free local port, each in one
+torch thread, and fails within its timeout if the group hangs.  After the
+group, rank 0 runs each case again without one and holds the group's run to
+it (``compare``); the ranks return digests of their gradients and states,
+so that only the readings and the failures reach the tests.
+"""
+
+import hashlib
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from slice3d_tpu_torch import camera
+from slice3d_tpu_torch.config import Options
+from slice3d_tpu_torch.diffusion.latent import LatentDiffusion
+from slice3d_tpu_torch.models.random_init import random_init_
+from slice3d_tpu_torch.parallel import rank, world_size
+from slice3d_tpu_torch.train.train_cam import CamTrainer
+from slice3d_tpu_torch.train.train_ldm import LDMTrainer, trainable_parameters
+from slice3d_tpu_torch.train.train_reg import RegressionTrainer
+from slice3d_tpu_torch.train.train_vae import VAEFinetuneTrainer
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PROCS = 2  # processes of the group; the global batch is PROCS x the local one
+STEPS = 2  # steps a case takes; the second step's logs depend on the first update
+
+REG_B, REG_IMG, REG_Q, REG_LR = 2, 32, 16, 3e-4  # local batch; the Options default LR
+LDM_B, LDM_IMG, LDM_T = 1, 16, 20
+LDM_TINY = dict(timesteps=LDM_T, vae_ch=32, vae_mult=(1, 2), vae_nres=1, unet_channels=32,
+                unet_mult=(1, 2), unet_nres=1, unet_attention_ds=(1,),
+                unet_inject_blocks=(0, 3), cond_widths=(32, 64), latent_size=LDM_IMG // 2)
+VAE_N, VAE_IMG = 2, 32
+
+
+def _mine(batch, n_local):
+    """This process's rows of a global numpy batch dict."""
+    per = n_local * PROCS // world_size()
+    return {k: v[rank() * per:(rank() + 1) * per] for k, v in batch.items()}
+
+
+def _floats(logs):
+    return {k: float(v) for k, v in logs.items()}
+
+
+def _record(parts, params, step):
+    """Run ``step(i) -> logs`` for i < STEPS.  ``parts()``: {part: the
+    tensors compared, by name}; ``params()``: {part: the trained
+    parameters by name, whose ``.grad`` holds the gradient a step applied}
+    (a part that is not trained, an EMA, is compared at its parameters'
+    names).  Returns every step's logs; of the first step the gradients by
+    part, the update of each compared tensor (after - before, fp64) and the
+    BatchNorm running statistics after it; and ``parts`` after the last
+    step."""
+    snap = lambda: {part: {k: v.detach().clone() for k, v in d.items()}  # noqa: E731
+                    for part, d in parts().items()}
+    before, out = snap(), {"logs": []}
+    for i in range(STEPS):
+        out["logs"].append(_floats(step(i)))
+        if i == 0:
+            after = snap()
+            out["grads"] = {part: {k: p.grad.detach().clone() for k, p in named.items()}
+                            for part, named in params().items()}
+            names = {part: out["grads"].get(part, out["grads"].get("state"))
+                     for part in after}
+            out["delta"] = {part: {k: after[part][k].double() - before[part][k].double()
+                                   for k in names[part]} for part in after}
+            out["stats"] = {part: {k: v for k, v in d.items() if k.endswith(_STATS)}
+                            for part, d in after.items()}
+            del before, after
+    out["last"] = snap()
+    return out
+
+
+# How the group's run is held to the one-process run (``compare``).  The
+# first step's logs at the log tolerance of tests/test_parallel.py.  The
+# later steps' at LATER_LOG_TOL: Adam's first step is lr * sign(g), so the
+# few gradients that reduction-order noise alone sets apart from zero (a
+# bias before a normalisation is one) move by lr with a sign either run may
+# pick, and that moves the later logs of the regression models by up to
+# 1.1e-4 relative (measured over three steps; ``later_logs`` in the
+# readings), where an LR 1 % off moves their ``loss_pred`` by 3e-3 to 5e-3.  The first step's gradients per tensor at GRAD_RTOL of
+# its norm plus GRAD_FLOOR of the model's largest gradient: the noise of a
+# batch split reaches 7.5e-3 of the norm in the early convolutions of
+# GTSlice's BatchNorm encoder (measured); a summed or an unreduced gradient
+# is 1 off.  The first step's update, which Adam's scale-invariance would
+# hide a gradient scale from, is held to the one-process update at
+# UPDATE_RTOL on every element whose reference update is over half the
+# largest (lr / 2 for Adam's first step) and whose gradient is settled,
+# over SETTLED times the two runs' difference: there -lr * g / (|g| + eps)
+# moves by at most 1 / SETTLED relative.  At least SETTLED_SHARE of those
+# elements are compared (0.879 in GTSlice, the least, measured).  A step
+# left out or an LR k times off is 1 or |k - 1| off.
+LOG_TOL = dict(rtol=2e-5, atol=2e-6)
+LATER_LOG_TOL = dict(rtol=1e-3, atol=2e-6)
+GRAD_RTOL, GRAD_FLOOR = 2e-2, 1e-5
+UPDATE_RTOL, SETTLED, SETTLED_SHARE = 1e-2, 100.0, 0.75
+STATS_ATOL = 1e-6  # the BatchNorm running statistics after the first step
+_STATS = ("running_mean", "running_var")
+
+
+def _close(got, want, tol):
+    return abs(got - want) <= tol["atol"] + tol["rtol"] * abs(want)
+
+
+def compare(got, want):
+    """Hold a rank's recorded run (``_record``) to the one-process run
+    ``want``: (the failures, as text; the readings)."""
+    fails, read = [], {"later_logs": 0.0, "grad": 0.0, "update": 0.0, "settled_share": 1.0}
+    if len(got["logs"]) != len(want["logs"]):
+        fails.append(f"{len(got['logs'])} steps, expected {len(want['logs'])}")
+    for i, (g, w) in enumerate(zip(got["logs"], want["logs"])):
+        if set(g) != set(w):
+            fails.append(f"step {i}: logs {sorted(g)}, expected {sorted(w)}")
+        for k in set(g) & set(w):
+            if i:
+                read["later_logs"] = max(read["later_logs"],
+                                         abs(g[k] - w[k]) / max(abs(w[k]), 1e-30))
+            if not _close(g[k], w[k], LOG_TOL if i == 0 else LATER_LOG_TOL):
+                fails.append(f"step {i} {k}: {g[k]!r}, expected {w[k]!r}")
+    if "scale" in want and not _close(got["scale"], want["scale"], dict(rtol=2e-5, atol=0.0)):
+        fails.append(f"scale {got['scale']!r}, expected {want['scale']!r}")
+    if got.get("lr") != want.get("lr"):
+        fails.append(f"lr {got.get('lr')!r}, expected {want.get('lr')!r}")
+    for part, grads in want["grads"].items():
+        floor = GRAD_FLOOR * max(float(v.abs().max()) for v in grads.values())
+        for k, v in grads.items():
+            diff = float((got["grads"][part][k].double() - v.double()).norm())
+            limit = GRAD_RTOL * float(v.double().norm()) + floor
+            read["grad"] = max(read["grad"], diff / limit)
+            if diff > limit:
+                fails.append(f"gradient {part} {k}: off by {diff:.3g} (limit {limit:.3g})")
+    for part, delta in want["delta"].items():
+        grads = want["grads"].get(part, want["grads"].get("state"))
+        got_grads = got["grads"].get(part, got["grads"].get("state"))
+        big = max(float(d.abs().max()) for d in delta.values()) / 2
+        n_big = n_settled = 0
+        for k, d1 in delta.items():
+            d2, g1 = got["delta"][part][k], grads[k].double()
+            m = d1.abs() > big
+            settled = m & (g1.abs() > SETTLED * (got_grads[k].double() - g1).abs())
+            n_big, n_settled = n_big + int(m.sum()), n_settled + int(settled.sum())
+            if settled.any():
+                rel = float(((d2 - d1).abs()[settled] / d1.abs()[settled]).max())
+                read["update"] = max(read["update"], rel)
+                if rel > UPDATE_RTOL:
+                    fails.append(f"update {part} {k}: off by {rel:.3g} relative")
+        share = n_settled / max(n_big, 1)
+        read["settled_share"] = min(read["settled_share"], share)
+        if not n_big or share < SETTLED_SHARE:
+            fails.append(f"update {part}: {n_settled} of {n_big} elements settled")
+        for k, v in want["stats"][part].items():
+            diff = float((got["stats"][part][k] - v).abs().max())
+            if diff > STATS_ATOL:
+                fails.append(f"statistics {part} {k}: off by {diff:.3g}")
+    return fails, read
+
+
+def assert_like_one(ranks, name):
+    """Rank 0's run of job ``name`` was the one-process run (``compare``),
+    and every rank ended with rank 0's logs, gradients and state."""
+    r0 = ranks[0][name]
+    print(f"{name}: {r0['readings']}")
+    assert not r0["failures"], "\n".join(r0["failures"])
+    for r in ranks[1:]:
+        assert r[name]["logs"] == r0["logs"]
+        assert r[name]["digests"] == r0["digests"]  # one averaged gradient, one update
+
+
+def _digest(tensors):
+    """{part: {name: tensor}} -> {part: {name: sha1 of its bytes}}."""
+    return {part: {k: hashlib.sha1(v.detach().contiguous().reshape(-1).view(torch.uint8)
+                                   .numpy().tobytes()).hexdigest() for k, v in d.items()}
+            for part, d in tensors.items()}
+
+
+def summarize(jobs, results, group_rank):
+    """After the group: each job's logs, scalars and the digests of its
+    gradients and last state; on rank 0 also ``compare`` against the job run
+    again in this process without a group, the one-process reference."""
+    out = {}
+    for name, (fn, args) in jobs.items():
+        got = results[name]
+        out[name] = {k: got[k] for k in ("logs", "scale", "lr") if k in got}
+        out[name]["digests"] = {k: _digest(got[k]) for k in ("grads", "last") if k in got}
+        if group_rank == 0 and "delta" in got:
+            out[name]["failures"], out[name]["readings"] = compare(
+                got, getattr(sys.modules[__name__], fn)(*args))
+        del got, results[name]
+    return out
+
+
+def reg_batch(seed):
+    """The global regression batch (PROCS x REG_B objects)."""
+    n = PROCS * REG_B
+    rng = np.random.default_rng(seed)
+    rots, trans = zip(*(camera.camera_matrices(az, el, 1.2) for az, el in
+                        rng.uniform((0.0, -0.2), (2 * np.pi, 0.6), (n, 2))))
+    sdf = rng.normal(size=(n, REG_Q)).astype(np.float32) * 0.1
+    return {"img_input": rng.uniform(-1, 1, (n, REG_IMG, REG_IMG, 3)).astype(np.float32),
+            "img_slices": rng.uniform(-1, 1, (n, 12, REG_IMG, REG_IMG, 3)).astype(np.float32),
+            "qry_norot": rng.uniform(-0.5, 0.5, (n, REG_Q, 3)).astype(np.float32),
+            "sdf": sdf, "occ": (sdf <= 0).astype(np.float32),
+            "obj_rot_mat": np.stack(rots).astype(np.float32),
+            "trans_mat_wo_rot_tp": np.stack(trans).astype(np.float32)}
+
+
+def reg_opts(name):
+    return Options(name_model=name, img_size=REG_IMG, n_qry=REG_Q, n_bs=REG_B, lr=REG_LR,
+                   freq_decay=1, weight_decay=0.5)
+
+
+def run_reg(name, init_path=None):
+    """STEPS regression steps of ``name`` on the batches ``reg_batch(70 +
+    i)`` from the port's seed-3 init (or the state_dict saved at
+    ``init_path``), recorded (``_record``)."""
+    trainer = RegressionTrainer(reg_opts(name), steps_per_epoch=4, device="cpu")
+    state = trainer.init_state(seed=3)
+    if init_path is not None:
+        state.model.load_state_dict(torch.load(init_path))
+    return _record(lambda: {"state": state.model.state_dict()},
+                   lambda: {"state": dict(state.model.named_parameters())},
+                   lambda i: trainer.train_step(state, _mine(reg_batch(70 + i), REG_B))[1])
+
+
+def cam_batch(seed):
+    n = PROCS * REG_B
+    rng = np.random.default_rng(seed)
+    return {"img_input": rng.uniform(-1, 1, (n, REG_IMG, REG_IMG, 3)).astype(np.float32),
+            "pcd": rng.uniform(-0.5, 0.5, (n, 64, 3)).astype(np.float32),
+            "regress_mat": rng.normal(size=(n, 4, 3)).astype(np.float32),
+            "norm_mat": np.broadcast_to(np.eye(4, dtype=np.float32), (n, 4, 4)).copy(),
+            "K": np.broadcast_to(camera.intrinsics(1.0, 1.0).astype(np.float32),
+                                 (n, 3, 3)).copy()}
+
+
+def run_cam():
+    """STEPS CameraNet steps on ``cam_batch(80 + i)`` from the seed-4 init,
+    recorded."""
+    trainer = CamTrainer(lr=REG_LR, img_size=REG_IMG, device="cpu")
+    state = trainer.init_state(seed=4)
+    return _record(lambda: {"state": state.model.state_dict()},
+                   lambda: {"state": dict(state.model.named_parameters())},
+                   lambda i: {"loss": trainer.train_step(state,
+                                                         _mine(cam_batch(80 + i), REG_B))[1]})
+
+
+def ldm_inputs(seed):
+    """(the global batch, the global draws of one step)."""
+    n, h = PROCS * LDM_B, LDM_IMG // 2
+    rng = np.random.default_rng(seed)
+    batch = {"image": rng.uniform(-1, 1, (n, 13, LDM_IMG, LDM_IMG, 3)).astype(np.float32),
+             "img_ipt_view": rng.uniform(-1, 1, (n, LDM_IMG, LDM_IMG, 3)).astype(np.float32)}
+    draws = {"posterior_noise": rng.normal(size=(n, 13, h, h, 4)).astype(np.float32),
+             "t": rng.integers(0, LDM_T, (n,)),
+             "noise": rng.normal(size=(n, 4 * h, 4 * h, 4)).astype(np.float32)}
+    return batch, draws
+
+
+def run_ldm(handed):
+    """``maybe_set_scale`` and STEPS LDM steps on ``ldm_inputs(90 + i)`` from
+    the seed-0 model, with handed global draws (``handed``) or drawn from a
+    generator seeded alike on every process, recorded (the trainable
+    parameters and the EMA), with the scale and the LR."""
+    module = random_init_(LatentDiffusion(**LDM_TINY), torch.Generator().manual_seed(0))
+    trainer = LDMTrainer(img_size=LDM_IMG, batch_size=LDM_B * PROCS // world_size(),
+                         timesteps=LDM_T, base_lr=1e-4, module=module.eval(),
+                         scale_by_std=True, device="cpu")
+    state = trainer.init_state()
+    batch, draws = ldm_inputs(90)
+    g = torch.Generator().manual_seed(91)
+    trainer.maybe_set_scale(state, _mine(batch, LDM_B), g,
+                            noise=draws["posterior_noise"] if handed else None)
+
+    def step(i):
+        batch, draws = ldm_inputs(90 + i)
+        return trainer.train_step(state, _mine(batch, LDM_B), g,
+                                  draws=draws if handed else None)[1]
+
+    out = _record(lambda: {"state": trainable_parameters(state.ldm), "ema": state.ema},
+                  lambda: {"state": trainable_parameters(state.ldm)}, step)
+    return dict(out, scale=float(state.ldm.scale_factor), lr=trainer.lr)
+
+
+def run_vae(handed):
+    """STEPS finetune steps with the GAN on from the seed-5 init, the
+    posterior noise handed (global) or drawn from a generator seeded alike,
+    recorded (both networks)."""
+    trainer = VAEFinetuneTrainer(img_size=VAE_IMG, vae_ch=32, vae_mult=(1, 2), vae_nres=1,
+                                 lr=1e-4, disc_start=0, device="cpu")
+    state = trainer.init_state(seed=5)
+    rng = np.random.default_rng(100)
+    n = PROCS * VAE_N
+    g = torch.Generator().manual_seed(6)
+
+    def step(i):
+        batch = {"image": rng.uniform(-1, 1, (n, VAE_IMG, VAE_IMG, 3)).astype(np.float32)}
+        noise = rng.normal(size=(n, VAE_IMG // 2, VAE_IMG // 2, 4)).astype(np.float32)
+        return trainer.train_step(state, _mine(batch, VAE_N), g,
+                                  draws={"posterior_noise": noise} if handed else None)[1]
+
+    return _record(lambda: {"state": state.vae.state_dict(), "disc": state.disc.state_dict()},
+                   lambda: {"state": dict(state.vae.named_parameters()),
+                            "disc": dict(state.disc.named_parameters())}, step)
+
+
+def run_reg_cli(data_root, exp_root, writes_path):
+    """The SliceNet CLI for one epoch, each checkpoint write recorded with the
+    writing process's rank; returns the final state_dict."""
+    from slice3d_tpu_torch.train import __main__ as cli
+    from slice3d_tpu_torch.train import train_reg
+
+    save = train_reg.save_checkpoint
+
+    def recorded(path, payload):
+        with open(writes_path, "a") as f:
+            f.write(f"{rank()} {os.path.basename(path)}\n")
+        return save(path, payload)
+
+    train_reg.save_checkpoint = recorded
+    state = cli.main(["--dir_data", data_root, "--name_dataset", "synth", "--device", "cpu",
+                      "--img_size", "32", "--n_qry", "16", "--n_bs", "1", "--n_views", "6",
+                      "--n_epochs", "1", "--n_wk", "1", "--freq_ckpt", "1", "--multi_gpu",
+                      "--dir_experiments", exp_root, "--name_exp", "dp"])
+    return {"last": {"state": state.model.state_dict()}}
+
+
+WORKER = """
+import sys
+sys.path[:0] = [{root!r}, {tests!r}]
+# the scalars go to the printer: TensorBoard may import TensorFlow, which may import JAX
+sys.modules["torch.utils.tensorboard"] = None
+import torch
+torch.set_num_threads(1)
+from slice3d_tpu_torch.parallel import init_distributed, rank
+assert init_distributed(device="cpu", timeout_s=30) == {procs}
+import torch_dp_cases as cases
+jobs, r = {jobs!r}, rank()
+results = {{name: getattr(cases, fn)(*args) for name, (fn, args) in jobs.items()}}
+torch.distributed.destroy_process_group()
+out = cases.summarize(jobs, results, r)
+out["jax_imported"] = any(m == "jax" or m.startswith(("jax.", "slice3d_tpu."))
+                          for m in sys.modules)
+torch.save(out, f"{out_dir}/rank{{r}}.pt")
+"""
+
+
+def run_workers(jobs, out_dir, timeout=300):
+    """Run ``jobs`` ({name: (function of this module, args)}) in PROCS gloo
+    processes; returns each rank's {name: ``summarize``'s summary,
+    "jax_imported": bool}."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    code = WORKER.format(root=ROOT, tests=os.path.dirname(os.path.abspath(__file__)),
+                         procs=PROCS, jobs=jobs, out_dir=str(out_dir))
+    procs = []
+    for r in range(PROCS):
+        env = dict(os.environ, SLICE3D_COORDINATOR=f"127.0.0.1:{port}",
+                   SLICE3D_NUM_PROCESSES=str(PROCS), SLICE3D_PROCESS_ID=str(r),
+                   OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen([sys.executable, "-c", code], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    outputs = []
+    try:
+        for p in procs:
+            outputs.append(p.communicate(timeout=timeout)[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, text in zip(procs, outputs):
+        if p.returncode != 0:
+            raise AssertionError(f"a worker failed ({p.returncode}):\n{text[-4000:]}")
+    return [torch.load(f"{out_dir}/rank{r}.pt", weights_only=False) for r in range(PROCS)]
