@@ -121,7 +121,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      runs (logs and gradients at phase 13's card tolerances), and 5 timed
      steps each way (ms per step, exact attention launches); ``reconstruct
      --multi_gpu --mc_shard_axis points`` against the same run without
-     them, and ``train --multi_gpu``.
+     them, and ``train --multi_gpu``;
+ 16. parameters sharded over the model axis (``parallel.shard_params_fsdp``)
+     on the one card, in an NCCL group of one (NCCL refuses two ranks of one
+     group on one card: the one-off ``probe_two_ranks_one_card``, outside
+     the phases, prints NCCL's words): JAX's rule shards nothing at a model
+     axis of 1, nor at a min_size above every parameter; under a test-only
+     override of the rule (``forced_rule``: the placements of a model axis
+     of 2, at the dry run's min_size 2^12) ``RegressionTrainer`` (SliceNet
+     bf16 with VGG19, n_bs 16) and ``LDMTrainer`` (batch 8) load the payload
+     of an unsharded state after a warm-up step into their sharded states
+     (gathered again it must be the same tensors) and take one step from it
+     against the unsharded step (logs and gradients at phase 13's card
+     tolerances), then 3 timed steps each way (ms per step, peak memory, the
+     LDM's attention launches exact); the per-card bytes of parameters, Adam
+     and EMA at model axes 1, 2, 4 and 8, computed from the rule's
+     placements; and ``python -m slice3d_tpu_torch.dryrun`` in a group of
+     its own (its five ``ok`` lines).
 The last three lines are the paths' JSON record, the kernels' JSON record
 and the run's status JSON.
 """
@@ -317,6 +333,15 @@ PAR_GRID_TOL = 1e-2  # PERF.md section 2's limit for a reorganised evaluation
 PAR_WARMUP, PAR_STEPS = 2, 5  # training steps with and without the NCCL group
 PAR_REG_BATCH, PAR_LDM_BATCH = 16, 8
 PAR_CLI_SHAPES = 4  # the train CLI: one epoch of 2 steps at n_bs 2
+# phase 16: parameters sharded over the model axis in an NCCL group of one (two
+# ranks on one card are refused: probe_two_ranks_one_card), the trainers of
+# phase 15 with every parameter of at least FSDP_MIN elements (the dry run's
+# floor) placed as a model axis of FSDP_FORCED_AXIS would place it, on the
+# (1, 1) mesh; FSDP_WARMUP steps, then one step from one state sharded and
+# unsharded and FSDP_STEPS timed steps each way; the per-card bytes at the
+# model axes FSDP_AXES, computed from the rule's placements
+FSDP_MIN, FSDP_FORCED_AXIS, FSDP_WARMUP, FSDP_STEPS = 2 ** 12, 2, 1, 3
+FSDP_AXES = (1, 2, 4, 8)
 TRAIN_TINY = dict(timesteps=20, vae_ch=32, vae_mult=(1, 2), vae_nres=1, unet_channels=32,
                   unet_mult=(1, 2), unet_nres=1, unet_attention_ds=(1,),
                   unet_inject_blocks=(0, 3), cond_widths=(32, 64), latent_size=8)
@@ -2920,6 +2945,332 @@ def phase_parallel_clis():
             "train_s": train_s}, counts
 
 
+# phase 16: two ranks of one NCCL group on the one card, a (data, model) =
+# (1, 2) device mesh and one all-gather over its model axis
+TWO_RANKS_PROBE = """
+import datetime, sys
+import torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+r, port = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=r,
+                        timeout=datetime.timedelta(seconds=40))
+mesh = init_device_mesh("cuda", (1, 2), mesh_dim_names=("data", "model"))
+out = torch.empty(8, device="cuda")
+dist.all_gather_into_tensor(out, torch.full((4,), float(r), device="cuda"),
+                            group=mesh["model"].get_group())
+torch.cuda.synchronize()
+print("gathered", out.tolist(), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def probe_two_ranks_one_card(timeout: float = 75.0) -> dict:
+    """A one-off check, outside the phases (``python3 -c "import chip_smoke
+    as c; c.probe_two_ranks_one_card()"``): start two processes that put
+    NCCL ranks 0 and 1 of one group on card 0, build a (1, 2)
+    ``init_device_mesh`` and all-gather over ``model``.
+    Returns whether both ended with the gathered values, with NCCL's own
+    words (``NCCL_DEBUG=WARN``) when they did not; both processes are
+    stopped either way."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, NCCL_DEBUG="WARN")
+    procs = [subprocess.Popen([sys.executable, "-c", TWO_RANKS_PROBE, str(r), str(port)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    outputs = []
+    try:
+        for p in procs:
+            try:
+                outputs.append(p.communicate(timeout=timeout)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outputs.append(p.communicate()[0] + "\n(killed at the probe's time limit)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    accepted = all(p.returncode == 0 and "gathered [0.0, 0.0, 0.0, 0.0, 1.0, 1.0, 1.0, 1.0]"
+                   in text for p, text in zip(procs, outputs))
+    words = [ln.strip() for text in outputs for ln in text.splitlines()
+             if re.search(r"NCCL (WARN|version)|ncclInvalidUsage|gathered", ln)]
+    print(f"[fsdp] two NCCL ranks on card 0, init_device_mesh('cuda', (1, 2)): "
+          f"{'accepted' if accepted else 'refused'} (exit codes "
+          f"{[p.returncode for p in procs]}); NCCL {torch.cuda.nccl.version()}")
+    for ln in dict.fromkeys(words):
+        print(f"[fsdp]   {ln[:400]}")
+    return {"accepted": accepted, "returncodes": [p.returncode for p in procs],
+            "words": list(dict.fromkeys(words))[:20]}
+
+
+@contextlib.contextmanager
+def forced_rule():
+    """Within the block the placement rule (``parallel.sharding.fsdp_spec``)
+    places every parameter as a model axis of FSDP_FORCED_AXIS would, on any
+    mesh: the test-only override that puts the sharded path (``fully_shard``'s
+    gathers and reduce-scatters) on the (1, 1) mesh of one card."""
+    from slice3d_tpu_torch.parallel import sharding
+
+    rule = sharding.fsdp_spec
+    sharding.fsdp_spec = lambda x, mesh, min_size, axes=None: rule(x, FSDP_FORCED_AXIS,
+                                                                   min_size, axes)
+    try:
+        yield
+    finally:
+        sharding.fsdp_spec = rule
+
+
+def _fsdp_step_pair(tag, make, power):
+    """``make(sharded)`` -> (trainer, state, step(state, k) -> logs, payload(state)):
+    FSDP_WARMUP steps without a group, a host copy of the state's payload,
+    then one step and FSDP_STEPS timed ones; then in an NCCL group of one on the
+    (1, 1) process mesh the trainer made under the forced rule loads that
+    payload into its sharded state (gathered again, it must be the same
+    tensors), takes the same step (logs at REG_LOSS_RTOL, gradients gathered
+    at REG_GRAD_FP32_TOL: phase 13's card tolerances) and the timed ones,
+    its launches counted.  Returns the readings and the sharded run's
+    launches."""
+    import torch.distributed as dist
+
+    from torch.distributed.fsdp import FSDPModule
+    from torch.distributed.tensor import DTensor
+
+    from slice3d_tpu_torch.parallel import full_tensor, init_process_mesh
+
+    def run(state, step):
+        model = _model_of(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        logs = {key: float(v) for key, v in step(state, FSDP_WARMUP).items()}
+        grads = {n: full_tensor(p.grad).detach().clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        times = []
+        for k in range(FSDP_WARMUP + 1, FSDP_WARMUP + 1 + FSDP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, k)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return {"logs": logs, "grads": grads, "ms": percentile(times, 0.5),
+                "ms_range": (min(times), max(times)), "counts": read_counts(),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    trainer, state, step, payload_of = make(False)
+    for k in range(FSDP_WARMUP):
+        step(state, k)
+    payload = _cloned(payload_of(state))
+    b = run(state, step)
+    del trainer, state, step, payload_of
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _init_group_of_one()
+    init_process_mesh((1, 1))
+    with forced_rule():
+        trainer, state, step, payload_of = make(True)
+    n_sharded = sum(isinstance(p, DTensor) for p in _model_of(state).parameters())
+    n_units = sum(isinstance(m, FSDPModule) for m in _model_of(state).modules())
+    check(n_sharded > 0, f"{tag}: the forced rule sharded nothing")
+    trainer.load_payload(state, payload)
+    check(_same_tensors(payload_of(state), payload),
+          f"{tag}: the gathered payload differs from the one loaded")
+    del payload
+    a = run(state, step)
+    del trainer, state, step, payload_of
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = max(abs(a["logs"][k] - v) / max(abs(v), 1e-12) for k, v in b["logs"].items())
+    readings = regression_grad_readings(a["grads"], b["grads"], REG_GRAD_FP32_TOL)
+    print(f"[fsdp] {tag}: {n_sharded} parameters sharded in {n_units} fully_shard units (the "
+          f"rule at a model axis of {FSDP_FORCED_AXIS}, min_size {FSDP_MIN}) on the (1, 1) "
+          f"mesh of an NCCL group of "
+          f"one; ms per step p50 over {FSDP_STEPS} steps sharded {a['ms']:.4f} (min "
+          f"{a['ms_range'][0]:.4f}, max {a['ms_range'][1]:.4f}), unsharded without a group "
+          f"{b['ms']:.4f} (min {b['ms_range'][0]:.4f}, max {b['ms_range'][1]:.4f}); peak "
+          f"{a['peak_gb']:.4f} / {b['peak_gb']:.4f} GB; step {FSDP_WARMUP} from one state: "
+          f"logs max relative difference {worst:.3g} (tolerance {REG_LOSS_RTOL}), gradients "
+          f"{readings} (tolerance {REG_GRAD_FP32_TOL} G, {REG_TIE_FRAC} of a tensor); "
+          f"launches sharded over {1 + FSDP_STEPS} steps {a['counts']}; {power}")
+    check(worst <= REG_LOSS_RTOL, f"{tag}: the sharded step's logs differ")
+    check(readings["violations"] == 0, f"{tag}: the sharded step's gradients differ")
+    return {"n_sharded": n_sharded, "n_units": n_units, "ms_sharded": a["ms"],
+            "ms_unsharded": b["ms"], "ms_sharded_range": a["ms_range"],
+            "ms_unsharded_range": b["ms_range"],
+            "peak_gb_sharded": a["peak_gb"], "peak_gb_unsharded": b["peak_gb"],
+            "log_rel_diff": worst, "grads": readings, "logs": a["logs"]}, a["counts"]
+
+
+def _cloned(payload):
+    """A copy of a nested payload in host memory (a payload holds the live
+    state's tensors; the copy must not hold card memory while the steps'
+    peaks are read)."""
+    if isinstance(payload, dict):
+        return {k: _cloned(v) for k, v in payload.items()}
+    if isinstance(payload, list):
+        return [_cloned(v) for v in payload]
+    return payload.detach().to("cpu", copy=True) if isinstance(payload, torch.Tensor) else payload
+
+
+def _same_tensors(a, b) -> bool:
+    """Nested payloads equal: the same keys, and tensors of one dtype and
+    shape with equal values."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(
+            _same_tensors(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return isinstance(b, list) and len(a) == len(b) and all(
+            _same_tensors(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b.to(a.device)))
+    return a == b
+
+
+def fsdp_bytes(model, optimized, ema: bool) -> dict:
+    """Per-card bytes of the parameters, Adam's two moments (``optimized``
+    names) and an EMA (of the same names, when ``ema``) at each model axis
+    of FSDP_AXES, from the placements of the rule (JAX's) at FSDP_MIN:
+    computed, not measured (fp32 master weights, moments and EMA)."""
+    from torch.distributed.tensor import Shard
+
+    from slice3d_tpu_torch.parallel import fsdp_placements
+
+    params = dict(model.named_parameters())
+    out = {}
+    for n_model in FSDP_AXES:
+        placements = fsdp_placements(model, n_model, FSDP_MIN)
+        local = {k: p.numel() * p.element_size()
+                 // (n_model if isinstance(placements[k], Shard) else 1)
+                 for k, p in params.items()}
+        opt = sum(v for k, v in local.items() if optimized(k))
+        out[n_model] = {"params": sum(local.values()), "adam": 2 * opt,
+                        "ema": opt if ema else 0,
+                        "sharded": sum(isinstance(pl, Shard) for pl in placements.values())}
+        out[n_model]["total"] = sum(out[n_model][k] for k in ("params", "adam", "ema"))
+    return out
+
+
+def phase_fsdp(power: str):
+    """Phase 16: parameters sharded over the model axis on the one card.  JAX's
+    rule shards nothing at a model axis of 1 (and nothing at a min_size above
+    every parameter); ``RegressionTrainer`` (SliceNet bf16 with VGG19, n_bs
+    16) and ``LDMTrainer`` (batch 8) under the forced rule against their
+    ungrouped steps (``_fsdp_step_pair``), the LDM's attention launches
+    exact; the per-card bytes at model axes 1-8; then ``python -m
+    slice3d_tpu_torch.dryrun`` in a group of its own."""
+    import torch.distributed as dist
+
+    from slice3d_tpu_torch.config import Options
+    from slice3d_tpu_torch.diffusion.latent import init_latent_diffusion
+    from torch.distributed.tensor import DTensor
+
+    from slice3d_tpu_torch.parallel import (init_process_mesh, process_mesh,
+                                            shard_params_fsdp)
+    from slice3d_tpu_torch.profile_training import regression_batches, seeded_vgg19
+    from slice3d_tpu_torch.train.train_ldm import TRAINABLE_PREFIXES, LDMTrainer
+    from slice3d_tpu_torch.train.train_reg import RegressionTrainer
+
+    t_phase = time.perf_counter()
+    check(not dist.is_initialized(), "phase 16: a process group is still joined")
+    steps = FSDP_WARMUP + 1 + FSDP_STEPS
+    reg_batches = regression_batches(steps, torch.Generator(device="cuda").manual_seed(18),
+                                     b=PAR_REG_BATCH, size=REG_IMG, n_qry=REG_QRY)
+    vgg = seeded_vgg19()
+    opts = Options(name_model="slicenet", n_bs=PAR_REG_BATCH, img_size=REG_IMG, n_qry=REG_QRY,
+                   train_dtype="bfloat16")
+
+    # JAX's rule at a model axis of 1, and above every parameter's size
+    _init_group_of_one()
+    mesh = init_process_mesh((1, 1))
+    check(process_mesh() is mesh and mesh.device_mesh is not None, "phase 16: no (1, 1) mesh")
+    state = RegressionTrainer(opts, vgg19=vgg, fsdp_min_size=FSDP_MIN).init_state()
+    biggest = max(p.numel() for p in state.model.parameters())
+    placed = shard_params_fsdp(state.model, mesh, min_size=biggest + 1)
+    check(not any(isinstance(p, DTensor) for p in state.model.parameters())
+          and all(type(pl).__name__ == "Replicate" for pl in placed.values()),
+          "JAX's rule sharded a parameter at a model axis of 1")
+    print(f"[fsdp] JAX's rule on the (1, 1) mesh: 0 of {len(placed)} SliceNet parameters "
+          f"sharded at min_size {FSDP_MIN} and at {biggest + 1}")
+    del state
+    dist.destroy_process_group()
+
+    def make_reg(sharded):
+        trainer = RegressionTrainer(opts, vgg19=vgg, fsdp_min_size=FSDP_MIN)
+        return (trainer, trainer.init_state(),
+                lambda st, k: trainer.train_step(st, reg_batches[k])[1],
+                lambda st: trainer.state_payload(st, 0))
+
+    out, counts = {}, {}
+    marks = {"rule": time.perf_counter() - t_phase}
+    out["regression"], counts["regression"] = _fsdp_step_pair(
+        "regression training, SliceNet bf16 + VGG19", make_reg, power)
+    del reg_batches
+    ldm_batches = train_batches(steps, PAR_LDM_BATCH,
+                                torch.Generator(device="cuda").manual_seed(19))
+    ldm_module = init_latent_diffusion(seed=0, dtype=torch.bfloat16)
+
+    def make_ldm(sharded):
+        trainer = LDMTrainer(module=ldm_module, batch_size=PAR_LDM_BATCH, fsdp_min_size=FSDP_MIN)
+        state = trainer.init_state()
+        if not sharded:
+            trainer.maybe_set_scale(state, ldm_batches[0],
+                                    torch.Generator(device="cuda").manual_seed(20))
+
+        def step(st, k):  # step k's draws from its own seed
+            g = torch.Generator(device="cuda").manual_seed(200 + k)
+            return trainer.train_step(st, ldm_batches[k], g)[1]
+
+        return trainer, state, step, trainer.state_payload
+
+    marks["regression"] = time.perf_counter() - t_phase
+    out["ldm"], counts["ldm"] = _fsdp_step_pair("LDM training, batch 8", make_ldm, power)
+    marks["ldm"] = time.perf_counter() - t_phase
+    c = counts["ldm"]
+    check(c["spatial_attention"] == 10 * (1 + FSDP_STEPS)
+          and c["spatial_attention_bwd"] == 10 * (1 + FSDP_STEPS),
+          f"sharded LDM training launched {c}, expected 10 and 10 a step")
+    check(counts["regression"]["fused_encoder_layer"] == 0, "regression training ran the head")
+    del ldm_batches
+
+    slicenet = RegressionTrainer(opts, vgg19=vgg, device="cpu").init_state().model
+    table = {"slicenet": fsdp_bytes(slicenet, lambda k: True, ema=False),
+             "ldm": fsdp_bytes(ldm_module, lambda k: k.startswith(TRAINABLE_PREFIXES),
+                               ema=True)}
+    for name, rows in table.items():
+        cells = "; ".join(f"model {n}: {r['total']} bytes ({r['params']} parameters, "
+                          f"{r['adam']} Adam, {r['ema']} EMA; {r['sharded']} sharded)"
+                          for n, r in rows.items())
+        print(f"[fsdp] per-card bytes, {name} (computed from the rule's placements at "
+              f"min_size {FSDP_MIN}, fp32): {cells}")
+    del slicenet, ldm_module
+
+    t0 = time.perf_counter()
+    dry = subprocess.run([sys.executable, "-m", "slice3d_tpu_torch.dryrun"],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, timeout=300)
+    text = dry.stdout
+    legs = [ln for ln in text.splitlines() if ln.startswith("dryrun_multichip ")]
+    for ln in legs:
+        print(f"[fsdp] {ln}")
+    check(dry.returncode == 0 and len(legs) == 5, f"the dry run failed ({dry.returncode}):\n"
+          f"{text[-3000:]}")
+    out["dryrun"] = {"legs": legs, "s": time.perf_counter() - t0}
+    out["bytes"] = table
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["marks_s"] = dict(marks, bytes=t0 - t_phase, dryrun=out["phase_s"])
+    total = {k: counts["regression"][k] + c[k] for k in c}
+    print(f"[fsdp] phase 16 in {out['phase_s']:.4f} s (s from its start at the end of each "
+          f"part: {out['marks_s']}); launches {total}; {power}")
+    return out, total
+
+
 def phase_parallel(power: str):
     """Phase 15: sharded reconstruction, training in an NCCL group of one and
     the CLIs' multi-card options; the launches under the path "parallel"."""
@@ -2984,6 +3335,7 @@ def main() -> int:
     print(f"[regtrain] phase 13 in {regtrain['phase_s']:.4f} s")
     gentrain, gentrain_counts = phase_generation_training_cli(power)
     parallel, parallel_counts = phase_parallel(power)
+    fsdp, fsdp_counts = phase_fsdp(power)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"regression": main_counts, "generation": gen["counts"],
@@ -2993,7 +3345,7 @@ def main() -> int:
                                               if isinstance(r, dict) and "counts" in r)
                                        for k in regcli_counts},
                "regression_cli": regcli_counts, "generation_training_cli": gentrain_counts,
-               "parallel": parallel_counts}
+               "parallel": parallel_counts, "fsdp": fsdp_counts}
     full = modes[0]
     encoder = {"name": "fused_encoder_layer", "route": "cuda",
                "source": "slice3d_tpu_torch/csrc/fused_encoder.cu",
@@ -3046,7 +3398,8 @@ def main() -> int:
                       "training": {k: v for k, v in train.items() if k != "counts"},
                       "serving": serving, "split": split, "options": options,
                       "generation_cli": gencli, "regression_training": regtrain,
-                      "generation_training_cli": gentrain, "parallel": parallel}))
+                      "generation_training_cli": gentrain, "parallel": parallel,
+                      "fsdp": fsdp}))
     print(json.dumps({"kernels": [encoder, attention, attention_bwd, ffn]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

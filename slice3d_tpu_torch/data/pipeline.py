@@ -8,12 +8,17 @@ With ``shuffle=False`` the batches keep the dataset's order; with
 raised in the consumer.
 
 In a process group every process is one of ``num_shards`` shards (default:
-the group's size and this process's rank): all of them draw the one
+the process mesh's data axis and this process's index on it, so the
+processes of one model group read the same rows): all of them draw the one
 permutation from the shared seed and walk global batches of ``num_shards x
 batch_size``, each taking its ``shard``-th ``batch_size`` rows.  The shards
 are disjoint and together the one-process loader's batches at the global
 size.  (The JAX package's loader gives every process the same batches: each
-shuffles the whole split with the same seed and takes all of it.)
+shuffles the whole split with the same seed and takes all of it.)  With a
+``model`` axis larger than 1 only the first process of each model group
+loads, and hands every batch to the others: a dataset's own draws (a random
+view, a query subset) come from the process's global generators, so
+processes loading the same rows would not get the same batch.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
-from ..parallel.mesh import rank, world_size
+from ..parallel.mesh import data_index, data_size, process_mesh
 
 __all__ = ["BatchLoader"]
 
@@ -43,8 +48,8 @@ class BatchLoader:
         self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
-        self.num_shards = world_size() if num_shards is None else num_shards
-        self.shard = rank() if shard is None else shard
+        self.num_shards = data_size() if num_shards is None else num_shards
+        self.shard = data_index() if shard is None else shard
         if not 0 <= self.shard < self.num_shards:
             raise ValueError(f"shard {self.shard} of {self.num_shards}")
         self._rng = np.random.RandomState(seed)
@@ -69,6 +74,30 @@ class BatchLoader:
                 yield part
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        mesh = process_mesh()
+        if mesh.model_size > 1:
+            return self._shared(mesh)
+        return self._load()
+
+    def _shared(self, mesh) -> Iterator[Dict[str, np.ndarray]]:
+        """The model group's first process's batches on every process of the
+        group (a broadcast a batch; None ends them)."""
+        import torch.distributed as dist
+
+        src = dist.get_global_rank(mesh.model_group, 0)
+        batches = self._load() if mesh.model_index == 0 else None
+        try:
+            while True:
+                box = [None if batches is None else next(batches, None)]
+                dist.broadcast_object_list(box, src=src, group=mesh.model_group)
+                if box[0] is None:
+                    return
+                yield box[0]
+        finally:
+            if batches is not None:
+                batches.close()
+
+    def _load(self) -> Iterator[Dict[str, np.ndarray]]:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 

@@ -82,8 +82,8 @@ from .data.pipeline import BatchLoader
 from .diffusion.latent import LatentDiffusion
 from .diffusion.sampler import SAMPLERS
 from .models.random_init import random_init_
-from .parallel import (all_reduce_sum, barrier, broadcast_object, init_distributed,
-                       is_main_process)
+from .parallel import (all_reduce_mean, all_reduce_sum, barrier, broadcast_object,
+                       init_distributed, is_main_process, is_sharded)
 from .train.checkpoint import TopKCheckpointer, latest_checkpoint
 from .train.train_ldm import LDMTrainer
 from .train.train_reg import scalar_writer
@@ -329,6 +329,11 @@ def _train_ldm(cfg, args, trainer: LDMTrainer, state, logdir: str, img_size: int
     topk = TopKCheckpointer(ckpt_dir, monitor="val/loss_simple_ema", k=3)
     g = _seeded(device, args.seed)
     main = is_main_process()
+    # a sharded state (parallel.shard_params_fsdp) gathers its checkpoints and
+    # runs its forwards on every process together: where rank 0 saves, the
+    # others take their part in the gather (state_payload), and every process
+    # samples the image logs that rank 0 writes
+    sharded = is_sharded(state.ldm)
     t0 = time.time()
     step = state.step
     try:
@@ -344,13 +349,21 @@ def _train_ldm(cfg, args, trainer: LDMTrainer, state, logdir: str, img_size: int
                     for k in ("loss", "loss_simple", "loss_vlb"):
                         writer.add_scalar(f"train/{k}", float(logs[k]), step)
                     writer.add_scalar("lr_abs", trainer.current_lr(step), step)
-                if main and (step % args.ckpt_every == 0 or want_ckpt["flag"]):
+                ckpt_now = step % args.ckpt_every == 0 or want_ckpt["flag"]
+                if sharded:  # the signal may reach one process only
+                    ckpt_now = float(all_reduce_mean({"c": torch.tensor(float(ckpt_now))})["c"]) > 0
+                if ckpt_now:
                     want_ckpt["flag"] = False
-                    trainer.save(state, last)
+                    if main:
+                        trainer.save(state, last)
+                    elif sharded:
+                        trainer.state_payload(state)
                 if val_loader is not None and _every(step, args.val_every):
                     v, ve = (validate_full(lambda vb: trainer.eval_loss(
                         state, vb, _seeded(device, 0), use_ema=ema), val_loader,
                         ("loss", "loss_simple", "loss_vlb")) for ema in (False, True))
+                    if sharded and not main:
+                        trainer.state_payload(state)
                     if main:
                         print(f"step {step}: val/loss_simple {v['loss_simple']:.5f} "
                               f"ema {ve['loss_simple']:.5f}")
@@ -360,36 +373,41 @@ def _train_ldm(cfg, args, trainer: LDMTrainer, state, logdir: str, img_size: int
                                            trainer.state_payload(state))
                         if kept:
                             print(f"saved top-k checkpoint {kept}")
-                if main and _every(step, args.log_images_every):
-                    img_dir = os.path.join(logdir, "images", "train")
-                    os.makedirs(img_dir, exist_ok=True)
+                if (main or sharded) and _every(step, args.log_images_every):
                     rec = trainer.reconstruct_slices(state, batch["image"],
                                                      generator=_seeded(device, 0))
-                    _save_montage(img_dir, "inputs", step, batch["image"][0, :12])
-                    _save_montage(img_dir, "reconstruction", step, rec[0].cpu())
                     gen = trainer.sample_slices(state, batch["img_ipt_view"],
                                                 ddim_steps=args.ddim_steps, eta=args.ddim_eta,
                                                 generator=_seeded(device, step))
-                    _save_montage(img_dir, "samples", step, gen[0].cpu())
+                    montages = {"inputs": batch["image"][0, :12], "reconstruction": rec[0].cpu(),
+                                "samples": gen[0].cpu()}
                     if args.log_progressive_rows:
                         _, prog = trainer.sample_progressive(
                             state, batch["img_ipt_view"], log_every_t=args.log_every_t,
                             generator=_seeded(device, step))
-                        _save_montage(img_dir, "progressive_row", step,
-                                      torch.cat(list(prog[:, 0]), dim=2).cpu())
                         diff = trainer.diffusion_row(state, batch["image"],
                                                      log_every_t=args.log_every_t,
                                                      generator=_seeded(device, step))
-                        _save_montage(img_dir, "diffusion_row", step,
-                                      torch.cat(list(diff[:, 0]), dim=2).cpu())
+                        montages["progressive_row"] = torch.cat(list(prog[:, 0]), dim=2).cpu()
+                        montages["diffusion_row"] = torch.cat(list(diff[:, 0]), dim=2).cpu()
+                    if main:
+                        img_dir = os.path.join(logdir, "images", "train")
+                        os.makedirs(img_dir, exist_ok=True)
+                        for name, montage in montages.items():
+                            _save_montage(img_dir, name, step, montage)
                 if args.max_steps > 0 and step >= args.max_steps:
                     if main:
                         trainer.save(state, last)
+                    elif sharded:
+                        trainer.state_payload(state)
                     return logdir
     except (Exception, KeyboardInterrupt):
-        if main:
+        if main and not sharded:
             trainer.save(state, last)
             print(f"saved emergency checkpoint at step {step}")
+        elif main:
+            print(f"no emergency checkpoint at step {step}: a sharded state is gathered by "
+                  f"every process together")
         raise
 
 

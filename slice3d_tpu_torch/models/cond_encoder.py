@@ -30,6 +30,8 @@ class CondImageEncoder(VGG16BNBackbone):
     """``widths``: the UNet level widths the maps are projected to (one map
     per width, at most five); ``latent_size``: the latent tile size."""
 
+    fsdp_unit = True  # its parameters are read within its forward alone: sharded, one gather
+
     def __init__(self, widths: Sequence[int] = (192, 384, 384, 768, 768),
                  latent_size: int = 16, dtype: Optional[torch.dtype] = None):
         super().__init__(REF_ENCODER_BLOCKS)

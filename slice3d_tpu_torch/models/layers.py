@@ -18,7 +18,7 @@ from torch import nn
 
 from ..ops.fused_encoder import fused_encoder_layer, fused_encoder_layer_ref
 from ..ops.fused_ffn import fused_ffn
-from ..parallel.mesh import in_group
+from ..parallel.mesh import data_group, in_group
 
 __all__ = ["Conv2d", "ConvTranspose2d", "Linear", "BatchNorm2d", "GroupNorm",
            "TransformerEncoderLayer", "TransformerEncoder", "ROUTES"]
@@ -53,10 +53,12 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     In a process group (a group of one too) the training statistics are the
     global batch's, as under the JAX package's jit over a sharded batch: one
-    all-reduce of the per-channel sum, sum of squares and count, which
-    autograd differentiates through (every process runs the same
-    BatchNorms in the same order).  Without a group the same sums are
-    taken, so the all-reduce is the only difference."""
+    all-reduce over the data group (``parallel.data_group``: the processes
+    of this one's model index, which together hold every batch row once;
+    the whole group when the model axis is 1) of the per-channel sum, sum of
+    squares and count, which autograd differentiates through (every process
+    runs the same BatchNorms in the same order).  Without a group the same
+    sums are taken, so the all-reduce is the only difference."""
 
     def forward(self, x, train: Optional[bool] = None):
         dt = x.dtype
@@ -68,7 +70,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         count = torch.full((1,), xf.numel() / c, dtype=xf.dtype, device=xf.device)
         totals = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count])
         if in_group():  # the one arithmetic either way: a group of one changes no bit
-            totals = dist_nn.all_reduce(totals)
+            totals = dist_nn.all_reduce(totals, group=data_group())
         mean = totals[:c] / totals[2 * c]
         var = (totals[c:2 * c] / totals[2 * c] - mean * mean).clamp_min(0.0)
         with torch.no_grad():
@@ -164,6 +166,8 @@ class TransformerEncoderLayer(nn.Module):
     runs the whole layer's plain version; a CPU input takes the kernels'
     plain versions on every route.
     """
+
+    fsdp_unit = True  # forward reads its children's parameters: sharded, they gather here
 
     def __init__(self, d_model: int = 128, n_heads: int = 4, d_ff: int = 2048,
                  head_tokens: int = 0, route: str = "fused"):

@@ -121,6 +121,8 @@ class LDMUNet(nn.Module):
     fp32 and are cast at use.  ``fused=False`` keeps every attention block on
     the plain path (a CUDA fp32 run, or a kernel-free reference run)."""
 
+    fsdp_unit = True  # its parameters are read within its forward alone: sharded, one gather
+
     def __init__(self, in_channels: int = 8, out_channels: int = 4,
                  model_channels: int = 192, channel_mult: Sequence[int] = (1, 2, 2, 4, 4),
                  num_res_blocks: int = 2, attention_ds: Sequence[int] = (1, 2, 4, 8),

@@ -59,6 +59,8 @@ class SliceUNet(VGG16BNBackbone):
     """The VGG trunk (``down1`` .. ``down5_``) plus the slice decoder, under
     the reference ``slices_generator`` names."""
 
+    fsdp_unit = True  # forward reads ``emds.weight``: sharded, the U-Net gathers as one
+
     def __init__(self, n_slices: int = 12, dim_embed: int = 128):
         super().__init__()
         self.n_slices = n_slices

@@ -114,6 +114,8 @@ class _Mid(nn.Module):
 class Encoder(nn.Module):
     """(N, 3, H, W) -> (N, 2 z, H/f, W/f) with f = 2^(len(ch_mult) - 1)."""
 
+    fsdp_unit = True  # its parameters are read within its forward alone: sharded, one gather
+
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, z_channels: int = 4, double_z: bool = True):
         super().__init__()
@@ -147,6 +149,8 @@ class Encoder(nn.Module):
 class Decoder(nn.Module):
     """(N, z, h, w) -> (N, 3, f h, f w); ``up[i]`` is level i, run from the
     deepest level up, as in the reference."""
+
+    fsdp_unit = True  # its parameters are read within its forward alone: sharded, one gather
 
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, z_channels: int = 4, out_ch: int = 3):

@@ -7,7 +7,10 @@ dictionary of tensors, numbers and optimizer state, through a temporary
 name so a reader never sees half a file.  ``latest_checkpoint`` picks the
 newest file by modification time (``--resume``), and ``TopKCheckpointer``
 keeps the k best by a monitored metric beside ``last.ckpt``, as the
-reference's ModelCheckpoint does (gen_slices/main.py:576-597).
+reference's ModelCheckpoint does (gen_slices/main.py:576-597).  The
+optimizer payloads gather moments sharded over the ``model`` axis
+(``parallel.shard_params_fsdp``) before a write and hand each process its
+part on a read, so sharded and unsharded runs read and write one format.
 """
 
 from __future__ import annotations
@@ -15,12 +18,15 @@ from __future__ import annotations
 import glob
 import os
 import zipfile
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
 
+from ..parallel.sharding import full_tensor, shard_like
+
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_checkpoint", "is_torch_file",
-           "adam_payload", "load_adam_payload", "TopKCheckpointer"]
+           "adam_payload", "load_adam_payload", "optimizer_payload", "load_optimizer_payload",
+           "TopKCheckpointer"]
 
 
 def save_checkpoint(path: str, state: Dict[str, Any]) -> str:
@@ -51,27 +57,63 @@ def is_torch_file(path: str) -> bool:
 def adam_payload(optimizer: torch.optim.Optimizer, model: torch.nn.Module) -> Dict[str, Any]:
     """Adam's state by ``model``'s parameter names: ``count`` (the updates
     taken) and ``exp_avg`` / ``exp_avg_sq``, the layout that the JAX
-    trainers' optax moments map into (``convert.py``)."""
+    trainers' optax moments map into (``convert.py``).  Sharded moments are
+    gathered (every process of the model group calls it), so a sharded run
+    writes the tensors an unsharded one does."""
     adam: Dict[str, Any] = {"count": 0, "exp_avg": {}, "exp_avg_sq": {}}
     for name, p in model.named_parameters():
         st = optimizer.state.get(p)
         if st:
             adam["count"] = int(st["step"])
-            adam["exp_avg"][name] = st["exp_avg"]
-            adam["exp_avg_sq"][name] = st["exp_avg_sq"]
+            adam["exp_avg"][name] = full_tensor(st["exp_avg"])
+            adam["exp_avg_sq"][name] = full_tensor(st["exp_avg_sq"])
     return adam
 
 
 def load_adam_payload(optimizer: torch.optim.Optimizer, model: torch.nn.Module,
                       adam: Dict[str, Any]) -> None:
-    """The inverse of :func:`adam_payload`, in place (``optimizer`` holds
-    ``model``'s parameters in their order)."""
-    sd = optimizer.state_dict()
-    names = [n for n, _ in model.named_parameters()]
-    sd["state"] = {i: {"step": torch.tensor(float(adam["count"])),
-                       "exp_avg": adam["exp_avg"][n], "exp_avg_sq": adam["exp_avg_sq"][n]}
-                   for i, n in enumerate(names) if n in adam["exp_avg"]}
-    optimizer.load_state_dict(sd)
+    """The inverse of :func:`adam_payload`, in place: each named parameter of
+    ``model`` that ``optimizer`` holds takes its moments (its part of them
+    where it is sharded) and the step."""
+    held = {p for group in optimizer.param_groups for p in group["params"]}
+    for name, p in model.named_parameters():
+        if p in held and name in adam["exp_avg"]:
+            optimizer.state[p] = {"step": torch.tensor(float(adam["count"])),
+                                  "exp_avg": shard_like(p, adam["exp_avg"][name]),
+                                  "exp_avg_sq": shard_like(p, adam["exp_avg_sq"][name])}
+
+
+def optimizer_payload(optimizer: torch.optim.Optimizer,
+                      params: Sequence[torch.Tensor]) -> Dict[str, Any]:
+    """``optimizer.state_dict()`` as an optimizer over ``params`` in one group
+    gives it (the state by index into ``params``, the first group's
+    hyperparameters), with sharded state gathered (every process of the
+    model group calls it): an unsharded optimizer's own ``state_dict``, and
+    the same file from a sharded run."""
+    state = {}
+    for i, p in enumerate(params):
+        st = optimizer.state.get(p)
+        if st:
+            state[i] = {k: full_tensor(v) if isinstance(v, torch.Tensor) else v
+                        for k, v in st.items()}
+    group = {k: v for k, v in optimizer.param_groups[0].items() if k != "params"}
+    group["params"] = list(range(len(params)))
+    return {"state": state, "param_groups": [group]}
+
+
+def load_optimizer_payload(optimizer: torch.optim.Optimizer, params: Sequence[torch.Tensor],
+                           payload: Dict[str, Any]) -> None:
+    """The inverse of :func:`optimizer_payload`, in place: every group takes
+    the saved hyperparameters and each of ``params`` its state, its part of
+    it where it is sharded (a copy of the step)."""
+    saved = {k: v for k, v in payload["param_groups"][0].items() if k != "params"}
+    for group in optimizer.param_groups:
+        group.update(saved)
+    for i, p in enumerate(params):
+        st = payload["state"].get(i)
+        if st is not None:
+            optimizer.state[p] = {k: (v.clone() if k == "step" else shard_like(p, v))
+                                  if isinstance(v, torch.Tensor) else v for k, v in st.items()}
 
 
 def latest_checkpoint(ckpt_dir: str, pattern: str = "*.ckpt") -> Optional[str]:

@@ -16,11 +16,19 @@ times the ``scheduler_config`` multiplier.
 
 In a process group (one process a card) the step is data-parallel and
 equals the one-process step on the global batch: each process's draws are
-its rank's rows of the global batch's (a handed draw is global, a missing
-one is drawn at the global size from the shared generator), the
+its data index's rows of the global batch's (a handed draw is global, a
+missing one is drawn at the global size from the shared generator), the
 conditioner's BatchNorms take the global statistics, the gradients are
 averaged over the group before AdamW, the logs are the group's means and
-``scale_by_std`` takes the global batch's std.
+``scale_by_std`` takes the global batch's std (over the data group).  On a
+process mesh with a ``model`` axis larger than 1
+(``parallel.init_process_mesh``) the model's
+parameters of at least ``fsdp_min_size`` elements are sharded over it
+(``parallel.shard_params_fsdp``, the frozen VAE's too, as the JAX dry run
+shards the whole state), AdamW's moments and the EMA take their layout,
+and the processes of one model group take the same rows and draws; the
+payload gathers the shards on every process, so the checkpoint is the
+unsharded one's.
 
 Differences from the JAX package, on purpose:
 
@@ -56,7 +64,7 @@ import copy
 import os
 import zipfile
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -69,9 +77,12 @@ from ..diffusion.latent import LatentDiffusion, init_latent_diffusion, p_losses
 from ..diffusion.sampler import atlas_shape, encode_condition, make_eps_fn, sample_slices
 from ..diffusion.schedule import DiffusionSchedule
 from ..models.ema import ema_update
-from ..parallel import (all_reduce_gradients, all_reduce_mean, all_reduce_sum, in_group,
-                        rank_part, world_size)
-from .checkpoint import restore_checkpoint, save_checkpoint
+from ..parallel import (all_reduce_gradients, all_reduce_mean, all_reduce_sum, data_size,
+                        full_state_dict, full_tensor, in_group, load_state_dict_sharded,
+                        optimizer_groups, process_mesh, rank_part, shard_like,
+                        shard_params_fsdp)
+from .checkpoint import (load_optimizer_payload, optimizer_payload, restore_checkpoint,
+                         save_checkpoint)
 from .flax_msgpack import read_flax_msgpack
 from .lr_schedules import from_scheduler_config
 
@@ -106,7 +117,10 @@ class LDMTrainer:
 
     ``module``: the model to train (copied by :meth:`init_state`); without
     it :meth:`init_state` draws one with ``init_latent_diffusion`` at the
-    128 px operating point.  Runs on CUDA unless ``device`` says otherwise.
+    128 px operating point.  ``batch_size`` is a process's; the current
+    process mesh's model axis (``parallel.process_mesh()``) shards the
+    parameters of at least ``fsdp_min_size`` elements.  Runs on CUDA unless
+    ``device`` says otherwise.
     """
 
     def __init__(self, *, img_size: int = 128, batch_size: int = 8, base_lr: float = 5e-5,
@@ -116,8 +130,10 @@ class LDMTrainer:
                  module: Optional[LatentDiffusion] = None,
                  scheduler_config: Optional[Dict[str, Any]] = None,
                  learn_logvar: bool = False, cond_train_bn: bool = True,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 fsdp_min_size: int = 2 ** 16):
         self.device = resolve_device(device)
+        self.fsdp_min_size = fsdp_min_size
         self.module = module
         self.img_size = img_size
         self.batch_size = batch_size
@@ -131,17 +147,18 @@ class LDMTrainer:
         self.accumulate = int(accumulate)
         self.learn_logvar = learn_logvar
         self.cond_train_bn = cond_train_bn
-        # accumulate * processes * bs * base_lr
-        self.lr = accumulate * world_size() * batch_size * base_lr if scale_lr else base_lr
+        # accumulate * batch shards * bs * base_lr
+        self.lr = accumulate * data_size() * batch_size * base_lr if scale_lr else base_lr
         self.lr_multiplier = from_scheduler_config(scheduler_config)
 
     # -- state ------------------------------------------------------------------
 
     def init_state(self, seed: int = 0) -> LDMTrainState:
         """A fresh state on the trainer's device: a copy of ``module`` (or a
-        model drawn from ``seed``), the VAE frozen, AdamW over the trainable
-        parameters (and ``logvar`` when learned), the EMA a copy of them,
-        ``logvar`` zero."""
+        model drawn from ``seed``), the VAE frozen, the parameters sharded
+        over the mesh's model axis, AdamW over the trainable parameters (and
+        ``logvar`` when learned; the shards in a group of their own), the EMA
+        a copy of them, ``logvar`` zero."""
         if self.module is not None:
             ldm = copy.deepcopy(self.module)
         else:
@@ -151,13 +168,14 @@ class LDMTrainer:
                                         latent_size=self.img_size // 8)
         ldm = ldm.to(self.device).eval()
         ldm.first_stage_model.requires_grad_(False)
+        shard_params_fsdp(ldm, process_mesh(), self.fsdp_min_size)
         params = trainable_parameters(ldm)
         logvar = torch.zeros(self.timesteps, dtype=torch.float32, device=self.device)
         if self.learn_logvar:
             logvar = torch.nn.Parameter(logvar)
         group = list(params.values()) + ([logvar] if self.learn_logvar else [])
-        optimizer = torch.optim.AdamW(group, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
-                                      weight_decay=WEIGHT_DECAY)
+        optimizer = torch.optim.AdamW(optimizer_groups(group), lr=self.lr, betas=(0.9, 0.999),
+                                      eps=1e-8, weight_decay=WEIGHT_DECAY)
         ema = ({n: p.detach().to(torch.float32).clone() for n, p in params.items()}
                if self.use_ema else {})
         return LDMTrainState(ldm=ldm, optimizer=optimizer, ema=ema, logvar=logvar)
@@ -192,20 +210,19 @@ class LDMTrainer:
     def _posterior_noise(self, ldm: LatentDiffusion, images, generator,
                          noise: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """This process's posterior noise (B, K, h, w, z) for ``images``: in a
-        group the rank's rows of the global batch's, ``noise`` if handed (it
-        is global), else drawn at the global size from ``generator`` in the
-        draw order of the one-process step; without a group ``noise`` as it
-        is."""
+        group its data index's rows of the global batch's, ``noise`` if handed
+        (it is global), else drawn at the global size from ``generator`` in
+        the draw order of the one-process step; without a group ``noise`` as
+        it is."""
         if not in_group():
             return noise
         b, k, hh, ww, _ = images.shape
-        f = ldm.downscale
+        f, n = ldm.downscale, data_size()
         zc = ldm.first_stage_model.post_quant_conv.in_channels
         if noise is None:
-            noise = torch.randn((world_size() * b * k, hh // f, ww // f, zc),
+            noise = torch.randn((n * b * k, hh // f, ww // f, zc),
                                 generator=generator, device=self.device)
-        return rank_part(self._tensor(noise).reshape(world_size() * b, k, hh // f, ww // f,
-                                                     zc), b)
+        return rank_part(self._tensor(noise).reshape(n * b, k, hh // f, ww // f, zc), b)
 
     def _step_draws(self, ldm: LatentDiffusion, images, generator,
                     draws: Optional[Mapping[str, Any]]) -> Dict[str, Any]:
@@ -214,7 +231,7 @@ class LDMTrainer:
         draws = dict(draws or {})
         if not in_group():
             return draws
-        n, b, k, hh, ww, _ = world_size(), *images.shape
+        n, b, k, hh, ww, _ = data_size(), *images.shape
         f = ldm.downscale
         zc = ldm.first_stage_model.post_quant_conv.in_channels
         out = {"posterior_noise": self._posterior_noise(ldm, images, generator,
@@ -428,24 +445,36 @@ class LDMTrainer:
 
     # -- checkpoints ------------------------------------------------------------------
 
+    def _optimized(self, state: LDMTrainState) -> List[torch.Tensor]:
+        """AdamW's parameters in the order of an unsharded state's one group."""
+        return (list(trainable_parameters(state.ldm).values())
+                + ([state.logvar] if self.learn_logvar else []))
+
     def state_payload(self, state: LDMTrainState) -> Dict[str, Any]:
-        return {"model": state.ldm.state_dict(), "optimizer": state.optimizer.state_dict(),
-                "ema": state.ema, "logvar": state.logvar.detach(), "step": state.step}
+        """The checkpoint's tensors, shards gathered: every process of a
+        model group calls it."""
+        return {"model": full_state_dict(state.ldm),
+                "optimizer": optimizer_payload(state.optimizer, self._optimized(state)),
+                "ema": {n: full_tensor(e) for n, e in state.ema.items()},
+                "logvar": state.logvar.detach(), "step": state.step}
 
     def load_payload(self, state: LDMTrainState, payload: Mapping[str, Any]) -> LDMTrainState:
         """In place: the model's weights and statistics, the EMA, ``logvar``,
-        the step and (when the payload has it) AdamW's state."""
-        state.ldm.load_state_dict(payload["model"])
+        the step and (when the payload has it) AdamW's state; a sharded state
+        takes its part of an unsharded payload."""
+        load_state_dict_sharded(state.ldm, payload["model"])
         if "optimizer" in payload:
-            state.optimizer.load_state_dict(payload["optimizer"])
+            load_optimizer_payload(state.optimizer, self._optimized(state), payload["optimizer"])
         with torch.no_grad():
             for n, e in state.ema.items():
-                e.copy_(payload["ema"][n])
+                e.copy_(shard_like(e, payload["ema"][n]))
             state.logvar.copy_(payload["logvar"])
         state.step = int(payload["step"])
         return state
 
     def save(self, state: LDMTrainState, path: str) -> str:
+        """Write ``state_payload``'s tensors at ``path``; of a sharded state,
+        while every other process runs ``state_payload`` (the gather)."""
         return save_checkpoint(path, self.state_payload(state))
 
     def restore(self, state: LDMTrainState, path: str) -> LDMTrainState:

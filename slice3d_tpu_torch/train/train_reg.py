@@ -37,6 +37,19 @@ step is the one-process step on the global batch, as the JAX trainer's jit
 over a sharded batch.  Only rank 0 writes ``opts.txt``, the code snapshot,
 the scalars and the checkpoints; every process waits for the others before
 ``--resume`` reads.
+
+The trainer runs on the process mesh (``parallel.init_process_mesh``; the
+default grid puts every process on ``data``).  With a ``model`` axis larger
+than 1, ``init_state`` shards the parameters of at least ``fsdp_min_size``
+elements over it by the JAX package's rule (``shard_params_fsdp``) and
+Adam's moments take their layout; the processes of one model group read
+the same batch rows, and when the query axis divides by the model axis
+each takes its part of ``qry_norot`` / ``sdf`` / ``occ``, as the JAX dry
+run places them with ``P("data", "model")`` (else all of them, as JAX's
+``put_batch`` replicates what does not divide); the image terms are the
+same along ``model``.  The checkpoints gather the shards, so a sharded run
+writes the file an unsharded one does, and loads any: ``state_payload``
+gathers on every process, before rank 0 writes.
 """
 
 from __future__ import annotations
@@ -60,7 +73,9 @@ from ..models.gtslice import init_gtslice
 from ..models.perceptual import perceptual_loss
 from ..models.slicenet import init_slicenet
 from ..models.vgg import VGG19Features, load_vgg19_features
-from ..parallel import all_reduce_gradients, all_reduce_mean, barrier, is_main_process
+from ..parallel import (all_reduce_gradients, all_reduce_mean, barrier,
+                        full_state_dict, is_main_process, load_state_dict_sharded,
+                        optimizer_groups, process_mesh, shard_params_fsdp)
 from .checkpoint import (adam_payload, is_torch_file, latest_checkpoint, load_adam_payload,
                          restore_checkpoint, save_checkpoint)
 from .flax_msgpack import read_flax_msgpack
@@ -108,12 +123,16 @@ class RegressionTrainer:
     """Train ``opts.name_model`` (slicenet or gtslice) with ``opts``' LR,
     schedule, loss type and ``train_dtype``; ``vgg19`` (a ``VGG19Features``)
     turns SliceNet's perceptual term on (the trainer keeps a frozen copy).
-    Runs on CUDA unless ``device`` says otherwise."""
+    The current process mesh's model axis (``parallel.process_mesh()``)
+    shards the parameters of at least ``fsdp_min_size`` elements.  Runs on
+    CUDA unless ``device`` says otherwise."""
 
     def __init__(self, opts: Options, *, vgg19: Optional[VGG19Features] = None,
                  steps_per_epoch: int = 1000,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 fsdp_min_size: int = 2 ** 16):
         self.device = resolve_device(device)
+        self.fsdp_min_size = fsdp_min_size
         self.opts = opts
         self.is_slicenet = opts.name_model == "slicenet"
         self.dtype = {"float32": None, "bfloat16": torch.bfloat16}[opts.train_dtype]
@@ -126,12 +145,14 @@ class RegressionTrainer:
 
     def init_state(self, seed: int = 0) -> RegTrainState:
         """A model drawn from ``seed`` (the port's init, BatchNorm statistics at
-        0 / 1) on the trainer's device, on the plain route, with Adam over
-        every parameter."""
+        0 / 1) on the trainer's device, on the plain route, its parameters
+        sharded over the mesh's model axis (``shard_params_fsdp``), with Adam
+        over every parameter (the shards in a group of their own)."""
         init = init_slicenet if self.is_slicenet else init_gtslice
         model = init(seed, n_slices=self.opts.n_slices, route="plain", dtype=self.dtype)
         model = reset_batchnorm_statistics(model).to(self.device)
-        optimizer = torch.optim.Adam(list(model.parameters()), lr=self.opts.lr,
+        shard_params_fsdp(model, process_mesh(), self.fsdp_min_size)
+        optimizer = torch.optim.Adam(optimizer_groups(model.parameters()), lr=self.opts.lr,
                                      betas=(0.9, 0.999), eps=1e-8)
         return RegTrainState(model=model, optimizer=optimizer)
 
@@ -139,6 +160,17 @@ class RegressionTrainer:
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device, torch.float32)
+
+    def _model_part(self, batch: Mapping[str, Any]) -> Mapping[str, Any]:
+        """This process's part of the query axis over the mesh's model axis
+        (the batch itself where the axis is 1 or does not divide it)."""
+        mesh = process_mesh()
+        n, q = mesh.model_size, batch["qry_norot"].shape[1]
+        if n <= 1 or q % n:
+            return batch
+        lo, hi = mesh.model_index * q // n, (mesh.model_index + 1) * q // n
+        return dict(batch, **{k: batch[k][:, lo:hi] for k in ("qry_norot", "sdf", "occ")
+                              if k in batch})
 
     def _forward(self, model, batch: Mapping[str, Any]):
         """(sdf (B, M), slices_rec (B*S, H, W, 3) or None)."""
@@ -182,13 +214,15 @@ class RegressionTrainer:
 
     def train_step(self, state: RegTrainState, batch: Mapping[str, Any]
                    ) -> Tuple[RegTrainState, Dict[str, torch.Tensor]]:
-        """One update (in place): forward with batch-statistics BatchNorm,
+        """One update (in place): forward with batch-statistics BatchNorm on
+        this process's batch (its part of the queries over the model axis),
         backward, the gradients averaged over the process group, Adam at the
         schedule's LR of this update.  Each parameter's ``.grad`` keeps the
         applied gradient until the next step.  Returns (state, logs as 0-d
         tensors, the group's means)."""
         model = state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
+        batch = self._model_part(batch)
         loss, logs = self.losses(*self._forward(model, batch), batch)
         loss.backward()
         lr = self.schedule(state.step)
@@ -221,23 +255,31 @@ class RegressionTrainer:
     # -- checkpoints ------------------------------------------------------------------
 
     def state_payload(self, state: RegTrainState, epoch: int) -> Dict[str, Any]:
-        return {"model": state.model.state_dict(),
+        """The checkpoint's tensors, shards gathered: every process of a
+        model group calls it."""
+        return {"model": full_state_dict(state.model),
                 "adam": adam_payload(state.optimizer, state.model), "n_epoch": epoch,
                 "n_iter": state.step}
 
     def load_payload(self, state: RegTrainState, payload: Mapping[str, Any]) -> RegTrainState:
         """In place: weights and statistics, Adam's moments (by parameter
-        name) and step, and the trainer's step."""
-        state.model.load_state_dict(payload["model"])
+        name) and step, and the trainer's step; a sharded state takes its
+        part of an unsharded payload."""
+        load_state_dict_sharded(state.model, payload["model"])
         load_adam_payload(state.optimizer, state.model, payload["adam"])
         state.step = int(payload["n_iter"])
         return state
 
     def save(self, state: RegTrainState, dir_ckpt: str, epoch: int,
-             metrics: Mapping[str, float]) -> str:
+             metrics: Mapping[str, float], payload: Optional[Mapping[str, Any]] = None) -> str:
+        """Write ``payload`` (default: ``state_payload``'s; every process of a
+        sharded state must gather it, so ``train`` passes the one it
+        gathered) under the reference's name."""
         name = (f"{epoch}_{state.step}_{float(metrics.get('loss_pred', 0)):.4}_"
                 f"{float(metrics.get('acc', 0)):.4}_{float(metrics.get('loss_img', 0)):.4}.ckpt")
-        return save_checkpoint(os.path.join(dir_ckpt, name), self.state_payload(state, epoch))
+        if payload is None:
+            payload = self.state_payload(state, epoch)
+        return save_checkpoint(os.path.join(dir_ckpt, name), payload)
 
     def restore(self, state: RegTrainState, path: str) -> Tuple[RegTrainState, int]:
         """In place, from the port's checkpoint or the JAX trainer's msgpack
@@ -363,6 +405,7 @@ def train(opts: Options, *,
                     writer.add_scalar("Acc/train", float(logs["acc"]), step)
             if epoch % opts.freq_ckpt == 0:
                 metrics = trainer.eval_epoch(state, val_loader)
+                payload = trainer.state_payload(state, epoch)  # every process gathers
                 if not main:
                     continue
                 peak = (f", peak {torch.cuda.max_memory_allocated(dev) / 1e9:.4f} GB"
@@ -370,7 +413,7 @@ def train(opts: Options, *,
                 print(f"[val] epoch {epoch} {metrics}{peak}")
                 writer.add_scalar("Loss/val", metrics.get("loss_pred", 0), state.step)
                 writer.add_scalar("Acc/val", metrics.get("acc", 0), state.step)
-                print(f"saved {trainer.save(state, dir_ckpt, epoch, metrics)}")
+                print(f"saved {trainer.save(state, dir_ckpt, epoch, metrics, payload)}")
     finally:
         writer.close()
     return state

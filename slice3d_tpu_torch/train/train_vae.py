@@ -62,8 +62,8 @@ from ..models.layers import BatchNorm2d
 from ..models.lpips import load_lpips
 from ..models.random_init import random_init_
 from ..models.vae import AutoencoderKL, DiagonalGaussian
-from ..parallel import (all_reduce_average, all_reduce_gradients, all_reduce_mean, in_group,
-                        rank_part, world_size)
+from ..parallel import (all_reduce_average, all_reduce_gradients, all_reduce_mean, data_size,
+                        in_group, rank_part)
 from .checkpoint import (adam_payload, is_torch_file, load_adam_payload, restore_checkpoint,
                          save_checkpoint)
 from .flax_msgpack import read_flax_msgpack
@@ -164,11 +164,12 @@ class VAEFinetuneTrainer:
     def _reconstruct(self, vae: AutoencoderKL, x: torch.Tensor, noise,
                      generator: Optional[torch.Generator]):
         """(rec, moments) in fp32, the posterior noise from ``noise`` or
-        ``generator``: in a group the rank's rows of the global batch's."""
+        ``generator``: in a group its data index's rows of the global
+        batch's."""
         if in_group():
             n, hw = x.shape[0], x.shape[1] // vae.downscale
             if noise is None:
-                noise = torch.randn((world_size() * n, hw, hw, vae.post_quant_conv.in_channels),
+                noise = torch.randn((data_size() * n, hw, hw, vae.post_quant_conv.in_channels),
                                     generator=generator, device=self.device)
             noise = rank_part(self._tensor(noise), n)
         rec, moments = vae(x, None if noise is None else self._tensor(noise), generator)

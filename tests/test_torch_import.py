@@ -54,7 +54,8 @@ def test_import_leaves_jax_out():
             "slice3d_tpu_torch.train.__main__, slice3d_tpu_torch.train_gt, "
             "slice3d_tpu_torch.train_cam, slice3d_tpu_torch.models.perceptual, "
             "slice3d_tpu_torch.data.device_transforms, slice3d_tpu_torch.train.train_vae, "
-            "slice3d_tpu_torch.models.lpips, slice3d_tpu_torch.models.discriminator; "
+            "slice3d_tpu_torch.models.lpips, slice3d_tpu_torch.models.discriminator, "
+            "slice3d_tpu_torch.dryrun, slice3d_tpu_torch.parallel.sharding; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'slice3d_tpu' or m.startswith('slice3d_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")

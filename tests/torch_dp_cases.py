@@ -1,17 +1,19 @@
-"""Data-parallel cases for the port's multi-process tests, and the launcher
-that runs them in gloo processes.
+"""Data-parallel and sharded cases for the port's multi-process tests, and
+the launcher that runs them in gloo processes.
 
 The workers import the port and this module only (no JAX).  Each case makes
-the global batches of ``PROCS`` processes from numpy seeds, takes this
-process's rows (all of them without a group: the one-process reference),
-takes STEPS steps and records every step's logs and the first step's
-gradients and update (``_record``).  ``run_workers`` starts ``PROCS`` Python
-processes joined by ``SLICE3D_COORDINATOR`` / ``SLICE3D_NUM_PROCESSES`` /
-``SLICE3D_PROCESS_ID`` into one gloo group on a free local port, each in one
-torch thread, and fails within its timeout if the group hangs.  After the
-group, rank 0 runs each case again without one and holds the group's run to
-it (``compare``); the ranks return digests of their gradients and states,
-so that only the readings and the failures reach the tests.
+the global batches from numpy seeds, takes this process's rows (its data
+index's on the process mesh; all of them without a group: the one-process
+reference), takes STEPS steps and records every step's logs and the first
+step's gradients and update (``_record``; sharded tensors gathered whole).
+``run_workers`` starts ``procs`` Python processes (default PROCS) joined by
+``SLICE3D_COORDINATOR`` / ``SLICE3D_NUM_PROCESSES`` / ``SLICE3D_PROCESS_ID``
+into one gloo group on a free local port, each in one torch thread, lays
+them out as the (data, model) process mesh ``mesh`` when one is given, and
+fails within its timeout if the group hangs.  After the group, rank 0 runs
+each case again without one and holds the group's run to it (``compare``);
+the ranks return digests of their gradients and states, so that only the
+readings and the failures reach the tests.
 """
 
 import hashlib
@@ -22,19 +24,23 @@ import sys
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from slice3d_tpu_torch import camera
 from slice3d_tpu_torch.config import Options
+from slice3d_tpu_torch.data.pipeline import BatchLoader
 from slice3d_tpu_torch.diffusion.latent import LatentDiffusion
 from slice3d_tpu_torch.models.random_init import random_init_
-from slice3d_tpu_torch.parallel import rank, world_size
+from slice3d_tpu_torch.parallel import (all_reduce_mean, data_index, data_size, full_state_dict,
+                                        full_tensor, load_state_dict_sharded, model_index, rank)
+from slice3d_tpu_torch.train.checkpoint import save_checkpoint
 from slice3d_tpu_torch.train.train_cam import CamTrainer
 from slice3d_tpu_torch.train.train_ldm import LDMTrainer, trainable_parameters
 from slice3d_tpu_torch.train.train_reg import RegressionTrainer
 from slice3d_tpu_torch.train.train_vae import VAEFinetuneTrainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PROCS = 2  # processes of the group; the global batch is PROCS x the local one
+PROCS = 2  # processes of a data-parallel group; the global batch is PROCS x the local one
 STEPS = 2  # steps a case takes; the second step's logs depend on the first update
 
 REG_B, REG_IMG, REG_Q, REG_LR = 2, 32, 16, 3e-4  # local batch; the Options default LR
@@ -45,10 +51,11 @@ LDM_TINY = dict(timesteps=LDM_T, vae_ch=32, vae_mult=(1, 2), vae_nres=1, unet_ch
 VAE_N, VAE_IMG = 2, 32
 
 
-def _mine(batch, n_local):
-    """This process's rows of a global numpy batch dict."""
-    per = n_local * PROCS // world_size()
-    return {k: v[rank() * per:(rank() + 1) * per] for k, v in batch.items()}
+def _mine(batch):
+    """This process's rows of a global numpy batch dict: its data index's
+    part (the same for the processes of one model group)."""
+    per = len(next(iter(batch.values()))) // data_size()
+    return {k: v[data_index() * per:(data_index() + 1) * per] for k, v in batch.items()}
 
 
 def _floats(logs):
@@ -64,14 +71,15 @@ def _record(parts, params, step):
     part, the update of each compared tensor (after - before, fp64) and the
     BatchNorm running statistics after it; and ``parts`` after the last
     step."""
-    snap = lambda: {part: {k: v.detach().clone() for k, v in d.items()}  # noqa: E731
+    snap = lambda: {part: {k: full_tensor(v).detach().clone() for k, v in d.items()}  # noqa
                     for part, d in parts().items()}
     before, out = snap(), {"logs": []}
     for i in range(STEPS):
         out["logs"].append(_floats(step(i)))
         if i == 0:
             after = snap()
-            out["grads"] = {part: {k: p.grad.detach().clone() for k, p in named.items()}
+            out["grads"] = {part: {k: full_tensor(p.grad).detach().clone()
+                                   for k, p in named.items()}
                             for part, named in params().items()}
             names = {part: out["grads"].get(part, out["grads"].get("state"))
                      for part in after}
@@ -134,6 +142,9 @@ def compare(got, want):
         fails.append(f"scale {got['scale']!r}, expected {want['scale']!r}")
     if got.get("lr") != want.get("lr"):
         fails.append(f"lr {got.get('lr')!r}, expected {want.get('lr')!r}")
+    for k, w in want.get("eval", {}).items():  # after the last step, as the later logs
+        if not _close(got["eval"][k], w, LATER_LOG_TOL):
+            fails.append(f"eval {k}: {got['eval'][k]!r}, expected {w!r}")
     for part, grads in want["grads"].items():
         floor = GRAD_FLOOR * max(float(v.abs().max()) for v in grads.values())
         for k, v in grads.items():
@@ -193,7 +204,9 @@ def summarize(jobs, results, group_rank):
     out = {}
     for name, (fn, args) in jobs.items():
         got = results[name]
-        out[name] = {k: got[k] for k in ("logs", "scale", "lr") if k in got}
+        out[name] = {k: got[k] for k in ("logs", "scale", "lr", "scaled_lr", "n_sharded",
+                                         "taken", "where", "eval", "sharded", "logdir")
+                     if k in got}
         out[name]["digests"] = {k: _digest(got[k]) for k in ("grads", "last") if k in got}
         if group_rank == 0 and "delta" in got:
             out[name]["failures"], out[name]["readings"] = compare(
@@ -232,7 +245,7 @@ def run_reg(name, init_path=None):
         state.model.load_state_dict(torch.load(init_path))
     return _record(lambda: {"state": state.model.state_dict()},
                    lambda: {"state": dict(state.model.named_parameters())},
-                   lambda i: trainer.train_step(state, _mine(reg_batch(70 + i), REG_B))[1])
+                   lambda i: trainer.train_step(state, _mine(reg_batch(70 + i)))[1])
 
 
 def cam_batch(seed):
@@ -253,8 +266,7 @@ def run_cam():
     state = trainer.init_state(seed=4)
     return _record(lambda: {"state": state.model.state_dict()},
                    lambda: {"state": dict(state.model.named_parameters())},
-                   lambda i: {"loss": trainer.train_step(state,
-                                                         _mine(cam_batch(80 + i), REG_B))[1]})
+                   lambda i: {"loss": trainer.train_step(state, _mine(cam_batch(80 + i)))[1]})
 
 
 def ldm_inputs(seed):
@@ -275,18 +287,18 @@ def run_ldm(handed):
     generator seeded alike on every process, recorded (the trainable
     parameters and the EMA), with the scale and the LR."""
     module = random_init_(LatentDiffusion(**LDM_TINY), torch.Generator().manual_seed(0))
-    trainer = LDMTrainer(img_size=LDM_IMG, batch_size=LDM_B * PROCS // world_size(),
+    trainer = LDMTrainer(img_size=LDM_IMG, batch_size=LDM_B * PROCS // data_size(),
                          timesteps=LDM_T, base_lr=1e-4, module=module.eval(),
                          scale_by_std=True, device="cpu")
     state = trainer.init_state()
     batch, draws = ldm_inputs(90)
     g = torch.Generator().manual_seed(91)
-    trainer.maybe_set_scale(state, _mine(batch, LDM_B), g,
+    trainer.maybe_set_scale(state, _mine(batch), g,
                             noise=draws["posterior_noise"] if handed else None)
 
     def step(i):
         batch, draws = ldm_inputs(90 + i)
-        return trainer.train_step(state, _mine(batch, LDM_B), g,
+        return trainer.train_step(state, _mine(batch), g,
                                   draws=draws if handed else None)[1]
 
     out = _record(lambda: {"state": trainable_parameters(state.ldm), "ema": state.ema},
@@ -308,7 +320,7 @@ def run_vae(handed):
     def step(i):
         batch = {"image": rng.uniform(-1, 1, (n, VAE_IMG, VAE_IMG, 3)).astype(np.float32)}
         noise = rng.normal(size=(n, VAE_IMG // 2, VAE_IMG // 2, 4)).astype(np.float32)
-        return trainer.train_step(state, _mine(batch, VAE_N), g,
+        return trainer.train_step(state, _mine(batch), g,
                                   draws={"posterior_noise": noise} if handed else None)[1]
 
     return _record(lambda: {"state": state.vae.state_dict(), "disc": state.disc.state_dict()},
@@ -337,6 +349,174 @@ def run_reg_cli(data_root, exp_root, writes_path):
     return {"last": {"state": state.model.state_dict()}}
 
 
+# -- parameters sharded over the model axis (tests/test_torch_multiprocess_fsdp.py) --------
+
+FSDP_MIN = 2 ** 10  # the sharding floor: tests/test_parallel.py's sharded step
+LDM_GLOBAL = PROCS * LDM_B  # the LDM's global batch on every process mesh
+
+
+class _OwnSlice:
+    """A reduce-scatter that keeps this process's slice of its own gradient
+    and reduces nothing over the model group: what DTensor's default
+    ``full_tensor()`` backward gives a gathered parameter."""
+
+    def allocate(self, size, *, dtype, device):
+        return torch.empty(*size, dtype=dtype, device=device)
+
+    def __call__(self, output_tensor, input_tensor, group, op, async_op=False):
+        output_tensor.copy_(input_tensor.view(group.size(), -1)[group.rank()])
+
+
+def _default_backward(module):
+    """``module``'s sharded gradients left unreduced over the model group
+    (``_OwnSlice``) in each of its ``fully_shard`` units."""
+    from torch.distributed.fsdp import FSDPModule
+
+    for m in module.modules():
+        if isinstance(m, FSDPModule):
+            m.set_custom_reduce_scatter(_OwnSlice())
+
+
+def _sharded_count(module):
+    return sum(isinstance(p, DTensor) for p in module.parameters())
+
+
+def run_reg_fsdp(init_path, default_backward=False):
+    """STEPS SliceNet steps on ``reg_batch(70 + i)`` from the state_dict saved
+    at ``init_path``, the parameters of at least FSDP_MIN elements sharded
+    over the model axis and the queries split over it, recorded, with the
+    count of sharded parameters and ``eval_epoch``'s logs after the steps on
+    ``reg_batch(79)``; with ``default_backward``, the model group's
+    gradient reduction swapped for ``_OwnSlice``."""
+    trainer = RegressionTrainer(reg_opts("slicenet"), steps_per_epoch=4, device="cpu",
+                                fsdp_min_size=FSDP_MIN)
+    state = trainer.init_state(seed=3)
+    if default_backward:
+        _default_backward(state.model)
+    load_state_dict_sharded(state.model, torch.load(init_path))
+    out = _record(lambda: {"state": full_state_dict(state.model)},
+                  lambda: {"state": dict(state.model.named_parameters())},
+                  lambda i: trainer.train_step(state, _mine(reg_batch(70 + i)))[1])
+    return dict(out, n_sharded=_sharded_count(state.model),
+                eval=trainer.eval_epoch(state, [_mine(reg_batch(79))]))
+
+
+def ldm_fsdp_trainer(**kw):
+    """The tiny LDM's trainer at the process's share of LDM_GLOBAL (fixed LR,
+    as the JAX trainer it is held to), sharding at FSDP_MIN."""
+    return LDMTrainer(img_size=LDM_IMG, batch_size=LDM_GLOBAL // data_size(),
+                      timesteps=LDM_T, module=LatentDiffusion(**LDM_TINY).eval(),
+                      device="cpu", fsdp_min_size=FSDP_MIN, **kw)
+
+
+class _Indices:
+    """A dataset of 8 rows, each its index."""
+
+    def __len__(self):
+        return 8
+
+    def __getitem__(self, i):
+        return {"i": np.array(i)}
+
+
+def run_ldm_fsdp(payload_path, inputs_path):
+    """``maybe_set_scale`` (recorded, then set back to the 1.0 of the JAX
+    state the steps are held to) and STEPS LDM steps on the global batches
+    and draws saved at ``inputs_path`` (``batch{i}_*``, ``draws{i}_*``, the
+    JAX steps' own), from the payload at ``payload_path``, sharded, recorded
+    (the trainable parameters and the EMA) with the scale, the LR, the LR
+    the same trainer scales by the data axis, digests of the batch rows,
+    loader rows and draws this process took, and the EMA's eval losses
+    after the steps (the group's mean: each process evaluates its rows)."""
+    inputs = np.load(inputs_path)
+    trainer = ldm_fsdp_trainer(base_lr=1e-4, scale_lr=False, scale_by_std=True)
+    state = trainer.init_state()
+    trainer.load_payload(state, torch.load(payload_path))
+    batch = lambda i: _mine({k: inputs[f"batch{i}_{k}"]  # noqa: E731
+                             for k in ("image", "img_ipt_view")})
+    draws = lambda i: {k: inputs[f"draws{i}_{k}"]  # noqa: E731
+                       for k in ("posterior_noise", "t", "noise")}
+    trainer.maybe_set_scale(state, batch(0), noise=draws(0)["posterior_noise"])
+    scale = float(state.ldm.scale_factor)
+    state.ldm.scale_factor.fill_(1.0)
+    loader = BatchLoader(_Indices(), 1, num_workers=1)
+    taken = _digest({"rows": {"batch": torch.as_tensor(batch(0)["image"]),
+                              "loader": torch.as_tensor(np.concatenate([b["i"] for b in loader]))},
+                     "draws": trainer._step_draws(state.ldm, torch.as_tensor(batch(0)["image"]),
+                                                  torch.Generator().manual_seed(7), None)})
+    out = _record(lambda: {"state": trainable_parameters(state.ldm), "ema": state.ema},
+                  lambda: {"state": trainable_parameters(state.ldm)},
+                  lambda i: trainer.train_step(state, batch(i), draws=draws(i))[1])
+    scaled = ldm_fsdp_trainer(base_lr=1e-4).lr
+    return dict(out, scale=scale, lr=trainer.lr, scaled_lr=scaled, taken=taken,
+                where=(data_index(), model_index()), n_sharded=_sharded_count(state.ldm),
+                eval=_floats(all_reduce_mean({k: torch.tensor(v) for k, v in trainer.eval_loss(
+                    state, batch(0), draws=draws(0)).items()})))
+
+
+def run_ckpt_fsdp(reg_path, ldm_path, out_dir):
+    """The unsharded checkpoints at ``reg_path`` (SliceNet) and ``ldm_path``
+    (the tiny LDM) restored into sharded states; every process gathers the
+    payloads and rank 0 alone writes them under ``out_dir``
+    (``reg_{world}.ckpt``, ``ldm_{world}.ckpt``, world the group's size or 1);
+    then STEPS SliceNet steps on ``reg_batch(75 + i)`` from the restored
+    state, recorded."""
+    from slice3d_tpu_torch.parallel import world_size
+
+    reg = RegressionTrainer(reg_opts("slicenet"), steps_per_epoch=4, device="cpu",
+                            fsdp_min_size=FSDP_MIN)
+    state, _ = reg.restore(reg.init_state(seed=9), reg_path)
+    ldm = ldm_fsdp_trainer(base_lr=1e-4)
+    lstate = ldm.restore(ldm.init_state(), ldm_path)
+    # as the CLIs write: the regression payload gathered by every process and
+    # written by rank 0; the LDM saved by rank 0 while the others gather
+    payload = reg.state_payload(state, 0)
+    if rank() == 0:
+        save_checkpoint(os.path.join(out_dir, f"reg_{world_size()}.ckpt"), payload)
+        ldm.save(lstate, os.path.join(out_dir, f"ldm_{world_size()}.ckpt"))
+    else:
+        ldm.state_payload(lstate)
+    out = _record(lambda: {"state": full_state_dict(state.model)},
+                  lambda: {"state": dict(state.model.named_parameters())},
+                  lambda i: reg.train_step(state, _mine(reg_batch(75 + i)))[1])
+    return dict(out, n_sharded=_sharded_count(state.model) + _sharded_count(lstate.ldm))
+
+
+def main_ldm_argv(cfg_path, logs_root):
+    """``main -t`` on the tiny LDM config at ``cfg_path`` for 2 steps with
+    every interval at 2: a checkpoint, a validation and its top-k file, the
+    image logs."""
+    return ["-b", cfg_path, "-t", "-l", logs_root, "-n", "ldm", "--max_steps", "2",
+            "--ckpt_every", "2", "--val_every", "2", "--log_images_every", "2",
+            "--ddim_steps", "2", "--scale_lr", "False", "--device", "cpu", "--dtype", "float32"]
+
+
+def run_main_ldm_fsdp(cfg_path, logs_root):
+    """``main -t`` (``main_ldm_argv``) with the trainer sharding at FSDP_MIN
+    (the CLI's own floor shards nothing at these widths); returns whether
+    the state was sharded, the run's logdir, where rank 0 alone wrote, and
+    the final state gathered (its digest reaches the test)."""
+    import functools
+
+    from slice3d_tpu_torch import main as cli
+    from slice3d_tpu_torch.parallel import is_sharded
+
+    states = []
+
+    class Trainer(LDMTrainer):
+        def init_state(self, seed=0):
+            states.append(super().init_state(seed))
+            return states[-1]
+
+    cli.LDMTrainer = functools.partial(Trainer, fsdp_min_size=FSDP_MIN)
+    try:
+        logdir = cli.main(main_ldm_argv(cfg_path, logs_root))
+    finally:
+        cli.LDMTrainer = LDMTrainer
+    return {"sharded": [is_sharded(st.ldm) for st in states], "logdir": logdir,
+            "last": {"state": full_state_dict(states[-1].ldm)}}
+
+
 WORKER = """
 import sys
 sys.path[:0] = [{root!r}, {tests!r}]
@@ -344,8 +524,10 @@ sys.path[:0] = [{root!r}, {tests!r}]
 sys.modules["torch.utils.tensorboard"] = None
 import torch
 torch.set_num_threads(1)
-from slice3d_tpu_torch.parallel import init_distributed, rank
-assert init_distributed(device="cpu", timeout_s=30) == {procs}
+from slice3d_tpu_torch.parallel import init_distributed, init_process_mesh, rank
+assert init_distributed(device="cpu", timeout_s={timeout_s}) == {procs}
+if {mesh!r} is not None:
+    init_process_mesh({mesh!r})
 import torch_dp_cases as cases
 jobs, r = {jobs!r}, rank()
 results = {{name: getattr(cases, fn)(*args) for name, (fn, args) in jobs.items()}}
@@ -357,22 +539,32 @@ torch.save(out, f"{out_dir}/rank{{r}}.pt")
 """
 
 
-def run_workers(jobs, out_dir, timeout=300):
-    """Run ``jobs`` ({name: (function of this module, args)}) in PROCS gloo
-    processes; returns each rank's {name: ``summarize``'s summary,
-    "jax_imported": bool}."""
+def start_workers(jobs, out_dir, procs=PROCS, mesh=None, timeout_s=30):
+    """Start ``jobs`` ({name: (function of this module, args)}) in ``procs``
+    gloo processes laid out as the process mesh ``mesh`` (default: all on
+    ``data``), ``timeout_s`` the group's collective timeout; returns the
+    handle ``finish_workers`` takes."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     code = WORKER.format(root=ROOT, tests=os.path.dirname(os.path.abspath(__file__)),
-                         procs=PROCS, jobs=jobs, out_dir=str(out_dir))
-    procs = []
-    for r in range(PROCS):
+                         procs=procs, mesh=None if mesh is None else tuple(mesh), jobs=jobs,
+                         out_dir=str(out_dir), timeout_s=timeout_s)
+    handles = []
+    for r in range(procs):
         env = dict(os.environ, SLICE3D_COORDINATOR=f"127.0.0.1:{port}",
-                   SLICE3D_NUM_PROCESSES=str(PROCS), SLICE3D_PROCESS_ID=str(r),
+                   SLICE3D_NUM_PROCESSES=str(procs), SLICE3D_PROCESS_ID=str(r),
                    OMP_NUM_THREADS="1")
-        procs.append(subprocess.Popen([sys.executable, "-c", code], env=env,
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        handles.append(subprocess.Popen([sys.executable, "-c", code], env=env,
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    return handles, out_dir
+
+
+def finish_workers(started, timeout=300):
+    """Wait for ``start_workers``' processes (killing them at ``timeout``);
+    returns each rank's {name: ``summarize``'s summary, "jax_imported":
+    bool}."""
+    procs, out_dir = started
     outputs = []
     try:
         for p in procs:
@@ -385,4 +577,9 @@ def run_workers(jobs, out_dir, timeout=300):
     for p, text in zip(procs, outputs):
         if p.returncode != 0:
             raise AssertionError(f"a worker failed ({p.returncode}):\n{text[-4000:]}")
-    return [torch.load(f"{out_dir}/rank{r}.pt", weights_only=False) for r in range(PROCS)]
+    return [torch.load(f"{out_dir}/rank{r}.pt", weights_only=False) for r in range(len(procs))]
+
+
+def run_workers(jobs, out_dir, timeout=300, **kw):
+    """``start_workers`` then ``finish_workers``."""
+    return finish_workers(start_workers(jobs, out_dir, **kw), timeout)
