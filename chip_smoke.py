@@ -137,7 +137,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      LDM's attention launches exact); the per-card bytes of parameters, Adam
      and EMA at model axes 1, 2, 4 and 8, computed from the rule's
      placements; and ``python -m slice3d_tpu_torch.dryrun`` in a group of
-     its own (its five ``ok`` lines).
+     its own (its five ``ok`` lines);
+ 17. checkpoint directories (``--ckpt_backend orbax`` / ``orbax_async``:
+     ``torch.distributed.checkpoint``) against the msgpack file: (a) ``python
+     -m slice3d_tpu_torch.main -t`` with configs/objaverse-ldm-kl-8.yaml at
+     full width (batch 8, 128 px) on phase 14's synthetic dataset (8 objects,
+     in ``_smoke/``, removed after) once per backend: 4 steps checkpointed
+     every 2, resumed to step 6; per backend the loop's blocked ms per save
+     (p50), GB written, card and host memory above a save's start, every
+     restored tensor bit-equal to the saved state, exactly 10 + 10 attention
+     launches a step; (b) phase 16's forced-sharded (1, 1) SliceNet and LDM
+     states after a step saved as directories with no gather, restored into a
+     sharded and into an unsharded state, both bit-equal; (c) one SliceNet
+     object reconstructed through ``load_model`` from a ``RegressionTrainer``
+     directory and from a file of the same weights: the same grid and faces.
 The last three lines are the paths' JSON record, the kernels' JSON record
 and the run's status JSON.
 """
@@ -3271,6 +3284,358 @@ def phase_fsdp(power: str):
     return out, total
 
 
+CKPT_BACKENDS = ("msgpack", "orbax", "orbax_async")
+CKPT_SHAPES = 8  # phase 14's synthetic dataset at one batch of 8
+CKPT_LDM = dict(max_steps=4, ckpt_every=2, val_every=0, log_images_every=0)
+CKPT_RESUME_STEPS = 6
+CKPT_DIR = os.path.join(SMOKE_DIR, "ckpt")
+
+
+class _HostPeak:
+    """The peak resident set size of this process within the block, above
+    its start (``/proc/self/statm`` read every 2 ms on a thread)."""
+
+    def __enter__(self):
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.peak = self._rss()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._watch, daemon=True)
+        self.thread.start()
+        return self
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def _watch(self):
+        while not self.stop.wait(0.002):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self.peak = max(self.peak, self._rss())
+
+    @property
+    def gb(self) -> float:
+        return (self.peak - self.start) / 1e9
+
+
+class _Gathers:
+    """Counts the gathers of sharded tensors (``DTensor.full_tensor``, which
+    ``parallel.full_tensor`` and ``full_state_dict`` run) within the block."""
+
+    def __enter__(self):
+        from torch.distributed.tensor import DTensor
+
+        self.cls, self.real, self.n = DTensor, DTensor.full_tensor, 0
+
+        def counted(t, *a, **k):
+            self.n += 1
+            return self.real(t, *a, **k)
+
+        DTensor.full_tensor = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.full_tensor = self.real
+
+
+def _flat(payload, prefix: str = "") -> dict:
+    """A nested payload as {path: value}."""
+    out = {}
+    for k, v in payload.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + str(k)] = v
+    return out
+
+
+def _whole(payload) -> dict:
+    """A payload's tensors gathered whole and copied (on their device), its
+    other values as they are, flat."""
+    from slice3d_tpu_torch.parallel import full_tensor
+
+    return {k: full_tensor(v).detach().clone() if isinstance(v, torch.Tensor) else v
+            for k, v in _flat(payload).items()}
+
+
+def _bit_equal(got: dict, want: dict) -> list:
+    """The paths where two flat payloads differ (keys, dtype, shape, value)."""
+    bad = sorted(set(got) ^ set(want))
+    for k in set(got) & set(want):
+        a, b = got[k], want[k]
+        if isinstance(b, torch.Tensor):
+            same = (isinstance(a, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(a.to(b.device), b))
+        else:
+            same = a == b
+        if not same:
+            bad.append(k)
+    return bad
+
+
+def _disk_gb(path: str) -> float:
+    if os.path.isdir(path):
+        return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e9
+    return os.path.getsize(path) / 1e9
+
+
+def _ckpt_cli(data: str, backend: str, power: str):
+    """(a) for one backend: ``main -t`` on configs/objaverse-ldm-kl-8.yaml for
+    CKPT_LDM's 4 steps (``last.ckpt`` at 2 and 4), then ``-r`` to step
+    CKPT_RESUME_STEPS; each save timed (the loop blocked, and within it the
+    wait for the write before it), its card and host memory above the save's
+    start (the host's peak resident set, which a process's later saves may
+    find already grown), the state at the last save of the first run kept
+    on the card and held bit for bit to what the resume restores."""
+    from slice3d_tpu_torch import main as gen_main
+    from slice3d_tpu_torch.train import checkpoint as ckpt_mod
+    from slice3d_tpu_torch.train.train_ldm import LDMTrainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    common = ["-b", os.path.join(here, "configs", "objaverse-ldm-kl-8.yaml"), "-t",
+              "--data_root", data, "-s", "3", "--ckpt_backend", backend]
+    flags = [f"--{k}={v}" for k, v in CKPT_LDM.items()]
+    saves, kept, flushes, restored, waited = [], {}, [], [], [0.0]
+    real_save, real_restore, real_wait = LDMTrainer.save, LDMTrainer.restore, gen_main.wait_pending
+    real_inner = ckpt_mod.wait_pending
+
+    def inner_wait():  # a save's wait for the write before it (orbax_async)
+        t0 = time.perf_counter()
+        real_inner()
+        waited[0] += (time.perf_counter() - t0) * 1e3
+
+    def timed_save(self, state, path):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        waited[0] = 0.0
+        with _HostPeak() as host:
+            t0 = time.perf_counter()
+            out = real_save(self, state, path)
+            ms = (time.perf_counter() - t0) * 1e3
+        saves.append({"step": state.step, "ms": ms, "waited_ms": waited[0], "host_gb": host.gb,
+                      "card_gb": (torch.cuda.max_memory_allocated() - before) / 1e9})
+        if state.step == CKPT_LDM["max_steps"] and not kept:
+            kept.update(_whole(self.shard_payload(state)))
+        return out
+
+    def checked_restore(self, state, path):
+        t0 = time.perf_counter()
+        state = real_restore(self, state, path)
+        torch.cuda.synchronize()
+        restored.append({"ms": (time.perf_counter() - t0) * 1e3,
+                         "bad": _bit_equal(_whole(self.shard_payload(state)), kept)})
+        return state
+
+    def timed_wait():
+        t0 = time.perf_counter()
+        real_wait()
+        flushes.append((time.perf_counter() - t0) * 1e3)
+
+    LDMTrainer.save, LDMTrainer.restore, gen_main.wait_pending = (timed_save, checked_restore,
+                                                                    timed_wait)
+    ckpt_mod.wait_pending = inner_wait
+    try:
+        logdir, steps, dt, counts, _ = run_train_main(
+            f"ckpt {backend} train", common + ["-l", CKPT_DIR] + flags, LDMTrainer)
+        last = os.path.join(logdir, "checkpoints", "last.ckpt")
+        gb = _disk_gb(last)
+        check(os.path.isdir(last) == (backend != "msgpack"), f"{backend}: last.ckpt {last}")
+        ret, steps2, dt2, counts2, _ = run_train_main(
+            f"ckpt {backend} resume", common + ["-r", logdir] + flags[1:]
+            + [f"--max_steps={CKPT_RESUME_STEPS}"], LDMTrainer)
+    finally:
+        LDMTrainer.save, LDMTrainer.restore, gen_main.wait_pending = (real_save, real_restore,
+                                                                        real_wait)
+        ckpt_mod.wait_pending = real_inner
+    shutil.rmtree(logdir, ignore_errors=True)
+    n1, n2 = CKPT_LDM["max_steps"], CKPT_RESUME_STEPS - CKPT_LDM["max_steps"]
+    check(ret == logdir and [s["step"] for s in steps + steps2] == list(range(1, 7)),
+          f"{backend}: steps {[s['step'] for s in steps + steps2]} in {ret}")
+    check([s["step"] for s in saves] == [2, 4, 6], f"{backend}: saves at {saves}")
+    check(len(restored) == 1 and not restored[0]["bad"],
+          f"{backend}: restored tensors differ from the saved state: {restored}")
+    for c, n in ((counts, n1), (counts2, n2)):
+        check(c["spatial_attention"] == 10 * n and c["spatial_attention_bwd"] == 10 * n,
+              f"{backend}: attention launched {c} over {n} steps, expected 10 and 10 a step")
+    ms = [s["ms"] for s in saves]
+    own = [s["ms"] - s["waited_ms"] for s in saves]
+    out = {"save_ms": ms, "save_ms_p50": percentile(ms, 0.5),
+           "waited_ms": [s["waited_ms"] for s in saves], "own_ms_p50": percentile(own, 0.5),
+           "gb": gb,
+           "card_gb": [s["card_gb"] for s in saves], "host_gb": [s["host_gb"] for s in saves],
+           "flush_ms": flushes, "restore_ms": restored[0]["ms"], "n_tensors": len(kept),
+           "step_ms_p50": percentile([s["ms"] for s in steps[1:] + steps2], 0.5),
+           "cli_s": [dt, dt2]}
+    print(f"[ckpt] {backend}: the loop blocked per save {', '.join(f'{m:.4f}' for m in ms)} ms "
+          f"(p50 {out['save_ms_p50']:.4f}), of which waiting for the write before "
+          f"{', '.join(f'{m:.4f}' for m in out['waited_ms'])} ms (the rest's p50 "
+          f"{out['own_ms_p50']:.4f}); {gb:.4f} GB written a checkpoint; card memory "
+          f"above a save's start {max(out['card_gb']):.4f} GB, host {max(out['host_gb']):.4f} "
+          f"GB; flushes {', '.join(f'{m:.4f}' for m in flushes)} ms; restore "
+          f"{out['restore_ms']:.4f} ms, {len(kept)} tensors bit-equal to the saved state; "
+          f"10 + 10 attention launches a step over {n1} + {n2} steps; step p50 "
+          f"{out['step_ms_p50']:.4f} ms; the CLIs {dt:.4f} + {dt2:.4f} s; {power}")
+    kept.clear()
+    add = {k: counts[k] + counts2[k] for k in counts}
+    return out, add
+
+
+def _ckpt_sharded(power: str):
+    """(b) phase 16's forced-sharded (1, 1) SliceNet and LDM states, one step
+    each, saved as directories by the one process with no gather, restored
+    into a fresh sharded and an unsharded state, both bit-equal."""
+    import torch.distributed as dist
+
+    from slice3d_tpu_torch.config import Options
+    from slice3d_tpu_torch.diffusion.latent import init_latent_diffusion
+    from slice3d_tpu_torch.parallel import init_process_mesh, is_sharded
+    from slice3d_tpu_torch.profile_training import regression_batches, seeded_vgg19
+    from slice3d_tpu_torch.train.checkpoint import save_checkpoint, wait_pending
+    from slice3d_tpu_torch.train.train_ldm import LDMTrainer
+    from slice3d_tpu_torch.train.train_reg import RegressionTrainer
+
+    _init_group_of_one()
+    init_process_mesh((1, 1))
+    vgg = seeded_vgg19()
+    opts = Options(name_model="slicenet", n_bs=PAR_REG_BATCH, img_size=REG_IMG, n_qry=REG_QRY,
+                   train_dtype="bfloat16")
+    reg_batch = regression_batches(1, torch.Generator(device="cuda").manual_seed(21),
+                                   b=PAR_REG_BATCH, size=REG_IMG, n_qry=REG_QRY)[0]
+    ldm_batch = train_batches(1, PAR_LDM_BATCH, torch.Generator(device="cuda").manual_seed(22))[0]
+    ldm_module = init_latent_diffusion(seed=0, dtype=torch.bfloat16)
+    cases = {
+        "slicenet": (lambda: RegressionTrainer(opts, vgg19=vgg, fsdp_min_size=FSDP_MIN),
+                     lambda tr, st: tr.train_step(st, reg_batch),
+                     lambda tr, st: tr.shard_payload(st, 0),
+                     lambda tr, p: tr.restore(tr.init_state(), p)[0],
+                     lambda st: st.model, ("orbax", "orbax_async")),
+        "ldm": (lambda: LDMTrainer(module=ldm_module, batch_size=PAR_LDM_BATCH,
+                                   fsdp_min_size=FSDP_MIN),
+                lambda tr, st: tr.train_step(st, ldm_batch,
+                                             torch.Generator(device="cuda").manual_seed(23)),
+                lambda tr, st: tr.shard_payload(st),
+                lambda tr, p: tr.restore(tr.init_state(), p),
+                lambda st: st.ldm, ("orbax_async",))}
+    out = {}
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    for name, (make, step, payload_of, restored, model_of, backends) in cases.items():
+        with forced_rule():
+            trainer = make()
+            state = trainer.init_state()
+        check(is_sharded(model_of(state)), f"(b) {name}: the forced rule sharded nothing")
+        step(trainer, state)
+        want = _whole(payload_of(trainer, state))
+        for backend in backends:
+            path = os.path.join(CKPT_DIR, f"{name}_{backend}.ckpt")
+            torch.cuda.synchronize()
+            with _Gathers() as g:
+                t0 = time.perf_counter()
+                save_checkpoint(path, payload_of(trainer, state), backend)
+                blocked = (time.perf_counter() - t0) * 1e3
+                wait_pending()
+                total = (time.perf_counter() - t0) * 1e3
+            check(g.n == 0, f"(b) {name} {backend}: {g.n} gathers during the save")
+            files = sorted(os.listdir(path))
+            for sharded in (True, False):
+                with forced_rule() if sharded else contextlib.nullcontext():
+                    fresh = make()
+                    got = restored(fresh, path)
+                check(is_sharded(model_of(got)) == sharded, f"(b) {name}: restored layout")
+                bad = _bit_equal(_whole(payload_of(fresh, got)), want)
+                check(not bad, f"(b) {name} {backend} into a {'sharded' if sharded else 'plain'} "
+                      f"state: {bad[:5]} differ")
+                del fresh, got
+            out[f"{name}_{backend}"] = {"blocked_ms": blocked, "total_ms": total,
+                                        "gb": _disk_gb(path), "files": files, "gathers": g.n}
+            print(f"[ckpt] (b) {name} {backend}: {len(want)} entries, {_disk_gb(path):.4f} GB in "
+                  f"{files}; save blocked {blocked:.4f} ms, written {total:.4f} ms; 0 gathers; "
+                  f"restored bit-equal into a sharded and into an unsharded state; {power}")
+            shutil.rmtree(path)
+        del trainer, state, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return out
+
+
+def _ckpt_load_model(power: str, device: str = "cuda"):
+    """(c) one SliceNet object reconstructed through ``load_model`` from a
+    ``RegressionTrainer`` directory and from a file of the same weights: the
+    same grid and faces."""
+    from slice3d_tpu_torch.config import Options
+    from slice3d_tpu_torch.models.build import load_model
+    from slice3d_tpu_torch.pipeline import Reconstructor
+    from slice3d_tpu_torch.train.train_reg import RegressionTrainer
+
+    paths = {}
+    for backend in ("orbax", "msgpack"):
+        opts = Options(name_model="slicenet", img_size=128, ckpt_backend=backend)
+        trainer = RegressionTrainer(opts, device=device)
+        state = trainer.init_state(seed=5)
+        paths[backend] = trainer.save(state, os.path.join(CKPT_DIR, backend), 0, {})
+        del trainer, state
+    feed = make_feeds(1, seed=3)[0]
+    inference = Options(name_model="slicenet", img_size=128, dtype="bfloat16")
+    grids, faces = {}, {}
+    reset_counts()
+    threshold = None
+    for backend, path in paths.items():
+        model = load_model(inference, path).to(device)
+        if threshold is None:
+            probe, _ = Reconstructor(model, resolution0=16, upsampling_steps=0).build_grid(feed)
+            threshold = float(1.0 / (1.0 + np.exp(-np.median(probe))))
+        rec = Reconstructor(model, resolution0=SERVE_POINT["mc_res0"],
+                            upsampling_steps=SERVE_POINT["mc_up_steps"],
+                            chunk_size=SERVE_POINT["mc_chunk_size"], threshold=threshold)
+        grids[backend] = rec.build_grid(feed)[0]
+        mesh, _ = rec.reconstruct(feed)
+        faces[backend] = len(mesh.faces)
+        del model, rec
+    counts = read_counts()
+    same = bool(np.array_equal(grids["orbax"], grids["msgpack"]))
+    check(same and faces["orbax"] == faces["msgpack"] and faces["orbax"] > 0,
+          f"(c) load_model from a directory: grids equal {same}, faces {faces}")
+    print(f"[ckpt] (c) load_model from a RegressionTrainer directory and from a file: grids "
+          f"equal, {faces['orbax']} faces each; launches {counts}; {power}")
+    return {"faces": faces["orbax"], "grid_equal": same}, counts
+
+
+def phase_checkpoints(power: str):
+    """Phase 17: checkpoint directories (``--ckpt_backend orbax`` /
+    ``orbax_async``, ``torch.distributed.checkpoint``) against the msgpack
+    file: (a) ``main -t`` at full width per backend, (b) sharded states, (c)
+    ``load_model`` from a directory; ``_smoke/`` removed after."""
+    from slice3d_tpu_torch.data.builders import create_synthetic_dataset
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    data = os.path.join(SMOKE_DIR, "data", "objaverse")
+    create_synthetic_dataset(data, n_shapes=CKPT_SHAPES, n_views=12, img_size=128, n_sdf=64,
+                             seed=4)
+    marks = {"dataset": time.perf_counter() - t_phase}
+    out, counts = {"cli": {}}, None
+    try:
+        for backend in CKPT_BACKENDS:
+            out["cli"][backend], c = _ckpt_cli(data, backend, power)
+            counts = c if counts is None else {k: counts[k] + c[k] for k in c}
+            marks[backend] = time.perf_counter() - t_phase
+        out["sharded"] = _ckpt_sharded(power)
+        marks["sharded"] = time.perf_counter() - t_phase
+        out["load_model"], c = _ckpt_load_model(power)
+        counts = {k: counts[k] + c[k] for k in c}
+    finally:
+        shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["marks_s"] = marks
+    print(f"[ckpt] phase 17 in {out['phase_s']:.4f} s (s from its start at the end of each part: "
+          f"{marks}); launches {counts}; {power}")
+    return out, counts
+
+
 def phase_parallel(power: str):
     """Phase 15: sharded reconstruction, training in an NCCL group of one and
     the CLIs' multi-card options; the launches under the path "parallel"."""
@@ -3336,6 +3701,7 @@ def main() -> int:
     gentrain, gentrain_counts = phase_generation_training_cli(power)
     parallel, parallel_counts = phase_parallel(power)
     fsdp, fsdp_counts = phase_fsdp(power)
+    ckpt, ckpt_counts = phase_checkpoints(power)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"regression": main_counts, "generation": gen["counts"],
@@ -3345,7 +3711,7 @@ def main() -> int:
                                               if isinstance(r, dict) and "counts" in r)
                                        for k in regcli_counts},
                "regression_cli": regcli_counts, "generation_training_cli": gentrain_counts,
-               "parallel": parallel_counts, "fsdp": fsdp_counts}
+               "parallel": parallel_counts, "fsdp": fsdp_counts, "checkpoints": ckpt_counts}
     full = modes[0]
     encoder = {"name": "fused_encoder_layer", "route": "cuda",
                "source": "slice3d_tpu_torch/csrc/fused_encoder.cu",
@@ -3399,7 +3765,7 @@ def main() -> int:
                       "serving": serving, "split": split, "options": options,
                       "generation_cli": gencli, "regression_training": regtrain,
                       "generation_training_cli": gentrain, "parallel": parallel,
-                      "fsdp": fsdp}))
+                      "fsdp": fsdp, "checkpoints": ckpt}))
     print(json.dumps({"kernels": [encoder, attention, attention_bwd, ffn]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

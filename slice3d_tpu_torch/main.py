@@ -18,10 +18,10 @@ VAE finetune and the VAE round trip.
 The root ``main.py``: the module and the data come from the YAML config (read
 without PyYAML, ``utils/yaml_config.py``; ``key=value`` dotlist overrides
 after the flags); ``-r`` names a logdir (its newest ``checkpoints/*.ckpt``) or
-a checkpoint file, the port's ``torch.save`` file or the JAX package's
-msgpack one (the root ``main.py -t`` writes those); without one the weights
-are drawn from ``-s``.  A new run's logdir is ``<-l>/<time>_<name>``, with
-the merged config in ``configs/``.
+a checkpoint, the port's ``torch.save`` file or checkpoint directory or the
+JAX package's msgpack file (the root ``main.py -t`` writes those); without
+one the weights are drawn from ``-s``.  A new run's logdir is
+``<-l>/<time>_<name>``, with the merged config in ``configs/``.
 
 * ``-t`` on an LDM config (root ``main.py:430-539``): ``maybe_set_scale``
   before the first step, then steps until ``--max_steps``; ``last.ckpt``
@@ -58,10 +58,20 @@ the trainers average over the group; rank 0 picks the logdir and writes the
 config, the checkpoints, the montages and the scalars; validation means are
 the whole split's.  Sampling and ``--mode rec`` run on rank 0 alone.
 
+``--ckpt_backend`` keeps the root CLI's values (``train/checkpoint.py``):
+``msgpack`` writes one ``torch.save`` file (rank 0 alone; a sharded state is
+gathered first), ``orbax`` a ``torch.distributed.checkpoint`` directory
+(``.metadata`` and ``__<rank>_<n>.distcp`` files, not orbax's format) that
+every process writes together, each its own shards, and ``orbax_async`` the
+same directory written in the background (flushed after the last and the
+emergency checkpoint).  An emergency checkpoint is written where one
+process can write it alone: not of a sharded state, nor a directory in a
+group.  At ``--max_steps`` ``last.ckpt`` is written unless that step's
+``--ckpt_every`` one already was (the root CLI writes it again).
+
 Runs on CUDA unless ``--device cpu``; ``--dtype`` is the networks' compute
 dtype over fp32 master weights (``bfloat16``: the attention kernels, forward
-and backward; ``float32`` takes the attention's plain path).  The port writes
-``torch.save`` checkpoints only: ``--ckpt_backend orbax*`` is refused.
+and backward; ``float32`` takes the attention's plain path).
 """
 
 from __future__ import annotations
@@ -82,9 +92,10 @@ from .data.pipeline import BatchLoader
 from .diffusion.latent import LatentDiffusion
 from .diffusion.sampler import SAMPLERS
 from .models.random_init import random_init_
-from .parallel import (all_reduce_mean, all_reduce_sum, barrier, broadcast_object,
+from .parallel import (all_reduce_mean, all_reduce_sum, barrier, broadcast_object, in_group,
                        init_distributed, is_main_process, is_sharded)
-from .train.checkpoint import TopKCheckpointer, latest_checkpoint
+from .train.checkpoint import (BACKENDS, TopKCheckpointer, is_checkpoint_dir, latest_checkpoint,
+                               wait_pending)
 from .train.train_ldm import LDMTrainer
 from .train.train_reg import scalar_writer
 from .train.train_vae import VAEFinetuneTrainer, vae_weights
@@ -95,8 +106,6 @@ __all__ = ["get_parser", "build_module_and_trainer", "build_vae_trainer", "build
            "validate_full", "main"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-_ORBAX = ("the port writes torch.save checkpoints only; orbax directories are the JAX "
-          "package's (use --ckpt_backend msgpack)")
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -128,9 +137,10 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--guidance_scale", type=float, default=1.0,
                    help="classifier-free guidance scale (1.0 = off), one 2B-batched UNet "
                         "call a step")
-    p.add_argument("--ckpt_backend", type=str, default="msgpack",
-                   choices=["msgpack", "orbax", "orbax_async"],
-                   help="msgpack (the default) writes the port's torch.save files")
+    p.add_argument("--ckpt_backend", type=str, default="msgpack", choices=list(BACKENDS),
+                   help="msgpack (the default): one torch.save file; orbax: a sharded "
+                        "torch.distributed.checkpoint directory; orbax_async: the same "
+                        "written in the background")
     p.add_argument("--ddim_eta", type=float, default=1.0)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     p.add_argument("--dtype", type=str, default="bfloat16", choices=list(DTYPES),
@@ -158,11 +168,13 @@ def _img_size(cfg) -> int:
     return 128
 
 
-def build_module_and_trainer(cfg, device, dtype: torch.dtype, scale_lr: bool = True):
+def build_module_and_trainer(cfg, device, dtype: torch.dtype, scale_lr: bool = True,
+                             ckpt_backend: str = "msgpack"):
     """(module on ``device``, trainer, img_size, batch size) from the config,
     as the root ``build_module_and_trainer``: widths from ``unet_config`` and
     ``first_stage_config``, the image size from the first split that sets
-    one.  The module is built on ``device`` with the default init."""
+    one, checkpoints in ``ckpt_backend``'s format.  The module is built on
+    ``device`` with the default init."""
     mp = _params(cfg, "model", "params")
     unet = _params(mp, "unet_config", "params")
     dd = _params(mp, "first_stage_config", "params", "ddconfig")
@@ -192,15 +204,15 @@ def build_module_and_trainer(cfg, device, dtype: torch.dtype, scale_lr: bool = T
         module=module, scheduler_config=mp.get("scheduler_config") or None,
         learn_logvar=bool(mp.get("learn_logvar", False)),
         scale_by_std=bool(mp.get("scale_by_std", True)),
-        use_ema=bool(mp.get("use_ema", True)), device=device)
+        use_ema=bool(mp.get("use_ema", True)), device=device, ckpt_backend=ckpt_backend)
     return module, trainer, img_size, bs
 
 
-def build_vae_trainer(cfg, device, dtype: torch.dtype):
+def build_vae_trainer(cfg, device, dtype: torch.dtype, ckpt_backend: str = "msgpack"):
     """(``VAEFinetuneTrainer``, img_size, batch size) from an autoencoder
     config, as the root ``run_vae_finetune``: widths from ``ddconfig``, the
     losses from ``lossconfig.params`` (``lpips_ckpt`` read when it names a
-    file)."""
+    file), checkpoints in ``ckpt_backend``'s format."""
     mp = _params(cfg, "model", "params")
     dd = _params(mp, "ddconfig")
     lossp = _params(mp, "lossconfig", "params")
@@ -217,7 +229,7 @@ def build_vae_trainer(cfg, device, dtype: torch.dtype):
         disc_n_layers=int(lossp["disc_num_layers"]) if "disc_num_layers" in lossp else None,
         vae_ch=int(dd.get("ch", 128)), vae_mult=tuple(dd.get("ch_mult", (1, 2, 4, 4))),
         vae_nres=int(dd.get("num_res_blocks", 2)), lpips_params=lpips, dtype=dtype,
-        device=device)
+        device=device, ckpt_backend=ckpt_backend)
     return trainer, img_size, int(_params(cfg, "data", "params").get("batch_size", 2))
 
 
@@ -267,12 +279,14 @@ def _save_montage(img_dir: str, name: str, step: int, slices) -> None:
 
 def _resume_target(args):
     """(logdir or None, checkpoint or None) of ``-r``, read once every
-    process of a group has got here."""
+    process of a group has got here: a checkpoint file or directory
+    (``<logdir>/checkpoints/<name>``), else a logdir."""
     if not args.resume:
         return None, None
     barrier()
-    if os.path.isfile(args.resume):
-        return os.path.dirname(os.path.dirname(args.resume)), args.resume
+    if os.path.isfile(args.resume) or is_checkpoint_dir(args.resume):
+        ckpt = args.resume.rstrip("/")
+        return os.path.dirname(os.path.dirname(ckpt)), ckpt
     logdir = args.resume.rstrip("/")
     return logdir, latest_checkpoint(os.path.join(logdir, "checkpoints"))
 
@@ -315,6 +329,52 @@ def _seeded(device, seed: int) -> torch.Generator:
     return torch.Generator(device).manual_seed(seed)
 
 
+class _Saves:
+    """The training loops' checkpoint writes in the trainer's ``ckpt_backend``:
+    a ``msgpack`` file by rank 0 (the other processes of a sharded state
+    gathering with it), a directory by every process together."""
+
+    def __init__(self, trainer, main: bool, sharded: bool):
+        self.trainer, self.main, self.sharded = trainer, main, sharded
+        self.every = trainer.ckpt_backend != "msgpack"
+        self.saved = None  # the step of the last ``last.ckpt``
+
+    def last(self, state, path: str) -> None:
+        if self.main or self.every:
+            self.trainer.save(state, path)
+        elif self.sharded:
+            self.trainer.state_payload(state)  # the gather of rank 0's write
+        self.saved = state.step
+
+    def final(self, state, path: str) -> None:
+        """``last.ckpt`` at ``--max_steps`` unless the step's own one is there,
+        then flushed."""
+        if state.step != self.saved:
+            self.last(state, path)
+        wait_pending()
+
+    def top_k(self, state, topk: TopKCheckpointer, value: float, step: int) -> None:
+        if self.main or self.every:
+            kept = topk.update(value, step, self.trainer.checkpoint_payload(state))
+            if kept and self.main:
+                print(f"saved top-k checkpoint {kept}")
+        elif self.sharded:
+            self.trainer.state_payload(state)
+
+    def emergency(self, state, path: str, step: int) -> None:
+        """``last.ckpt`` after a failure, where one process can write it alone
+        (not a sharded state, nor a directory in a group), then flushed."""
+        if not self.main:
+            return
+        if self.sharded or (self.every and in_group()):
+            print(f"no emergency checkpoint at step {step}: every process writes this "
+                  f"checkpoint together")
+            return
+        self.trainer.save(state, path)
+        wait_pending()
+        print(f"saved emergency checkpoint at step {step}")
+
+
 def _train_ldm(cfg, args, trainer: LDMTrainer, state, logdir: str, img_size: int, bs: int,
                device) -> str:
     want_ckpt = {"flag": False}
@@ -326,14 +386,16 @@ def _train_ldm(cfg, args, trainer: LDMTrainer, state, logdir: str, img_size: int
     ckpt_dir = os.path.join(logdir, "checkpoints")
     last = os.path.join(ckpt_dir, "last.ckpt")
     writer = scalar_writer(os.path.join(logdir, "tensorboard"))
-    topk = TopKCheckpointer(ckpt_dir, monitor="val/loss_simple_ema", k=3)
+    topk = TopKCheckpointer(ckpt_dir, monitor="val/loss_simple_ema", k=3,
+                            backend=trainer.ckpt_backend)
     g = _seeded(device, args.seed)
     main = is_main_process()
-    # a sharded state (parallel.shard_params_fsdp) gathers its checkpoints and
-    # runs its forwards on every process together: where rank 0 saves, the
-    # others take their part in the gather (state_payload), and every process
-    # samples the image logs that rank 0 writes
+    # a sharded state (parallel.shard_params_fsdp) runs its forwards on every
+    # process together, so every process samples the image logs that rank 0
+    # writes; its msgpack checkpoints are gathered by every process while
+    # rank 0 writes, and a directory checkpoint is written by every process
     sharded = is_sharded(state.ldm)
+    saves = _Saves(trainer, main, sharded)
     t0 = time.time()
     step = state.step
     try:
@@ -354,25 +416,17 @@ def _train_ldm(cfg, args, trainer: LDMTrainer, state, logdir: str, img_size: int
                     ckpt_now = float(all_reduce_mean({"c": torch.tensor(float(ckpt_now))})["c"]) > 0
                 if ckpt_now:
                     want_ckpt["flag"] = False
-                    if main:
-                        trainer.save(state, last)
-                    elif sharded:
-                        trainer.state_payload(state)
+                    saves.last(state, last)
                 if val_loader is not None and _every(step, args.val_every):
                     v, ve = (validate_full(lambda vb: trainer.eval_loss(
                         state, vb, _seeded(device, 0), use_ema=ema), val_loader,
                         ("loss", "loss_simple", "loss_vlb")) for ema in (False, True))
-                    if sharded and not main:
-                        trainer.state_payload(state)
                     if main:
                         print(f"step {step}: val/loss_simple {v['loss_simple']:.5f} "
                               f"ema {ve['loss_simple']:.5f}")
                         writer.add_scalar("val/loss_simple", v["loss_simple"], step)
                         writer.add_scalar("val/loss_simple_ema", ve["loss_simple"], step)
-                        kept = topk.update(ve["loss_simple"], step,
-                                           trainer.state_payload(state))
-                        if kept:
-                            print(f"saved top-k checkpoint {kept}")
+                    saves.top_k(state, topk, ve["loss_simple"], step)
                 if (main or sharded) and _every(step, args.log_images_every):
                     rec = trainer.reconstruct_slices(state, batch["image"],
                                                      generator=_seeded(device, 0))
@@ -396,18 +450,10 @@ def _train_ldm(cfg, args, trainer: LDMTrainer, state, logdir: str, img_size: int
                         for name, montage in montages.items():
                             _save_montage(img_dir, name, step, montage)
                 if args.max_steps > 0 and step >= args.max_steps:
-                    if main:
-                        trainer.save(state, last)
-                    elif sharded:
-                        trainer.state_payload(state)
+                    saves.final(state, last)
                     return logdir
     except (Exception, KeyboardInterrupt):
-        if main and not sharded:
-            trainer.save(state, last)
-            print(f"saved emergency checkpoint at step {step}")
-        elif main:
-            print(f"no emergency checkpoint at step {step}: a sharded state is gathered by "
-                  f"every process together")
+        saves.emergency(state, last, step)
         raise
 
 
@@ -419,7 +465,7 @@ def _flatten_stack(batch):
 
 
 def _finetune_vae(cfg, args, device, dtype: torch.dtype) -> str:
-    trainer, img_size, bs = build_vae_trainer(cfg, device, dtype)
+    trainer, img_size, bs = build_vae_trainer(cfg, device, dtype, args.ckpt_backend)
     state = trainer.init_state(args.seed)
     ckpt_path = str(_params(cfg, "model", "params").get("ckpt_path") or "")
     if ckpt_path and os.path.exists(ckpt_path):
@@ -436,9 +482,11 @@ def _finetune_vae(cfg, args, device, dtype: torch.dtype) -> str:
     ckpt_dir = os.path.join(logdir, "checkpoints")
     last = os.path.join(ckpt_dir, "last.ckpt")
     writer = scalar_writer(os.path.join(logdir, "tensorboard"))
-    topk = TopKCheckpointer(ckpt_dir, monitor="val/rec_loss", k=3)
+    topk = TopKCheckpointer(ckpt_dir, monitor="val/rec_loss", k=3,
+                            backend=trainer.ckpt_backend)
     g = _seeded(device, args.seed)
     main = is_main_process()
+    saves = _Saves(trainer, main, False)
     t0 = time.time()
     step = state.step
     try:
@@ -452,8 +500,8 @@ def _finetune_vae(cfg, args, device, dtype: torch.dtype) -> str:
                           f"({time.time() - t0:.0f}s)")
                     for k in ("rec_loss", "kl", "g_loss", "d_weight", "ae_loss", "disc_loss"):
                         writer.add_scalar(f"train/{k}", float(logs[k]), step)
-                if main and step % args.ckpt_every == 0:
-                    trainer.save(state, last)
+                if step % args.ckpt_every == 0:
+                    saves.last(state, last)
                 if val_loader is not None and _every(step, args.val_every):
                     keys = ("rec_loss", "kl") + (("lpips",) if trainer.lpips is not None
                                                  and trainer.perceptual_weight > 0 else ())
@@ -463,9 +511,7 @@ def _finetune_vae(cfg, args, device, dtype: torch.dtype) -> str:
                         print(f"step {step}: val/rec_loss {v['rec_loss']:.5f}")
                         for k, val in v.items():
                             writer.add_scalar(f"val/{k}", val, step)
-                        kept = topk.update(v["rec_loss"], step, trainer.state_payload(state))
-                        if kept:
-                            print(f"saved top-k checkpoint {kept}")
+                    saves.top_k(state, topk, v["rec_loss"], step)
                 if main and _every(step, args.log_images_every):
                     img_dir = os.path.join(logdir, "images", "train")
                     os.makedirs(img_dir, exist_ok=True)
@@ -474,13 +520,10 @@ def _finetune_vae(cfg, args, device, dtype: torch.dtype) -> str:
                     _save_montage(img_dir, "inputs", step, batch["image"][0, :12])
                     _save_montage(img_dir, "reconstruction", step, rec[:12].cpu())
                 if args.max_steps > 0 and step >= args.max_steps:
-                    if main:
-                        trainer.save(state, last)
+                    saves.final(state, last)
                     return logdir
     except (Exception, KeyboardInterrupt):
-        if main:
-            trainer.save(state, last)
-            print(f"saved emergency checkpoint at step {step}")
+        saves.emergency(state, last, step)
         raise
 
 
@@ -512,8 +555,6 @@ def _reconstruct_with_vae(cfg, args, device, dtype: torch.dtype) -> str:
 def main(argv=None) -> Optional[str]:
     """Run the CLI; returns the logdir it wrote to."""
     args, unknown = get_parser().parse_known_args(argv)
-    if args.ckpt_backend != "msgpack":
-        raise ValueError(f"--ckpt_backend {args.ckpt_backend}: {_ORBAX}")
     cfg = load_config(args.base, unknown)
     init_distributed(device=args.device)
     if not args.train and not is_main_process():
@@ -528,7 +569,8 @@ def main(argv=None) -> Optional[str]:
                              "nothing; pass -t or --mode rec")
         return _reconstruct_with_vae(cfg, args, device, dtype)
     _, trainer, img_size, bs = build_module_and_trainer(
-        cfg, device, dtype, scale_lr=str(args.scale_lr).lower() != "false")
+        cfg, device, dtype, scale_lr=str(args.scale_lr).lower() != "false",
+        ckpt_backend=args.ckpt_backend)
 
     logdir, ckpt = _resume_target(args)
     if ckpt is None:

@@ -5,8 +5,10 @@ inference models: bf16 (SliceNet and GTSlice on the fused encoder route), or
 fp32 (the plain route; both kernel routes take bf16 only).  ``load_model``
 gives the model its weights: the port's seeded init for ``--random_init`` or
 no checkpoint, else a reference torch checkpoint, whose ``state_dict`` names
-the port uses as they are, or a msgpack checkpoint of the JAX package
-(``train_reg.py`` / ``train_cam.py`` payloads, or bare variables), read by
+the port uses as they are, a checkpoint directory of the port's trainers
+(``train/checkpoint.py``, ``--ckpt_backend orbax``: its ``model`` entries),
+or a msgpack checkpoint of the JAX package (``train_reg.py`` /
+``train_cam.py`` payloads, or bare variables), read by
 ``train/flax_msgpack.py`` and mapped by ``convert.py``.  ``load_camnet``
 does the same for the camera pose estimator of ``--est_campose``, from
 ``--name_exp_cam`` / ``--name_ckpt_cam``.
@@ -21,7 +23,7 @@ import torch
 
 from .. import convert
 from ..config import Options
-from ..train.checkpoint import is_torch_file
+from ..train.checkpoint import is_checkpoint_dir, is_torch_file, restore_checkpoint
 from ..train.flax_msgpack import ORBAX_MESSAGE, read_flax_msgpack
 from .camnet import CameraNet, init_camnet
 from .disn import DISNModel, init_disn
@@ -64,10 +66,14 @@ def build_model(opts: Options) -> Model:
 
 def _state_dict(ckpt_path: str, name: str):
     """The ``state_dict`` of model ``name`` in a checkpoint: a reference torch
-    file's (the file's, or the one it holds under ``"model"``), or a JAX
-    msgpack file's variables (under ``"variables"``, or the whole tree)
-    mapped to the reference names.  Orbax directories raise a ``ValueError``
-    that names their conversion to msgpack."""
+    file's (the file's, or the one it holds under ``"model"``), the
+    ``"model"`` entries of a trainer's checkpoint directory (read alone), or
+    a JAX msgpack file's variables (under ``"variables"``, or the whole
+    tree) mapped to the reference names.  Other directories (the JAX
+    package's orbax ones) raise a ``ValueError`` that names their conversion
+    to msgpack."""
+    if is_checkpoint_dir(ckpt_path):
+        return restore_checkpoint(ckpt_path, keys=("model",))["model"]
     if os.path.isdir(ckpt_path):
         raise ValueError(ORBAX_MESSAGE.format(path=ckpt_path))
     if is_torch_file(ckpt_path):
@@ -82,9 +88,11 @@ def load_model(opts: Options, ckpt_path: Optional[str] = None) -> Model:
 
     * ``--random_init`` or no checkpoint: the port's seeded init (seed 0);
     * a reference torch checkpoint (a ``state_dict``, or a dict holding one
-      under ``"model"``), or a JAX msgpack checkpoint: loaded strictly;
-    * a JAX orbax checkpoint (a directory): a ``ValueError`` naming the
-      conversion to msgpack.
+      under ``"model"``), a checkpoint directory of the port's trainers
+      (its ``"model"`` entries), or a JAX msgpack checkpoint: loaded
+      strictly;
+    * a JAX orbax checkpoint (a directory without DCP's ``.metadata``): a
+      ``ValueError`` naming the conversion to msgpack.
     """
     _check_model(opts)
     if ckpt_path is None or opts.random_init:

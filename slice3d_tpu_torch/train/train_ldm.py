@@ -26,9 +26,11 @@ process mesh with a ``model`` axis larger than 1
 parameters of at least ``fsdp_min_size`` elements are sharded over it
 (``parallel.shard_params_fsdp``, the frozen VAE's too, as the JAX dry run
 shards the whole state), AdamW's moments and the EMA take their layout,
-and the processes of one model group take the same rows and draws; the
-payload gathers the shards on every process, so the checkpoint is the
-unsharded one's.
+and the processes of one model group take the same rows and draws.  A ``msgpack``
+checkpoint gathers the shards on every process, so it is the unsharded
+one's; a directory checkpoint (``ckpt_backend`` ``orbax`` / ``orbax_async``,
+``train/checkpoint.py``) is written by every process, each its own shards,
+and restores into a state sharded over any model axis, or none.
 
 Differences from the JAX package, on purpose:
 
@@ -52,9 +54,9 @@ Sampling (``sample_slices`` with any sampler and guidance,
 ``sample_progressive``) runs under the EMA weights; ``diffusion_row`` and
 ``reconstruct_slices`` (the VAE round trip of ``main --mode rec``) read the
 frozen VAE only (``train_ldm.py:305-535``).  ``restore`` reads the port's
-own checkpoints and the JAX trainer's msgpack ones (``save``: variables, EMA,
-``scale_factor``, ``logvar``, step), whose optimizer state it leaves out:
-AdamW starts fresh.
+own checkpoints (files and directories) and the JAX trainer's msgpack ones
+(``save``: variables, EMA, ``scale_factor``, ``logvar``, step), whose
+optimizer state it leaves out: AdamW starts fresh.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ import copy
 import os
 import zipfile
 from dataclasses import dataclass
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -81,7 +83,8 @@ from ..parallel import (all_reduce_gradients, all_reduce_mean, all_reduce_sum, d
                         full_state_dict, full_tensor, in_group, load_state_dict_sharded,
                         optimizer_groups, process_mesh, rank_part, shard_like,
                         shard_params_fsdp)
-from .checkpoint import (load_optimizer_payload, optimizer_payload, restore_checkpoint,
+from .checkpoint import (check_backend, is_checkpoint_dir, load_optimizer_payload,
+                         optimizer_payload, optimizer_shards, restore_checkpoint,
                          save_checkpoint)
 from .flax_msgpack import read_flax_msgpack
 from .lr_schedules import from_scheduler_config
@@ -119,8 +122,9 @@ class LDMTrainer:
     it :meth:`init_state` draws one with ``init_latent_diffusion`` at the
     128 px operating point.  ``batch_size`` is a process's; the current
     process mesh's model axis (``parallel.process_mesh()``) shards the
-    parameters of at least ``fsdp_min_size`` elements.  Runs on CUDA unless
-    ``device`` says otherwise.
+    parameters of at least ``fsdp_min_size`` elements.  ``ckpt_backend``:
+    ``save``'s format (``train/checkpoint.py``'s BACKENDS).  Runs on CUDA
+    unless ``device`` says otherwise.
     """
 
     def __init__(self, *, img_size: int = 128, batch_size: int = 8, base_lr: float = 5e-5,
@@ -131,9 +135,10 @@ class LDMTrainer:
                  scheduler_config: Optional[Dict[str, Any]] = None,
                  learn_logvar: bool = False, cond_train_bn: bool = True,
                  device: Optional[Union[str, torch.device]] = None,
-                 fsdp_min_size: int = 2 ** 16):
+                 fsdp_min_size: int = 2 ** 16, ckpt_backend: str = "msgpack"):
         self.device = resolve_device(device)
         self.fsdp_min_size = fsdp_min_size
+        self.ckpt_backend = check_backend(ckpt_backend)
         self.module = module
         self.img_size = img_size
         self.batch_size = batch_size
@@ -445,18 +450,39 @@ class LDMTrainer:
 
     # -- checkpoints ------------------------------------------------------------------
 
-    def _optimized(self, state: LDMTrainState) -> List[torch.Tensor]:
-        """AdamW's parameters in the order of an unsharded state's one group."""
-        return (list(trainable_parameters(state.ldm).values())
-                + ([state.logvar] if self.learn_logvar else []))
+    def _optimized(self, state: LDMTrainState) -> Dict[str, torch.Tensor]:
+        """AdamW's parameters by name, in the order of an unsharded state's one
+        group."""
+        params: Dict[str, torch.Tensor] = dict(trainable_parameters(state.ldm))
+        if self.learn_logvar:
+            params["logvar"] = state.logvar
+        return params
 
     def state_payload(self, state: LDMTrainState) -> Dict[str, Any]:
-        """The checkpoint's tensors, shards gathered: every process of a
-        model group calls it."""
+        """The checkpoint's tensors, shards gathered (a ``msgpack`` file): every
+        process of a model group calls it."""
         return {"model": full_state_dict(state.ldm),
-                "optimizer": optimizer_payload(state.optimizer, self._optimized(state)),
+                "optimizer": optimizer_payload(state.optimizer,
+                                               list(self._optimized(state).values())),
                 "ema": {n: full_tensor(e) for n, e in state.ema.items()},
                 "logvar": state.logvar.detach(), "step": state.step}
+
+    def shard_payload(self, state: LDMTrainState) -> Dict[str, Any]:
+        """The checkpoint's tensors as they lie (a directory): the model's
+        ``state_dict`` and the EMA (a sharded parameter's shards), AdamW's
+        state by parameter name (``optimizer_shards``), ``logvar`` and the
+        step; nothing gathered or copied, so a restore through it loads the
+        state in place."""
+        return {"model": state.ldm.state_dict(),
+                "optimizer": optimizer_shards(state.optimizer, self._optimized(state)),
+                "ema": state.ema, "logvar": state.logvar.detach(), "step": state.step}
+
+    def checkpoint_payload(self, state: LDMTrainState) -> Dict[str, Any]:
+        """What ``save`` writes in the trainer's ``ckpt_backend``:
+        ``state_payload`` for ``msgpack``, else ``shard_payload``."""
+        if self.ckpt_backend == "msgpack":
+            return self.state_payload(state)
+        return self.shard_payload(state)
 
     def load_payload(self, state: LDMTrainState, payload: Mapping[str, Any]) -> LDMTrainState:
         """In place: the model's weights and statistics, the EMA, ``logvar``,
@@ -464,7 +490,8 @@ class LDMTrainer:
         takes its part of an unsharded payload."""
         load_state_dict_sharded(state.ldm, payload["model"])
         if "optimizer" in payload:
-            load_optimizer_payload(state.optimizer, self._optimized(state), payload["optimizer"])
+            load_optimizer_payload(state.optimizer, list(self._optimized(state).values()),
+                                   payload["optimizer"])
         with torch.no_grad():
             for n, e in state.ema.items():
                 e.copy_(shard_like(e, payload["ema"][n]))
@@ -473,15 +500,23 @@ class LDMTrainer:
         return state
 
     def save(self, state: LDMTrainState, path: str) -> str:
-        """Write ``state_payload``'s tensors at ``path``; of a sharded state,
-        while every other process runs ``state_payload`` (the gather)."""
-        return save_checkpoint(path, self.state_payload(state))
+        """Write ``checkpoint_payload`` at ``path`` in ``ckpt_backend``'s
+        format.  A ``msgpack`` file of a sharded state is written by one
+        process while every other runs ``state_payload`` (the gather); a
+        directory is written by every process of the group together."""
+        return save_checkpoint(path, self.checkpoint_payload(state), self.ckpt_backend)
 
     def restore(self, state: LDMTrainState, path: str) -> LDMTrainState:
-        """In place, from the port's ``torch.save`` checkpoint or the JAX
-        trainer's msgpack one (its variables, EMA, ``scale_factor``,
-        ``logvar`` and step; AdamW starts fresh).  A JAX orbax directory
-        raises a ``ValueError`` naming its conversion to msgpack."""
+        """In place, from the port's checkpoint (a ``torch.save`` file, or a
+        directory read into ``shard_payload``'s tensors: each process its own
+        shards, however the state is sharded) or the JAX trainer's msgpack
+        one (its variables, EMA, ``scale_factor``, ``logvar`` and step;
+        AdamW starts fresh).  A JAX orbax directory raises a ``ValueError``
+        naming its conversion to msgpack."""
+        if is_checkpoint_dir(path):
+            payload = restore_checkpoint(path, target=self.shard_payload(state))
+            state.step = int(payload["step"])
+            return state
         if os.path.isdir(path) or not zipfile.is_zipfile(path):
             tree = read_flax_msgpack(path)
             variables = tree["variables"]

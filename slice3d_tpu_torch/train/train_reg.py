@@ -22,12 +22,17 @@ does not run, so its statistics stay where they are (the JAX backbone runs
 it and moves them).  Each parameter the loss does not reach gets a zero
 gradient, as under optax, so Adam's state covers every parameter.
 
-``restore`` reads the port's checkpoints and the JAX trainer's msgpack ones
-(``convert.train_reg_payload``: weights, statistics, Adam's moments, step
-and epoch), so ``--resume`` continues a JAX run.  A checkpoint holds the
-model's state_dict under ``"model"``, which ``models/build.py::load_model``
-reads for reconstruction.  ``<exp_dir>/code`` gets a snapshot of this
-package when it is absent; a resumed run keeps the first run's snapshot.
+Checkpoints are written in ``opts.ckpt_backend``'s format
+(``train/checkpoint.py``): a ``torch.save`` file, or a
+``torch.distributed.checkpoint`` directory that every process of the group
+writes together (``train`` flushes an asynchronous one, ``wait_pending``,
+before it returns).  ``restore`` reads both, and the JAX trainer's msgpack
+files (``convert.train_reg_payload``: weights, statistics, Adam's moments,
+step and epoch), so ``--resume`` continues a JAX run.  A checkpoint holds
+the model's state_dict under ``"model"``, which
+``models/build.py::load_model`` reads for reconstruction.
+``<exp_dir>/code`` gets a snapshot of this package when it is absent; a
+resumed run keeps the first run's snapshot.
 
 In a process group (``parallel.init_distributed``; one process a card) the
 step is data-parallel: each process takes its loader shard, the BatchNorms
@@ -35,8 +40,9 @@ normalise with the global batch's statistics, the gradients are averaged
 over the group before Adam, and the logs are the group's means, so the
 step is the one-process step on the global batch, as the JAX trainer's jit
 over a sharded batch.  Only rank 0 writes ``opts.txt``, the code snapshot,
-the scalars and the checkpoints; every process waits for the others before
-``--resume`` reads.
+the scalars and the ``msgpack`` checkpoints (every process writes its part
+of a directory); every process waits for the others before ``--resume``
+reads.
 
 The trainer runs on the process mesh (``parallel.init_process_mesh``; the
 default grid puts every process on ``data``).  With a ``model`` axis larger
@@ -47,9 +53,11 @@ the same batch rows, and when the query axis divides by the model axis
 each takes its part of ``qry_norot`` / ``sdf`` / ``occ``, as the JAX dry
 run places them with ``P("data", "model")`` (else all of them, as JAX's
 ``put_batch`` replicates what does not divide); the image terms are the
-same along ``model``.  The checkpoints gather the shards, so a sharded run
-writes the file an unsharded one does, and loads any: ``state_payload``
-gathers on every process, before rank 0 writes.
+same along ``model``.  A ``msgpack`` checkpoint gathers the shards, so a
+sharded run writes the file an unsharded one does, and loads any:
+``state_payload`` gathers on every process, before rank 0 writes; a
+directory holds each process's shards as they lie and loads into any
+sharding.
 """
 
 from __future__ import annotations
@@ -76,8 +84,9 @@ from ..models.vgg import VGG19Features, load_vgg19_features
 from ..parallel import (all_reduce_gradients, all_reduce_mean, barrier,
                         full_state_dict, is_main_process, load_state_dict_sharded,
                         optimizer_groups, process_mesh, shard_params_fsdp)
-from .checkpoint import (adam_payload, is_torch_file, latest_checkpoint, load_adam_payload,
-                         restore_checkpoint, save_checkpoint)
+from .checkpoint import (adam_payload, check_backend, is_checkpoint_dir, is_torch_file,
+                         latest_checkpoint, load_adam_payload, optimizer_shards,
+                         restore_checkpoint, save_checkpoint, wait_pending)
 from .flax_msgpack import read_flax_msgpack
 
 __all__ = ["RegTrainState", "RegressionTrainer", "make_lr_schedule", "sign_accuracy",
@@ -124,8 +133,9 @@ class RegressionTrainer:
     schedule, loss type and ``train_dtype``; ``vgg19`` (a ``VGG19Features``)
     turns SliceNet's perceptual term on (the trainer keeps a frozen copy).
     The current process mesh's model axis (``parallel.process_mesh()``)
-    shards the parameters of at least ``fsdp_min_size`` elements.  Runs on
-    CUDA unless ``device`` says otherwise."""
+    shards the parameters of at least ``fsdp_min_size`` elements; ``save``
+    writes in ``opts.ckpt_backend``'s format.  Runs on CUDA unless ``device``
+    says otherwise."""
 
     def __init__(self, opts: Options, *, vgg19: Optional[VGG19Features] = None,
                  steps_per_epoch: int = 1000,
@@ -134,6 +144,7 @@ class RegressionTrainer:
         self.device = resolve_device(device)
         self.fsdp_min_size = fsdp_min_size
         self.opts = opts
+        self.ckpt_backend = check_backend(opts.ckpt_backend)
         self.is_slicenet = opts.name_model == "slicenet"
         self.dtype = {"float32": None, "bfloat16": torch.bfloat16}[opts.train_dtype]
         self.vgg19 = (None if vgg19 is None else
@@ -255,11 +266,25 @@ class RegressionTrainer:
     # -- checkpoints ------------------------------------------------------------------
 
     def state_payload(self, state: RegTrainState, epoch: int) -> Dict[str, Any]:
-        """The checkpoint's tensors, shards gathered: every process of a
+        """A ``msgpack`` file's tensors, shards gathered: every process of a
         model group calls it."""
         return {"model": full_state_dict(state.model),
                 "adam": adam_payload(state.optimizer, state.model), "n_epoch": epoch,
                 "n_iter": state.step}
+
+    def shard_payload(self, state: RegTrainState, epoch: int) -> Dict[str, Any]:
+        """A directory's tensors as they lie (a sharded parameter's shards, Adam's
+        state by parameter name: ``optimizer_shards``), so a restore through
+        it loads in place; nothing gathered."""
+        return {"model": state.model.state_dict(),
+                "adam": optimizer_shards(state.optimizer, dict(state.model.named_parameters())),
+                "n_epoch": epoch, "n_iter": state.step}
+
+    def checkpoint_payload(self, state: RegTrainState, epoch: int) -> Dict[str, Any]:
+        """What ``save`` writes in the trainer's ``ckpt_backend``."""
+        if self.ckpt_backend == "msgpack":
+            return self.state_payload(state, epoch)
+        return self.shard_payload(state, epoch)
 
     def load_payload(self, state: RegTrainState, payload: Mapping[str, Any]) -> RegTrainState:
         """In place: weights and statistics, Adam's moments (by parameter
@@ -272,19 +297,25 @@ class RegressionTrainer:
 
     def save(self, state: RegTrainState, dir_ckpt: str, epoch: int,
              metrics: Mapping[str, float], payload: Optional[Mapping[str, Any]] = None) -> str:
-        """Write ``payload`` (default: ``state_payload``'s; every process of a
-        sharded state must gather it, so ``train`` passes the one it
-        gathered) under the reference's name."""
+        """Write ``payload`` (default: ``checkpoint_payload``'s; every process
+        of a sharded state must gather a ``msgpack`` one, so ``train`` passes
+        the one it gathered) under the reference's name, in ``ckpt_backend``'s
+        format (a directory: every process of the group calls it)."""
         name = (f"{epoch}_{state.step}_{float(metrics.get('loss_pred', 0)):.4}_"
                 f"{float(metrics.get('acc', 0)):.4}_{float(metrics.get('loss_img', 0)):.4}.ckpt")
         if payload is None:
-            payload = self.state_payload(state, epoch)
-        return save_checkpoint(os.path.join(dir_ckpt, name), payload)
+            payload = self.checkpoint_payload(state, epoch)
+        return save_checkpoint(os.path.join(dir_ckpt, name), payload, self.ckpt_backend)
 
     def restore(self, state: RegTrainState, path: str) -> Tuple[RegTrainState, int]:
-        """In place, from the port's checkpoint or the JAX trainer's msgpack
-        one; returns (state, the epoch to continue from)."""
-        if is_torch_file(path):
+        """In place, from the port's checkpoint (a file, or a directory read
+        into ``shard_payload``'s tensors) or the JAX trainer's msgpack one;
+        returns (state, the epoch to continue from)."""
+        if is_checkpoint_dir(path):
+            payload = restore_checkpoint(path, target=self.shard_payload(state, 0))
+            state.step = int(payload["n_iter"])
+            return state, int(payload["n_epoch"]) + 1
+        if not os.path.isdir(path) and is_torch_file(path):
             payload = restore_checkpoint(path, map_location=self.device)
         else:
             payload = convert.train_reg_payload(read_flax_msgpack(path), self.opts.name_model)
@@ -405,15 +436,19 @@ def train(opts: Options, *,
                     writer.add_scalar("Acc/train", float(logs["acc"]), step)
             if epoch % opts.freq_ckpt == 0:
                 metrics = trainer.eval_epoch(state, val_loader)
-                payload = trainer.state_payload(state, epoch)  # every process gathers
-                if not main:
-                    continue
-                peak = (f", peak {torch.cuda.max_memory_allocated(dev) / 1e9:.4f} GB"
-                        if dev.type == "cuda" else "")
-                print(f"[val] epoch {epoch} {metrics}{peak}")
-                writer.add_scalar("Loss/val", metrics.get("loss_pred", 0), state.step)
-                writer.add_scalar("Acc/val", metrics.get("acc", 0), state.step)
-                print(f"saved {trainer.save(state, dir_ckpt, epoch, metrics, payload)}")
+                # every process gathers a msgpack payload, or writes its shards
+                payload = trainer.checkpoint_payload(state, epoch)
+                if main:
+                    peak = (f", peak {torch.cuda.max_memory_allocated(dev) / 1e9:.4f} GB"
+                            if dev.type == "cuda" else "")
+                    print(f"[val] epoch {epoch} {metrics}{peak}")
+                    writer.add_scalar("Loss/val", metrics.get("loss_pred", 0), state.step)
+                    writer.add_scalar("Acc/val", metrics.get("acc", 0), state.step)
+                if main or trainer.ckpt_backend != "msgpack":
+                    path = trainer.save(state, dir_ckpt, epoch, metrics, payload)
+                    if main:
+                        print(f"saved {path}")
+        wait_pending()  # an asynchronous checkpoint reaches storage before the return
     finally:
         writer.close()
     return state

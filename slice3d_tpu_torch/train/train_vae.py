@@ -29,9 +29,11 @@ and 0 before.  Both optimizers are ``optax.adam``'s (b1 0.5, b2 0.9, eps
 Differences from the JAX package, on purpose: the adaptive weight is
 detached (the JAX step differentiates through it, which adds a
 second-order term to the VAE's gradient once the GAN is on).  The state is
-updated in place.  Checkpoints are the port's ``torch.save`` files (the JAX
-trainer's ``ckpt_backend`` has no counterpart); ``restore`` also reads the
-JAX trainer's msgpack files (``convert.vae_train_payload``).
+updated in place.  Checkpoints take the JAX trainer's ``ckpt_backend``
+values (``train/checkpoint.py``): a ``torch.save`` file, or a
+``torch.distributed.checkpoint`` directory that every process of a group
+writes together; ``restore`` reads both and the JAX trainer's msgpack files
+(``convert.vae_train_payload``).
 
 The networks compute in ``dtype`` over fp32 master weights (so gradients
 and Adam's moments are fp32); the losses are fp32.  The posterior sample's
@@ -64,7 +66,8 @@ from ..models.random_init import random_init_
 from ..models.vae import AutoencoderKL, DiagonalGaussian
 from ..parallel import (all_reduce_average, all_reduce_gradients, all_reduce_mean, data_size,
                         in_group, rank_part)
-from .checkpoint import (adam_payload, is_torch_file, load_adam_payload, restore_checkpoint,
+from .checkpoint import (adam_payload, check_backend, is_checkpoint_dir, is_torch_file,
+                         load_adam_payload, optimizer_shards, restore_checkpoint,
                          save_checkpoint)
 from .flax_msgpack import read_flax_msgpack
 
@@ -93,8 +96,10 @@ def default_disc_layers(img_size: int) -> int:
 
 
 def vae_weights(path: str) -> Dict[str, torch.Tensor]:
-    """The VAE's ``state_dict`` from a finetune checkpoint: the port's file
-    (``"vae"``) or the JAX trainer's msgpack one (``params``)."""
+    """The VAE's ``state_dict`` from a finetune checkpoint: the port's file or
+    directory (``"vae"``) or the JAX trainer's msgpack one (``params``)."""
+    if is_checkpoint_dir(path):
+        return restore_checkpoint(path, keys=("vae",))["vae"]
     if not os.path.isdir(path) and is_torch_file(path):
         return restore_checkpoint(path)["vae"]
     return vae_state_dict(read_flax_msgpack(path)["params"])
@@ -110,6 +115,7 @@ class VAEFinetuneTrainer:
 
     ``lpips_params``: a taming LPIPS ``state_dict`` (the NLL's perceptual
     term, frozen).  ``disc_n_layers`` None: :func:`default_disc_layers`.
+    ``ckpt_backend``: ``save``'s format (``train/checkpoint.py``'s BACKENDS).
     Runs on CUDA unless ``device`` says otherwise."""
 
     def __init__(self, *, img_size: int = 128, lr: float = 4.5e-6, kl_weight: float = 1e-6,
@@ -119,8 +125,10 @@ class VAEFinetuneTrainer:
                  vae_mult: Sequence[int] = (1, 2, 4, 4), vae_nres: int = 2,
                  lpips_params: Optional[Mapping[str, torch.Tensor]] = None,
                  dtype: torch.dtype = torch.float32,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 ckpt_backend: str = "msgpack"):
         self.device = resolve_device(device)
+        self.ckpt_backend = check_backend(ckpt_backend)
         if disc_n_layers is None:
             disc_n_layers = default_disc_layers(img_size)
         if patchgan_logits_size(img_size, disc_n_layers) < 1:
@@ -264,10 +272,27 @@ class VAEFinetuneTrainer:
     # -- checkpoints ------------------------------------------------------------------
 
     def state_payload(self, state: VAETrainState) -> Dict[str, Any]:
+        """A ``msgpack`` file's tensors: both networks' ``state_dict``, both
+        Adams' moments by parameter name with their counts, the step."""
         return {"vae": state.vae.state_dict(), "disc": state.disc.state_dict(),
                 "adam": adam_payload(state.optimizer, state.vae),
                 "disc_adam": adam_payload(state.disc_optimizer, state.disc),
                 "step": state.step}
+
+    def shard_payload(self, state: VAETrainState) -> Dict[str, Any]:
+        """A directory's tensors as they lie (``optimizer_shards``: both Adams'
+        state by parameter name), so a restore through it loads in place."""
+        return {"vae": state.vae.state_dict(), "disc": state.disc.state_dict(),
+                "adam": optimizer_shards(state.optimizer, dict(state.vae.named_parameters())),
+                "disc_adam": optimizer_shards(state.disc_optimizer,
+                                              dict(state.disc.named_parameters())),
+                "step": state.step}
+
+    def checkpoint_payload(self, state: VAETrainState) -> Dict[str, Any]:
+        """What ``save`` writes in the trainer's ``ckpt_backend``."""
+        if self.ckpt_backend == "msgpack":
+            return self.state_payload(state)
+        return self.shard_payload(state)
 
     def load_payload(self, state: VAETrainState, payload: Mapping[str, Any]) -> VAETrainState:
         """In place: both networks' weights (and D's statistics), both Adams'
@@ -280,12 +305,18 @@ class VAEFinetuneTrainer:
         return state
 
     def save(self, state: VAETrainState, path: str) -> str:
-        return save_checkpoint(path, self.state_payload(state))
+        """Write ``checkpoint_payload`` at ``path`` in ``ckpt_backend``'s format
+        (a directory: every process of the group together)."""
+        return save_checkpoint(path, self.checkpoint_payload(state), self.ckpt_backend)
 
     def restore(self, state: VAETrainState, path: str) -> VAETrainState:
-        """In place, from the port's checkpoint or the JAX trainer's msgpack
-        one (an orbax directory raises a ``ValueError`` naming its
+        """In place, from the port's checkpoint (a file, or a directory read
+        into ``shard_payload``'s tensors) or the JAX trainer's msgpack one
+        (a JAX orbax directory raises a ``ValueError`` naming its
         conversion)."""
+        if is_checkpoint_dir(path):
+            state.step = int(restore_checkpoint(path, target=self.shard_payload(state))["step"])
+            return state
         if not os.path.isdir(path) and is_torch_file(path):
             return self.load_payload(state, restore_checkpoint(path, map_location=self.device))
         return self.load_payload(state, vae_train_payload(read_flax_msgpack(path)))

@@ -19,6 +19,7 @@ Cauchy-Schwarz), plus 1e-7 for the weights' fp32 rounding.
 import glob
 import os
 import re
+import shutil
 import signal
 
 import numpy as np
@@ -444,13 +445,83 @@ def test_root_cli_fails_where_the_port_reconstructs(jax_vae_run, data_root):
 # -- options and the device -------------------------------------------------------------
 
 
-def test_orbax_backends_and_sampling_an_autoencoder_are_refused(data_root, tmp_path):
+def test_sampling_an_autoencoder_is_refused(data_root, tmp_path):
     cfg_path = _write(tmp_path / "vae.yaml", vae_cfg(data_root))
-    for backend in ("orbax", "orbax_async"):
-        with pytest.raises(ValueError, match="torch.save checkpoints only"):
-            port_main.main(["-b", cfg_path, "-t", "--ckpt_backend", backend] + CPU)
     with pytest.raises(ValueError, match="samples nothing"):
         port_main.main(["-b", cfg_path] + CPU)
+
+
+def _trained_state(cfg_path, path):
+    """The trainer's gathered payload of the checkpoint at ``path`` (a file
+    or a directory), read through the trainer the config builds."""
+    from slice3d_tpu_torch.utils.yaml_config import load_config
+
+    cfg = load_config([cfg_path], [])
+    if port_main.is_autoencoder_target(cfg):
+        trainer = port_main.build_vae_trainer(cfg, "cpu", torch.float32)[0]
+        state = trainer.restore(trainer.init_state(), path)
+    else:
+        trainer = port_main.build_module_and_trainer(cfg, "cpu", torch.float32)[1]
+        state = trainer.restore(trainer.init_state(), path)
+    payload = trainer.state_payload(state)
+    payload.pop("optimizer", None)  # the LDM's: its hyperparameters come from the file
+    payload["moments"] = [{k: v for k, v in st.items()}
+                          for opt in ([state.optimizer] + ([state.disc_optimizer]
+                                                           if hasattr(state, "disc") else []))
+                          for st in opt.state.values()]
+    return payload
+
+
+@pytest.mark.parametrize("config", ["ldm", "vae"])
+def test_orbax_async_trains_prunes_and_resumes_like_msgpack(data_root, tmp_path, config,
+                                                           monkeypatch):
+    """``main -t --ckpt_backend orbax_async``: ``last.ckpt`` and the top-k
+    checkpoint are directories (DCP's ``.metadata`` and one ``.distcp``
+    file), and ``-r <logdir>`` resumes from them to the state that the same
+    runs with ``msgpack`` files reach, bit for bit (each object's training
+    view fixed, where the dataset draws one at random, so that the runs see
+    the same batches)."""
+    monkeypatch.setattr(LDMSliceDataset, "_view_for",
+                        lambda self, index, rng: index % self.n_views)
+    cfg = ldm_cfg(data_root) if config == "ldm" else vae_cfg(data_root)
+    cfg_path = _write(tmp_path / f"{config}.yaml", cfg)
+    flags = ["--val_every", "2", "--log_images_every", "0", "--ckpt_every", "2"] + CPU
+    last = {}
+    for backend in ("msgpack", "orbax_async"):
+        logdir = port_main.main(["-b", cfg_path, "-t", "-l", str(tmp_path / backend),
+                                 "--max_steps", "2", "--ckpt_backend", backend] + flags)
+        names = sorted(os.listdir(os.path.join(logdir, "checkpoints")))
+        assert len(names) == 2 and names[0] == "last.ckpt" and names[1].startswith("step=000002")
+        for name in names:
+            path = os.path.join(logdir, "checkpoints", name)
+            if backend == "msgpack":
+                assert os.path.isfile(path)
+            else:
+                assert sorted(os.listdir(path)) == [".metadata", "__0_0.distcp"]
+        assert port_main.main(["-b", cfg_path, "-t", "-r", logdir, "--max_steps", "3",
+                               "--ckpt_backend", backend] + flags) == logdir
+        last[backend] = _trained_state(cfg_path, os.path.join(logdir, "checkpoints",
+                                                              "last.ckpt"))
+    assert last["msgpack"]["step"] == 3
+    _same_payload(last["orbax_async"], last["msgpack"])
+    for backend in last:  # the runs' checkpoints: ~250 MB each for the LDM
+        shutil.rmtree(tmp_path / backend)
+
+
+def _same_payload(got, want, where=""):
+    assert type(got) is type(want), where
+    if isinstance(want, dict):
+        assert set(got) == set(want), where
+        for k in want:
+            _same_payload(got[k], want[k], f"{where}/{k}")
+    elif isinstance(want, list):
+        assert len(got) == len(want), where
+        for i, (a, b) in enumerate(zip(got, want)):
+            _same_payload(a, b, f"{where}/{i}")
+    elif isinstance(want, torch.Tensor):
+        assert got.dtype == want.dtype and torch.equal(got, want), where
+    else:
+        assert got == want, where
 
 
 def test_training_needs_cuda_unless_asked_for_the_cpu(data_root, tmp_path, monkeypatch):

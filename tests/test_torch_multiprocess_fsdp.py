@@ -17,7 +17,12 @@ rank 0 alone writes the gathered payloads without a hang, and the files hold
 the loaded tensors bit for bit; the steps from the loaded state are the
 one-process ones.  ``main -t`` on the tiny LDM, sharded at (1, 4), ends on
 every process in one state, rank 0 alone writing the files of the
-one-process run.  With the model group's gradient
+one-process run.  Each process saves the sharded SliceNet and LDM states
+as checkpoint directories (``--ckpt_backend orbax``, then ``orbax_async``
+and ``wait_pending``) with no gather of a shard, writing no more than the
+tensors it holds (each tensor of the state once over the group), and each
+directory restores bit for bit into a fresh sharded state and, in the test
+process, into an unsharded one.  With the model group's gradient
 reduction swapped for what DTensor's default ``full_tensor()`` backward
 gives (each process keeps its own slice of its own gradient) the same
 SliceNet case must fail ``compare``.
@@ -26,6 +31,7 @@ SliceNet case must fail ``compare``.
 import glob
 import os
 import re
+import shutil
 
 import numpy as np
 import pytest
@@ -46,6 +52,9 @@ from slice3d_tpu_torch import main as port_main
 from slice3d_tpu_torch.data.builders import create_synthetic_dataset
 from slice3d_tpu_torch.train.checkpoint import restore_checkpoint
 from slice3d_tpu_torch.train.train_reg import RegressionTrainer
+
+BACKENDS = ("orbax", "orbax_async")
+ITEM_BYTES = 2048  # what DCP adds to a tensor in a .distcp file (its torch.save header)
 
 MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
 H = cases.LDM_IMG // 2  # the latent tile
@@ -186,7 +195,9 @@ def runs(tmp_path_factory):
         jobs = {"slicenet": ("run_reg_fsdp", (str(out / "slicenet_init.pt"),)),
                 "ldm": ("run_ldm_fsdp", (str(out / "ldm_init.pt"), str(out / "ldm_inputs.npz"))),
                 "ckpt": ("run_ckpt_fsdp", (str(out / "reg.ckpt"), str(out / "ldm.ckpt"),
-                                           str(where)))}
+                                           str(where))),
+                "dirckpt": ("run_dir_ckpt_fsdp", (str(out / "reg.ckpt"), str(out / "ldm.ckpt"),
+                                                  str(where)))}
         if tag == "2x2":
             jobs["default_backward"] = ("run_reg_fsdp", (str(out / "slicenet_init.pt"), True))
         else:
@@ -205,7 +216,40 @@ def runs(tmp_path_factory):
         mp.setattr(port_main, "scalar_writer", lambda log_dir: _NoScalars())
         one = port_main.main(cases.main_ldm_argv(cfg_path, str(out / "one")))
     runs = {tag: cases.finish_workers(handle, timeout=600) for tag, handle in started.items()}
-    return runs, jax_logs, out, one
+    return runs, jax_logs, out, one, _directory_checks(out)
+
+
+def _directory_checks(out):
+    """Of each checkpoint directory the runs wrote: its files, each rank's
+    ``.distcp`` size, and where its restore into an unsharded one-process
+    state differs from the gathered ``{name}_4.ckpt`` of the same state (by
+    ``_equal``'s message; None where equal).  The directories are removed
+    after: ~250 MB each."""
+    checks = {}
+    for tag in MESHES:
+        for name in ("reg", "ldm"):
+            want = torch.load(out / tag / f"{name}_4.ckpt", weights_only=True)
+            for backend in BACKENDS:
+                path = out / tag / f"{name}_{backend}.ckpt"
+                files = sorted(os.listdir(path))
+                sizes = [os.path.getsize(path / f"__{r}_0.distcp") for r in range(4)]
+                if name == "reg":
+                    trainer = RegressionTrainer(cases.reg_opts("slicenet"), steps_per_epoch=4,
+                                                device="cpu")
+                    state, epoch = trainer.restore(trainer.init_state(seed=9), str(path))
+                    got = trainer.state_payload(state, epoch - 1)
+                else:
+                    trainer = cases.ldm_fsdp_trainer(base_lr=1e-4)
+                    got = trainer.state_payload(trainer.restore(trainer.init_state(), str(path)))
+                try:
+                    _equal(got, want)
+                    differs = None
+                except AssertionError as err:
+                    differs = repr(err) or "differs"
+                checks[tag, name, backend] = {"files": files, "sizes": sizes, "differs": differs}
+                del got, trainer
+                shutil.rmtree(path)
+    return checks
 
 
 @pytest.mark.parametrize("tag", MESHES)
@@ -301,3 +345,43 @@ def test_sharded_main_writes_on_rank_zero(runs):
     last = restore_checkpoint(files["checkpoints/last.ckpt"])
     assert last["step"] == 2
     assert cases._digest({"state": last["model"]}) == ranks[0]["digests"]["last"]
+
+
+@pytest.mark.parametrize("tag", MESHES)
+def test_directory_checkpoint_gathers_nothing(runs, tag):
+    """Every process saved both sharded states as directories with no gather
+    of a shard (``DTensor.full_tensor`` counted over each save and its
+    ``wait_pending``), and read each back into a fresh sharded state bit for
+    bit."""
+    for r in runs[0][tag]:
+        job = r["dirckpt"]
+        assert job["gathers"] == {f"{n}_{b}": 0 for n in ("reg", "ldm") for b in BACKENDS}
+        assert not job["dir_failures"], job["dir_failures"]
+        assert job["n_sharded"] > 0
+
+
+@pytest.mark.parametrize("name", ["reg", "ldm"])
+@pytest.mark.parametrize("tag", MESHES)
+def test_directory_checkpoint_holds_each_rank_shards(runs, tag, name):
+    """Rank r's ``__r_0.distcp`` holds no more than the tensors rank r holds
+    (its shards, and the replicated tensors DCP gives it), and the files
+    together hold each tensor of the state once."""
+    ranks = [r["dirckpt"]["local"][name] for r in runs[0][tag]]
+    whole, count = ranks[0][1], ranks[0][2]
+    for backend in BACKENDS:
+        check = runs[4][tag, name, backend]
+        sizes = check["sizes"]
+        assert check["files"] == [".metadata"] + [f"__{r}_0.distcp" for r in range(4)]
+        for size, (local, _, n) in zip(sizes, ranks):
+            assert size <= local + ITEM_BYTES * n, (backend, sizes, ranks)
+        assert whole <= sum(sizes) <= whole + ITEM_BYTES * 4 * count, (backend, sizes, whole)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("name", ["reg", "ldm"])
+@pytest.mark.parametrize("tag", MESHES)
+def test_directory_checkpoint_loads_unsharded(runs, tag, name, backend):
+    """The directory of four processes' shards restored into an unsharded
+    one-process state: its payload is the gathered ``{name}_4.ckpt`` of the
+    same state, bit for bit (``_directory_checks``)."""
+    assert runs[4][tag, name, backend]["differs"] is None, runs[4][tag, name, backend]

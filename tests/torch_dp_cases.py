@@ -16,6 +16,7 @@ the ranks return digests of their gradients and states, so that only the
 readings and the failures reach the tests.
 """
 
+import dataclasses
 import hashlib
 import os
 import socket
@@ -205,7 +206,8 @@ def summarize(jobs, results, group_rank):
     for name, (fn, args) in jobs.items():
         got = results[name]
         out[name] = {k: got[k] for k in ("logs", "scale", "lr", "scaled_lr", "n_sharded",
-                                         "taken", "where", "eval", "sharded", "logdir")
+                                         "taken", "where", "eval", "sharded", "logdir",
+                                         "gathers", "local", "dir_failures")
                      if k in got}
         out[name]["digests"] = {k: _digest(got[k]) for k in ("grads", "last") if k in got}
         if group_rank == 0 and "delta" in got:
@@ -336,10 +338,10 @@ def run_reg_cli(data_root, exp_root, writes_path):
 
     save = train_reg.save_checkpoint
 
-    def recorded(path, payload):
+    def recorded(path, payload, *args, **kwargs):
         with open(writes_path, "a") as f:
             f.write(f"{rank()} {os.path.basename(path)}\n")
-        return save(path, payload)
+        return save(path, payload, *args, **kwargs)
 
     train_reg.save_checkpoint = recorded
     state = cli.main(["--dir_data", data_root, "--name_dataset", "synth", "--device", "cpu",
@@ -480,6 +482,99 @@ def run_ckpt_fsdp(reg_path, ldm_path, out_dir):
                   lambda: {"state": dict(state.model.named_parameters())},
                   lambda i: reg.train_step(state, _mine(reg_batch(75 + i)))[1])
     return dict(out, n_sharded=_sharded_count(state.model) + _sharded_count(lstate.ldm))
+
+
+class _Gathers:
+    """Counts the gathers of sharded tensors (``DTensor.full_tensor``, which
+    ``parallel.full_tensor`` and ``full_state_dict`` run) within the block."""
+
+    def __enter__(self):
+        self.n, self.real = 0, DTensor.full_tensor
+
+        def counted(t, *a, **k):
+            self.n += 1
+            return self.real(t, *a, **k)
+
+        DTensor.full_tensor = counted
+        return self
+
+    def __exit__(self, *exc):
+        DTensor.full_tensor = self.real
+
+
+def _local_bytes(payload):
+    """[the bytes of the tensors this process holds in a payload (a shard's
+    local part, a plain tensor whole), the bytes of the whole tensors, the
+    number of tensors]."""
+    out = [0, 0, 0]
+    for v in payload.values():
+        if isinstance(v, dict):
+            out = [a + b for a, b in zip(out, _local_bytes(v))]
+        elif isinstance(v, torch.Tensor):
+            t = v.to_local() if isinstance(v, DTensor) else v
+            out = [out[0] + t.numel() * t.element_size(), out[1] + v.numel() * v.element_size(),
+                   out[2] + 1]
+    return out
+
+
+def _gathered(payload):
+    """A payload's tensors gathered whole and copied, its other values as
+    they are (the comparison after a restore)."""
+    if isinstance(payload, dict):
+        return {k: _gathered(v) for k, v in payload.items()}
+    return full_tensor(payload).detach().clone() if isinstance(payload, torch.Tensor) else payload
+
+
+def _differences(got, want, where=""):
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return [f"{where}: keys {sorted(set(got) ^ set(want))}"]
+        return [d for k in want for d in _differences(got[k], want[k], f"{where}/{k}")]
+    if isinstance(want, torch.Tensor):
+        same = got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want)
+        return [] if same else [f"{where}: not equal"]
+    return [] if got == want else [f"{where}: {got!r}, expected {want!r}"]
+
+
+def run_dir_ckpt_fsdp(reg_path, ldm_path, out_dir):
+    """The unsharded checkpoints at ``reg_path`` (SliceNet) and ``ldm_path``
+    (the tiny LDM) restored into sharded states, each saved by every process
+    as a checkpoint directory under ``out_dir`` (``{name}_{backend}.ckpt``)
+    with ``orbax``, then ``orbax_async`` and ``wait_pending``, the gathers
+    within each save counted; each directory restored into a fresh sharded
+    state, held bit for bit to the saved one (gathered after the saves).
+    Returns the counts, per trainer ``_local_bytes`` of the saved payload,
+    the failures and the count of sharded parameters."""
+    from slice3d_tpu_torch.train.checkpoint import wait_pending
+
+    makers = {  # (trainer, its directory payload, a state restored from a path)
+        "reg": (lambda b: RegressionTrainer(dataclasses.replace(reg_opts("slicenet"),
+                                                                ckpt_backend=b),
+                                            steps_per_epoch=4, device="cpu",
+                                            fsdp_min_size=FSDP_MIN),
+                lambda tr, st: tr.checkpoint_payload(st, 0),
+                lambda tr, path: tr.restore(tr.init_state(seed=9), path)[0], reg_path),
+        "ldm": (lambda b: ldm_fsdp_trainer(base_lr=1e-4, ckpt_backend=b),
+                lambda tr, st: tr.checkpoint_payload(st),
+                lambda tr, path: tr.restore(tr.init_state(), path), ldm_path)}
+    out = {"gathers": {}, "local": {}, "dir_failures": []}
+    for name, (make, payload_of, restored, src) in makers.items():
+        trainer = make("orbax")
+        state = restored(trainer, src)
+        out["local"][name] = _local_bytes(payload_of(trainer, state))
+        want = _gathered(payload_of(trainer, state))
+        for backend in ("orbax", "orbax_async"):
+            path = os.path.join(out_dir, f"{name}_{backend}.ckpt")
+            with _Gathers() as g:  # what the trainers' save writes
+                save_checkpoint(path, payload_of(trainer, state), backend)
+                wait_pending()
+            out["gathers"][f"{name}_{backend}"] = g.n
+            again = make(backend)
+            got = _gathered(payload_of(again, restored(again, path)))
+            out["dir_failures"] += [f"{name} {backend}{d}" for d in _differences(got, want)]
+        out["n_sharded"] = out.get("n_sharded", 0) + _sharded_count(
+            state.model if name == "reg" else state.ldm)
+    return out
 
 
 def main_ldm_argv(cfg_path, logs_root):
