@@ -150,7 +150,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      states after a step saved as directories with no gather, restored into a
      sharded and into an unsharded state, both bit-equal; (c) one SliceNet
      object reconstructed through ``load_model`` from a ``RegressionTrainer``
-     directory and from a file of the same weights: the same grid and faces.
+     directory and from a file of the same weights: the same grid and faces;
+ 18. the JAX package's orbax checkpoint directories: the port's zstd decoder
+     (its own C++, built with the card machine's g++ in phase 2) and OCDBT /
+     zarr reader read the fixture committed at
+     ``slice3d_tpu_torch/train/testdata/jax_orbax/`` (written by the JAX
+     package: an fp32 leaf in 8 shard chunks, a bf16 leaf, int scalars, a
+     ~1 MB chunk of several compressed blocks) and its level-19 frame; every
+     leaf's shape, dtype and SHA-256 as ``expected.json`` gives them, the
+     tensors moved to the card and read back, and on the card the level-19
+     frame's bytes equal to the start of the leaf it was cut from; the
+     decoder's build time and the read times.
 The last three lines are the paths' JSON record, the kernels' JSON record
 and the run's status JSON.
 """
@@ -443,6 +453,9 @@ def encoder_work(n: int, t: int, head_tokens: int, d: int = 128, f: int = 2048,
     return flops, n * (t + t_out) * d * 2 + weights
 
 
+BUILD_S: dict = {}  # seconds each library of phase_build took to build
+
+
 def phase_build():
     """Every library of both paths, one compiler each, all started together."""
     from slice3d_tpu_torch import native
@@ -456,14 +469,17 @@ def phase_build():
         fn()
         return time.perf_counter() - t0
 
+    from slice3d_tpu_torch.train import zstd
+
     t0 = time.perf_counter()
     builds = {"fused_encoder": fe.kernel, "fused_ffn": ff.kernel,
               "spatial_attention": sa.kernel, "spatial_attention_bwd": sa.kernel_bwd,
-              "host mesh library": load_library}
+              "host mesh library": load_library, "zstd decoder": zstd.load_library}
     with ThreadPoolExecutor(len(builds)) as pool:
         futs = {name: pool.submit(timed, fn) for name, fn in builds.items()}
         for name, fut in futs.items():
-            print(f"[build] {name} built in {fut.result():.2f} s")
+            BUILD_S[name] = fut.result()
+            print(f"[build] {name} built in {BUILD_S[name]:.2f} s")
     print(f"[build] all built in {time.perf_counter() - t0:.2f} s")
     for line in native.BUILD_LOG:
         print(line)
@@ -3636,6 +3652,70 @@ def phase_checkpoints(power: str):
     return out, counts
 
 
+JAX_ORBAX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "slice3d_tpu_torch",
+                         "train", "testdata", "jax_orbax")
+
+
+def phase_jax_orbax(power: str):
+    """Phase 18: the committed JAX orbax fixture read by the port's own zstd
+    decoder and OCDBT / zarr reader, checked leaf by leaf against
+    ``expected.json``, moved to the card and read back; its level-19 frame
+    decoded and compared on the card with the start of the leaf it was cut
+    from."""
+    import hashlib
+
+    from slice3d_tpu_torch.train import zstd
+    from slice3d_tpu_torch.train.flax_msgpack import read_flax_checkpoint
+
+    with open(os.path.join(JAX_ORBAX, "expected.json")) as f:
+        expected = json.load(f)
+    zstd.load_library()  # built in phase 2
+    t0 = time.perf_counter()
+    tree = read_flax_checkpoint(os.path.join(JAX_ORBAX, "state"))
+    read_ms = (time.perf_counter() - t0) * 1e3
+    with open(os.path.join(JAX_ORBAX, "level19.zst"), "rb") as f:
+        frame = f.read()
+    t0 = time.perf_counter()
+    head = zstd.decompress(frame)
+    level19_ms = (time.perf_counter() - t0) * 1e3
+
+    def leaf(name):
+        node = tree
+        for k in name.split("/"):
+            node = node[k]
+        return node
+
+    nbytes = 0
+    for name, want in expected["leaves"].items():
+        arr = leaf(name)
+        got = [list(arr.shape), str(arr.dtype), hashlib.sha256(arr.tobytes()).hexdigest()]
+        check(got == [want["shape"], want["dtype"], want["sha256"]],
+              f"jax_orbax: leaf {name} read as {got[:2]}, expected {want}")
+        dev = torch.from_numpy(np.ascontiguousarray(arr)).to("cuda")
+        back = dev.cpu().numpy()
+        check(back.dtype == arr.dtype and hashlib.sha256(back.tobytes()).hexdigest()
+              == want["sha256"], f"jax_orbax: leaf {name} changed on its way to the card")
+        nbytes += arr.nbytes
+    check(all(leaf(n) is None for n in expected["none"]), "jax_orbax: a None entry")
+    check(all(leaf(n) == {} for n in expected["empty"]), "jax_orbax: an empty entry")
+    check(len(head) == expected["level19"]["size"]
+          and hashlib.sha256(head).hexdigest() == expected["level19"]["sha256"],
+          "jax_orbax: the level-19 frame")
+    big = torch.from_numpy(leaf("params/big")).to("cuda").view(torch.uint8).flatten()
+    cut = torch.frombuffer(bytearray(head), dtype=torch.uint8).to("cuda")
+    same = bool(torch.equal(big[:cut.numel()], cut))
+    check(same, "jax_orbax: the level-19 frame differs on the card from the leaf's start")
+    out = {"build_ms": BUILD_S.get("zstd decoder", float("nan")) * 1e3, "read_ms": read_ms,
+           "leaves": len(expected["leaves"]), "bytes": nbytes,
+           "level19_ms": level19_ms, "level19_bytes": len(head), "card_equal": same}
+    print(f"[jax_orbax] phase 18: decoder built in {out['build_ms']:.1f} ms (phase 2, in "
+          f"parallel with the kernels); fixture read in {read_ms:.3f} ms ({out['leaves']} leaves, "
+          f"{nbytes} bytes), every leaf as expected.json and equal after the card; level-19 frame "
+          f"({len(frame)} -> {len(head)} bytes) in {level19_ms:.3f} ms, equal on the card to the "
+          f"leaf's start; {power}")
+    return out
+
+
 def phase_parallel(power: str):
     """Phase 15: sharded reconstruction, training in an NCCL group of one and
     the CLIs' multi-card options; the launches under the path "parallel"."""
@@ -3702,6 +3782,7 @@ def main() -> int:
     parallel, parallel_counts = phase_parallel(power)
     fsdp, fsdp_counts = phase_fsdp(power)
     ckpt, ckpt_counts = phase_checkpoints(power)
+    jax_orbax = phase_jax_orbax(power)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"regression": main_counts, "generation": gen["counts"],
@@ -3765,7 +3846,7 @@ def main() -> int:
                       "serving": serving, "split": split, "options": options,
                       "generation_cli": gencli, "regression_training": regtrain,
                       "generation_training_cli": gentrain, "parallel": parallel,
-                      "fsdp": fsdp, "checkpoints": ckpt}))
+                      "fsdp": fsdp, "checkpoints": ckpt, "jax_orbax": jax_orbax}))
     print(json.dumps({"kernels": [encoder, attention, attention_bwd, ffn]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

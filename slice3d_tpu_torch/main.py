@@ -19,7 +19,8 @@ The root ``main.py``: the module and the data come from the YAML config (read
 without PyYAML, ``utils/yaml_config.py``; ``key=value`` dotlist overrides
 after the flags); ``-r`` names a logdir (its newest ``checkpoints/*.ckpt``) or
 a checkpoint, the port's ``torch.save`` file or checkpoint directory or the
-JAX package's msgpack file (the root ``main.py -t`` writes those); without
+JAX package's msgpack file or orbax directory (the root ``main.py -t`` writes
+those); without
 one the weights are drawn from ``-s``.  A new run's logdir is
 ``<-l>/<time>_<name>``, with the merged config in ``configs/``.
 
@@ -96,6 +97,7 @@ from .parallel import (all_reduce_mean, all_reduce_sum, barrier, broadcast_objec
                        init_distributed, is_main_process, is_sharded)
 from .train.checkpoint import (BACKENDS, TopKCheckpointer, is_checkpoint_dir, latest_checkpoint,
                                wait_pending)
+from .train.flax_orbax import is_jax_orbax_dir
 from .train.train_ldm import LDMTrainer
 from .train.train_reg import scalar_writer
 from .train.train_vae import VAEFinetuneTrainer, vae_weights
@@ -279,12 +281,14 @@ def _save_montage(img_dir: str, name: str, step: int, slices) -> None:
 
 def _resume_target(args):
     """(logdir or None, checkpoint or None) of ``-r``, read once every
-    process of a group has got here: a checkpoint file or directory
-    (``<logdir>/checkpoints/<name>``), else a logdir."""
+    process of a group has got here: a checkpoint file or directory, the
+    port's or a JAX orbax one (``<logdir>/checkpoints/<name>``), else a
+    logdir."""
     if not args.resume:
         return None, None
     barrier()
-    if os.path.isfile(args.resume) or is_checkpoint_dir(args.resume):
+    if (os.path.isfile(args.resume) or is_checkpoint_dir(args.resume)
+            or is_jax_orbax_dir(args.resume)):
         ckpt = args.resume.rstrip("/")
         return os.path.dirname(os.path.dirname(ckpt)), ckpt
     logdir = args.resume.rstrip("/")

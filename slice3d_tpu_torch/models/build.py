@@ -7,9 +7,9 @@ gives the model its weights: the port's seeded init for ``--random_init`` or
 no checkpoint, else a reference torch checkpoint, whose ``state_dict`` names
 the port uses as they are, a checkpoint directory of the port's trainers
 (``train/checkpoint.py``, ``--ckpt_backend orbax``: its ``model`` entries),
-or a msgpack checkpoint of the JAX package (``train_reg.py`` /
-``train_cam.py`` payloads, or bare variables), read by
-``train/flax_msgpack.py`` and mapped by ``convert.py``.  ``load_camnet``
+or a checkpoint of the JAX package (``train_reg.py`` / ``train_cam.py``
+payloads, or bare variables; a msgpack file or an orbax directory), read by
+``train/flax_msgpack.py::read_flax_checkpoint`` and mapped by ``convert.py``.  ``load_camnet``
 does the same for the camera pose estimator of ``--est_campose``, from
 ``--name_exp_cam`` / ``--name_ckpt_cam``.
 """
@@ -24,7 +24,7 @@ import torch
 from .. import convert
 from ..config import Options
 from ..train.checkpoint import is_checkpoint_dir, is_torch_file, restore_checkpoint
-from ..train.flax_msgpack import ORBAX_MESSAGE, read_flax_msgpack
+from ..train.flax_msgpack import read_flax_checkpoint
 from .camnet import CameraNet, init_camnet
 from .disn import DISNModel, init_disn
 from .gtslice import GTSliceModel, init_gtslice
@@ -68,18 +68,15 @@ def _state_dict(ckpt_path: str, name: str):
     """The ``state_dict`` of model ``name`` in a checkpoint: a reference torch
     file's (the file's, or the one it holds under ``"model"``), the
     ``"model"`` entries of a trainer's checkpoint directory (read alone), or
-    a JAX msgpack file's variables (under ``"variables"``, or the whole
-    tree) mapped to the reference names.  Other directories (the JAX
-    package's orbax ones) raise a ``ValueError`` that names their conversion
-    to msgpack."""
+    a JAX checkpoint's variables (under ``"variables"``, or the whole tree;
+    a msgpack file or an orbax directory) mapped to the reference names.  Any
+    other directory raises a ``ValueError``."""
     if is_checkpoint_dir(ckpt_path):
         return restore_checkpoint(ckpt_path, keys=("model",))["model"]
-    if os.path.isdir(ckpt_path):
-        raise ValueError(ORBAX_MESSAGE.format(path=ckpt_path))
-    if is_torch_file(ckpt_path):
+    if not os.path.isdir(ckpt_path) and is_torch_file(ckpt_path):
         payload = torch.load(ckpt_path, map_location="cpu", weights_only=True)
         return payload.get("model", payload) if isinstance(payload, dict) else payload
-    tree = read_flax_msgpack(ckpt_path)
+    tree = read_flax_checkpoint(ckpt_path)
     return _CONVERTERS[name](tree["variables"] if "variables" in tree else tree)
 
 
@@ -89,10 +86,8 @@ def load_model(opts: Options, ckpt_path: Optional[str] = None) -> Model:
     * ``--random_init`` or no checkpoint: the port's seeded init (seed 0);
     * a reference torch checkpoint (a ``state_dict``, or a dict holding one
       under ``"model"``), a checkpoint directory of the port's trainers
-      (its ``"model"`` entries), or a JAX msgpack checkpoint: loaded
-      strictly;
-    * a JAX orbax checkpoint (a directory without DCP's ``.metadata``): a
-      ``ValueError`` naming the conversion to msgpack.
+      (its ``"model"`` entries), or a JAX checkpoint (a msgpack file or an
+      orbax directory): loaded strictly.
     """
     _check_model(opts)
     if ckpt_path is None or opts.random_init:
@@ -109,7 +104,7 @@ def load_model(opts: Options, ckpt_path: Optional[str] = None) -> Model:
 
 def load_camnet(opts: Options) -> CameraNet:
     """The fp32 CameraNet of ``--est_campose``: the checkpoint (reference torch
-    or JAX msgpack) at ``<dir_experiments>/<name_exp_cam>/ckpt/<name_ckpt_cam>``
+    or JAX) at ``<dir_experiments>/<name_exp_cam>/ckpt/<name_ckpt_cam>``
     when that file exists, else the seeded init (seed 0) with a note, as the
     JAX CLI does."""
     path = (os.path.join(opts.dir_experiments, opts.name_exp_cam, "ckpt", opts.name_ckpt_cam)

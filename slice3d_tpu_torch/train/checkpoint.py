@@ -28,9 +28,10 @@ the write has ended (an asynchronous one when its future completes, or in
 ``wait_pending``), so a reader never sees half a checkpoint and no file of
 an earlier write (of another world size) survives in a directory.  The
 directory saves coordinate over a gloo group of their own (DCP's
-background thread must not share the training's group).  A directory
-without ``.metadata`` (the JAX package's orbax directories: an OCDBT store)
-is refused with its conversion to msgpack (``flax_msgpack.ORBAX_MESSAGE``).
+background thread must not share the training's group).  The JAX package's
+orbax directories (an OCDBT store, no ``.metadata``) are not this format:
+``flax_msgpack.read_flax_checkpoint`` and the trainers' ``restore`` read them,
+and ``restore_checkpoint`` refuses them, naming those.
 
 ``latest_checkpoint`` picks the newest file or directory by modification
 time (``--resume``), and ``TopKCheckpointer`` keeps the k best by a
@@ -55,7 +56,8 @@ import torch.distributed as dist
 
 from ..parallel.mesh import in_group, is_main_process
 from ..parallel.sharding import full_tensor, shard_like
-from .flax_msgpack import ORBAX_MESSAGE
+from .flax_msgpack import NOT_A_CHECKPOINT
+from .flax_orbax import is_jax_orbax_dir
 
 __all__ = ["BACKENDS", "check_backend", "save_checkpoint", "restore_checkpoint", "wait_pending",
            "is_checkpoint_dir", "latest_checkpoint", "is_torch_file", "adam_payload",
@@ -252,12 +254,17 @@ def restore_checkpoint(path: str, target: Optional[Dict[str, Any]] = None,
     ``dcp.load`` (each process reads the parts of its own shards, resharded
     where the target lies otherwise), its other entries are replaced, and it
     is returned; the entries it lacks are not read.  Any other directory
-    (the JAX package's orbax ones) raises a ``ValueError`` naming its
-    conversion."""
+    raises a ``ValueError``: a JAX orbax one names its readers
+    (``read_flax_checkpoint``, the trainers' ``restore``)."""
     wait_pending()
     if os.path.isdir(path):
+        if is_jax_orbax_dir(path):
+            raise ValueError(
+                f"{path} is a JAX orbax checkpoint directory, not one of the port's: read it "
+                "with flax_msgpack.read_flax_checkpoint, or restore a trainer from it with "
+                "its restore")
         if not is_checkpoint_dir(path):
-            raise ValueError(ORBAX_MESSAGE.format(path=path))
+            raise ValueError(NOT_A_CHECKPOINT.format(path=path))
         import torch.distributed.checkpoint as dcp
 
         # every process reads its own parts: no collective

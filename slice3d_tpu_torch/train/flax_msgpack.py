@@ -14,8 +14,11 @@ keyed by field name before serialisation, so a checkpoint is a tree of dicts.
 msgpack_restore`` does: nested dicts of numpy arrays and Python scalars, the
 chunked arrays joined.  ``bfloat16`` has no numpy dtype: such arrays are
 widened to float32 (exactly: a bf16 value is the top half of an fp32 one).
-Orbax checkpoints are directories and need orbax; they are refused with the
-conversion that turns one into a msgpack file.
+
+``read_flax_checkpoint`` reads either kind of checkpoint the JAX package
+writes: a msgpack file as above, or an orbax directory (``--ckpt_backend
+orbax`` / ``orbax_async``) through ``flax_orbax.read_flax_orbax``, which gives
+the same tree.
 """
 
 from __future__ import annotations
@@ -26,13 +29,13 @@ from typing import Any, Tuple
 
 import numpy as np
 
-__all__ = ["decode_msgpack", "read_flax_msgpack", "ORBAX_MESSAGE"]
+from .flax_orbax import is_jax_orbax_dir, read_flax_orbax
 
-ORBAX_MESSAGE = (
-    "{path} is an orbax checkpoint directory, which needs orbax to read; turn it "
-    "into a msgpack file with the JAX package's own functions, where JAX runs: "
-    "payload = slice3d_tpu.train.checkpoint.restore_checkpoint(path); "
-    "slice3d_tpu.train.checkpoint.save_checkpoint(out_path, payload, backend=\"msgpack\")")
+__all__ = ["decode_msgpack", "read_flax_msgpack", "read_flax_checkpoint", "NOT_A_CHECKPOINT"]
+
+NOT_A_CHECKPOINT = (
+    "{path} is a directory but not a checkpoint: neither the port's (DCP's .metadata) "
+    "nor the JAX package's orbax one (manifest.ocdbt, _METADATA)")
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 _CHUNKED = "__msgpack_chunked_array__"
@@ -173,10 +176,23 @@ def _unchunk(tree):
 
 def read_flax_msgpack(path: str) -> Any:
     """The tree of a msgpack checkpoint written by the JAX package's
-    ``save_checkpoint(..., backend="msgpack")``; a ``ValueError`` naming the
-    conversion for an orbax directory."""
+    ``save_checkpoint(..., backend="msgpack")``; a ``ValueError`` for a
+    directory, which ``read_flax_checkpoint`` reads."""
     if os.path.isdir(path):
-        raise ValueError(ORBAX_MESSAGE.format(path=path))
+        raise ValueError(f"{path} is a directory, not a msgpack file: read_flax_checkpoint "
+                         "reads the JAX package's orbax directories")
     with open(path, "rb") as f:
         data = f.read()
     return _unchunk(decode_msgpack(data))
+
+
+def read_flax_checkpoint(path: str) -> Any:
+    """The tree of a checkpoint written by the JAX package's
+    ``save_checkpoint``: a msgpack file (``read_flax_msgpack``) or an orbax
+    directory (``read_flax_orbax``), the same tree for the same state.  Any
+    other directory raises a ``ValueError``."""
+    if is_jax_orbax_dir(path):
+        return read_flax_orbax(path)
+    if os.path.isdir(path):
+        raise ValueError(NOT_A_CHECKPOINT.format(path=path))
+    return read_flax_msgpack(path)

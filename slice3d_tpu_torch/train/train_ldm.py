@@ -54,8 +54,8 @@ Sampling (``sample_slices`` with any sampler and guidance,
 ``sample_progressive``) runs under the EMA weights; ``diffusion_row`` and
 ``reconstruct_slices`` (the VAE round trip of ``main --mode rec``) read the
 frozen VAE only (``train_ldm.py:305-535``).  ``restore`` reads the port's
-own checkpoints (files and directories) and the JAX trainer's msgpack ones
-(``save``: variables, EMA, ``scale_factor``, ``logvar``, step), whose
+own checkpoints (files and directories) and the JAX trainer's ones, msgpack
+files and orbax directories (``save``: variables, EMA, ``scale_factor``, ``logvar``, step), whose
 optimizer state it leaves out: AdamW starts fresh.
 """
 
@@ -86,7 +86,7 @@ from ..parallel import (all_reduce_gradients, all_reduce_mean, all_reduce_sum, d
 from .checkpoint import (check_backend, is_checkpoint_dir, load_optimizer_payload,
                          optimizer_payload, optimizer_shards, restore_checkpoint,
                          save_checkpoint)
-from .flax_msgpack import read_flax_msgpack
+from .flax_msgpack import read_flax_checkpoint
 from .lr_schedules import from_scheduler_config
 
 __all__ = ["LDMTrainState", "LDMTrainer", "TRAINABLE_PREFIXES"]
@@ -509,16 +509,15 @@ class LDMTrainer:
     def restore(self, state: LDMTrainState, path: str) -> LDMTrainState:
         """In place, from the port's checkpoint (a ``torch.save`` file, or a
         directory read into ``shard_payload``'s tensors: each process its own
-        shards, however the state is sharded) or the JAX trainer's msgpack
-        one (its variables, EMA, ``scale_factor``, ``logvar`` and step;
-        AdamW starts fresh).  A JAX orbax directory raises a ``ValueError``
-        naming its conversion to msgpack."""
+        shards, however the state is sharded) or the JAX trainer's, a msgpack
+        file or an orbax directory (its variables, EMA, ``scale_factor``,
+        ``logvar`` and step; AdamW starts fresh)."""
         if is_checkpoint_dir(path):
             payload = restore_checkpoint(path, target=self.shard_payload(state))
             state.step = int(payload["step"])
             return state
         if os.path.isdir(path) or not zipfile.is_zipfile(path):
-            tree = read_flax_msgpack(path)
+            tree = read_flax_checkpoint(path)
             variables = tree["variables"]
             params = variables["params"]
             # a run without EMA saved none: the weights are their own average

@@ -27,7 +27,7 @@ Checkpoints are written in ``opts.ckpt_backend``'s format
 ``torch.distributed.checkpoint`` directory that every process of the group
 writes together (``train`` flushes an asynchronous one, ``wait_pending``,
 before it returns).  ``restore`` reads both, and the JAX trainer's msgpack
-files (``convert.train_reg_payload``: weights, statistics, Adam's moments,
+files and orbax directories (``convert.train_reg_payload``: weights, statistics, Adam's moments,
 step and epoch), so ``--resume`` continues a JAX run.  A checkpoint holds
 the model's state_dict under ``"model"``, which
 ``models/build.py::load_model`` reads for reconstruction.
@@ -87,7 +87,7 @@ from ..parallel import (all_reduce_gradients, all_reduce_mean, barrier,
 from .checkpoint import (adam_payload, check_backend, is_checkpoint_dir, is_torch_file,
                          latest_checkpoint, load_adam_payload, optimizer_shards,
                          restore_checkpoint, save_checkpoint, wait_pending)
-from .flax_msgpack import read_flax_msgpack
+from .flax_msgpack import read_flax_checkpoint
 
 __all__ = ["RegTrainState", "RegressionTrainer", "make_lr_schedule", "sign_accuracy",
            "scalar_writer", "train"]
@@ -309,8 +309,9 @@ class RegressionTrainer:
 
     def restore(self, state: RegTrainState, path: str) -> Tuple[RegTrainState, int]:
         """In place, from the port's checkpoint (a file, or a directory read
-        into ``shard_payload``'s tensors) or the JAX trainer's msgpack one;
-        returns (state, the epoch to continue from)."""
+        into ``shard_payload``'s tensors) or the JAX trainer's, a msgpack
+        file or an orbax directory; returns (state, the epoch to continue
+        from)."""
         if is_checkpoint_dir(path):
             payload = restore_checkpoint(path, target=self.shard_payload(state, 0))
             state.step = int(payload["n_iter"])
@@ -318,7 +319,7 @@ class RegressionTrainer:
         if not os.path.isdir(path) and is_torch_file(path):
             payload = restore_checkpoint(path, map_location=self.device)
         else:
-            payload = convert.train_reg_payload(read_flax_msgpack(path), self.opts.name_model)
+            payload = convert.train_reg_payload(read_flax_checkpoint(path), self.opts.name_model)
         return self.load_payload(state, payload), int(payload["n_epoch"]) + 1
 
 

@@ -32,8 +32,8 @@ second-order term to the VAE's gradient once the GAN is on).  The state is
 updated in place.  Checkpoints take the JAX trainer's ``ckpt_backend``
 values (``train/checkpoint.py``): a ``torch.save`` file, or a
 ``torch.distributed.checkpoint`` directory that every process of a group
-writes together; ``restore`` reads both and the JAX trainer's msgpack files
-(``convert.vae_train_payload``).
+writes together; ``restore`` reads both and the JAX trainer's checkpoints,
+msgpack files and orbax directories (``convert.vae_train_payload``).
 
 The networks compute in ``dtype`` over fp32 master weights (so gradients
 and Adam's moments are fp32); the losses are fp32.  The posterior sample's
@@ -69,7 +69,7 @@ from ..parallel import (all_reduce_average, all_reduce_gradients, all_reduce_mea
 from .checkpoint import (adam_payload, check_backend, is_checkpoint_dir, is_torch_file,
                          load_adam_payload, optimizer_shards, restore_checkpoint,
                          save_checkpoint)
-from .flax_msgpack import read_flax_msgpack
+from .flax_msgpack import read_flax_checkpoint
 
 __all__ = ["VAETrainState", "VAEFinetuneTrainer", "default_disc_layers", "vae_weights"]
 
@@ -97,12 +97,13 @@ def default_disc_layers(img_size: int) -> int:
 
 def vae_weights(path: str) -> Dict[str, torch.Tensor]:
     """The VAE's ``state_dict`` from a finetune checkpoint: the port's file or
-    directory (``"vae"``) or the JAX trainer's msgpack one (``params``)."""
+    directory (``"vae"``) or the JAX trainer's, a msgpack file or an orbax
+    directory (``params``)."""
     if is_checkpoint_dir(path):
         return restore_checkpoint(path, keys=("vae",))["vae"]
     if not os.path.isdir(path) and is_torch_file(path):
         return restore_checkpoint(path)["vae"]
-    return vae_state_dict(read_flax_msgpack(path)["params"])
+    return vae_state_dict(read_flax_checkpoint(path)["params"])
 
 
 def _adam(params, lr: float) -> torch.optim.Adam:
@@ -311,12 +312,11 @@ class VAEFinetuneTrainer:
 
     def restore(self, state: VAETrainState, path: str) -> VAETrainState:
         """In place, from the port's checkpoint (a file, or a directory read
-        into ``shard_payload``'s tensors) or the JAX trainer's msgpack one
-        (a JAX orbax directory raises a ``ValueError`` naming its
-        conversion)."""
+        into ``shard_payload``'s tensors) or the JAX trainer's, a msgpack
+        file or an orbax directory."""
         if is_checkpoint_dir(path):
             state.step = int(restore_checkpoint(path, target=self.shard_payload(state))["step"])
             return state
         if not os.path.isdir(path) and is_torch_file(path):
             return self.load_payload(state, restore_checkpoint(path, map_location=self.device))
-        return self.load_payload(state, vae_train_payload(read_flax_msgpack(path)))
+        return self.load_payload(state, vae_train_payload(read_flax_checkpoint(path)))

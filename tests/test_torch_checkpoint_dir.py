@@ -184,8 +184,8 @@ def test_topk_prunes_directories_and_latest_picks_the_newest(tmp_path):
     """``TopKCheckpointer(backend="orbax_async")`` keeps the k best
     directories and removes the one that falls out (after ``wait_pending``);
     a new instance seeds from them; ``latest_checkpoint`` picks the newest
-    directory (or file) by modification time; a JAX orbax directory is
-    refused with its conversion."""
+    directory (or file) by modification time; ``restore_checkpoint`` refuses a
+    JAX orbax directory, naming ``read_flax_checkpoint``, which reads it."""
     _, _, state = _small_state()
     topk = ckpt.TopKCheckpointer(str(tmp_path), monitor="val/loss", k=2, backend="orbax_async")
     kept = [topk.update(v, s, state) for s, v in ((1, 0.5), (2, 0.4), (3, 0.6), (4, 0.3))]
@@ -205,7 +205,7 @@ def test_topk_prunes_directories_and_latest_picks_the_newest(tmp_path):
     jax_dir = jax_save_checkpoint(str(tmp_path / "jax.ckpt"), {"a": jnp.ones(3)},
                                   backend="orbax")
     assert not ckpt.is_checkpoint_dir(jax_dir)
-    with pytest.raises(ValueError, match="orbax checkpoint directory.*restore_checkpoint"):
+    with pytest.raises(ValueError, match="JAX orbax checkpoint directory.*read_flax_checkpoint"):
         ckpt.restore_checkpoint(jax_dir)
 
 

@@ -8,8 +8,9 @@ GTSlice and DISN, ``train_cam``'s (variables only) for CameraNet, and
 ``load_model`` / ``load_camnet`` / ``LDMTrainer.restore`` read them with its
 own msgpack reader (no flax, no msgpack) and must give the JAX models'
 outputs on the same inputs: atol 5e-4 / rtol 1e-3 (fp32, another summation
-order).  Chunked large arrays, bf16 leaves and orbax directories are covered
-on their own.
+order).  Chunked large arrays, bf16 leaves and an orbax directory (read like
+its msgpack twin; tests/test_torch_checkpoint_orbax_import.py holds the
+rest) are covered on their own.
 """
 
 import os
@@ -37,7 +38,8 @@ from slice3d_tpu_torch import camera
 from slice3d_tpu_torch.config import Options
 from slice3d_tpu_torch.diffusion.latent import LatentDiffusion
 from slice3d_tpu_torch.models.build import load_camnet, load_model
-from slice3d_tpu_torch.train.flax_msgpack import decode_msgpack, read_flax_msgpack
+from slice3d_tpu_torch.train.flax_msgpack import (decode_msgpack, read_flax_checkpoint,
+                                                  read_flax_msgpack)
 from slice3d_tpu_torch.train.train_ldm import LDMTrainer
 
 TOL = dict(atol=5e-4, rtol=1e-3)
@@ -207,17 +209,29 @@ def test_reader_equals_flax_on_every_leaf_kind(tmp_path):
 
 
 def test_orbax_directory_is_refused_with_the_conversion(tmp_path):
+    """An orbax directory of the JAX package is no longer refused: it loads
+    like its msgpack twin (the same variables written with
+    ``backend="msgpack"``), through ``load_model`` and
+    ``read_flax_checkpoint``; ``read_flax_msgpack`` alone reads files and
+    names ``read_flax_checkpoint`` for a directory."""
     jmodel = JaxGTSlice(n_slices=12)
     variables = init_variables(jmodel, _opts(tmp_path, "gtslice"), seed=0)
     path = save_checkpoint(str(tmp_path / "orbax.ckpt"), {"variables": variables},
                            backend="orbax")
-    assert os.path.isdir(path)
-    for read in (lambda: load_model(_opts(tmp_path, "gtslice"), path),
-                 lambda: read_flax_msgpack(path)):
-        with pytest.raises(ValueError, match="orbax") as err:
-            read()
-        assert "restore_checkpoint" in str(err.value)
-        assert 'backend="msgpack"' in str(err.value)
+    twin = save_checkpoint(str(tmp_path / "msgpack.ckpt"), {"variables": variables})
+    assert os.path.isdir(path) and os.path.isfile(twin)
+    got = load_model(_opts(tmp_path, "gtslice"), path).state_dict()
+    want = load_model(_opts(tmp_path, "gtslice"), twin).state_dict()
+    assert set(got) == set(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    tree, twin_tree = read_flax_checkpoint(path), read_flax_msgpack(twin)
+    flat = jax.tree_util.tree_leaves_with_path(tree)
+    assert [k for k, _ in flat] == [k for k, _ in jax.tree_util.tree_leaves_with_path(twin_tree)]
+    for (_, a), b in zip(flat, jax.tree_util.tree_leaves(twin_tree)):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    with pytest.raises(ValueError, match="is a directory, not a msgpack file: "
+                                         "read_flax_checkpoint"):
+        read_flax_msgpack(path)
 
 
 # -- the latent-diffusion trainer's checkpoint ----------------------------------------

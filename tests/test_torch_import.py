@@ -55,7 +55,9 @@ def test_import_leaves_jax_out():
             "slice3d_tpu_torch.train_cam, slice3d_tpu_torch.models.perceptual, "
             "slice3d_tpu_torch.data.device_transforms, slice3d_tpu_torch.train.train_vae, "
             "slice3d_tpu_torch.models.lpips, slice3d_tpu_torch.models.discriminator, "
-            "slice3d_tpu_torch.dryrun, slice3d_tpu_torch.parallel.sharding; "
+            "slice3d_tpu_torch.dryrun, slice3d_tpu_torch.parallel.sharding, "
+            "slice3d_tpu_torch.train.zstd, slice3d_tpu_torch.train.ocdbt, "
+            "slice3d_tpu_torch.train.flax_orbax; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'slice3d_tpu' or m.startswith('slice3d_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -96,7 +98,8 @@ def test_no_jax_or_reference_imports(where):
                 "train_gt.py", "train_cam.py", os.path.join("models", "perceptual.py"),
                 os.path.join("data", "device_transforms.py"),
                 os.path.join("train", "train_vae.py"), os.path.join("models", "lpips.py"),
-                os.path.join("models", "discriminator.py")} <= rel
+                os.path.join("models", "discriminator.py"), os.path.join("train", "zstd.py"),
+                os.path.join("train", "ocdbt.py"), os.path.join("train", "flax_orbax.py")} <= rel
     else:
         files = [os.path.join(ROOT, "chip_smoke.py")]
     assert files
@@ -107,9 +110,10 @@ def test_no_jax_or_reference_imports(where):
 
 
 def test_no_third_party_import_but_torch_and_numpy():
-    """The card's machine has torch and numpy, and neither msgpack, PyYAML nor
-    Pillow: the port imports nothing else outside the standard library, save
-    Pillow as ``data/image.py``'s fallback for images that are no PNG."""
+    """The card's machine has torch and numpy, and neither msgpack, PyYAML,
+    Pillow, zstandard, tensorstore nor orbax: the port imports nothing else
+    outside the standard library, save Pillow as ``data/image.py``'s fallback
+    for images that are no PNG."""
     found = set()
     for d, _, fs in os.walk(PKG):
         for f in fs:
@@ -120,7 +124,36 @@ def test_no_third_party_import_but_torch_and_numpy():
     other = {(top, rel) for top, rel in found
              if top not in sys.stdlib_module_names and top not in ("__future__", "torch",
                                                                   "numpy")}
+    assert not {top for top, _ in other} & {"zstandard", "tensorstore", "orbax"}, other
     assert other == {("PIL", os.path.join("data", "image.py"))}
+
+
+def test_orbax_fixture_reads_with_jax_orbax_tensorstore_and_zstandard_blocked():
+    """The committed JAX orbax fixture read in a process where ``jax``,
+    ``orbax``, ``tensorstore`` and ``zstandard`` cannot be imported: every
+    leaf's shape, dtype and SHA-256 as ``expected.json`` gives them."""
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'orbax', 'tensorstore', 'zstandard'):\n"
+            "    sys.modules[name] = None\n"
+            "import hashlib, json, os\n"
+            "from slice3d_tpu_torch.train.flax_msgpack import read_flax_checkpoint\n"
+            "d = os.path.join('slice3d_tpu_torch', 'train', 'testdata', 'jax_orbax')\n"
+            "want = json.load(open(os.path.join(d, 'expected.json')))\n"
+            "tree = read_flax_checkpoint(os.path.join(d, 'state'))\n"
+            "def leaf(t, keys):\n"
+            "    for k in keys:\n"
+            "        t = t[k]\n"
+            "    return t\n"
+            "for name, w in want['leaves'].items():\n"
+            "    a = leaf(tree, name.split('/'))\n"
+            "    got = [list(a.shape), str(a.dtype), hashlib.sha256(a.tobytes()).hexdigest()]\n"
+            "    assert got == [w['shape'], w['dtype'], w['sha256']], (name, got, w)\n"
+            "print(len(want['leaves']))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 5
 
 
 def test_weight_bridge_round_trip():

@@ -336,11 +336,13 @@ def test_load_model(tmp_path):
     assert all(torch.equal(loaded.state_dict()[k], v) for k, v in sd.items())
     ignored = load_model(config.Options(**SMALL), str(tmp_path / "ref.ckpt")).state_dict()
     assert all(torch.equal(ignored[k], v) for k, v in seeded.state_dict().items())  # --random_init
-    # JAX msgpack files are read (tests/test_torch_checkpoint_import.py); a cut
-    # one (a map of 2 entries that holds 1) and orbax directories raise
+    # JAX msgpack files and orbax directories are read
+    # (tests/test_torch_checkpoint_import.py, test_torch_checkpoint_orbax_import.py);
+    # a cut file (a map of 2 entries that holds 1) and a directory that is no
+    # checkpoint raise
     (tmp_path / "jax.msgpack").write_bytes(b"\x82\xa6params\x80")
     with pytest.raises(ValueError, match="truncated msgpack"):
         load_model(opts, str(tmp_path / "jax.msgpack"))
     (tmp_path / "orbax").mkdir()
-    with pytest.raises(ValueError, match="orbax checkpoint directory.*restore_checkpoint"):
+    with pytest.raises(ValueError, match="directory but not a checkpoint.*manifest.ocdbt"):
         load_model(opts, str(tmp_path / "orbax"))
