@@ -142,8 +142,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      ``torch.distributed.checkpoint``) against the msgpack file: (a) ``python
      -m slice3d_tpu_torch.main -t`` with configs/objaverse-ldm-kl-8.yaml at
      full width (batch 8, 128 px) on phase 14's synthetic dataset (8 objects,
-     in ``_smoke/``, removed after) once per backend: 4 steps checkpointed
-     every 2, resumed to step 6; per backend the loop's blocked ms per save
+     in ``_smoke/``, removed after) once per backend: 2 steps checkpointed
+     every step, resumed to step 3 (whose closing save is not written: two
+     ~5.3 GB writes a backend); per backend the loop's blocked ms per save
      (p50), GB written, card and host memory above a save's start, every
      restored tensor bit-equal to the saved state, exactly 10 + 10 attention
      launches a step; (b) phase 16's forced-sharded (1, 1) SliceNet and LDM
@@ -160,7 +161,22 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      leaf's shape, dtype and SHA-256 as ``expected.json`` gives them, the
      tensors moved to the card and read back, and on the card the level-19
      frame's bytes equal to the start of the leaf it was cut from; the
-     decoder's build time and the read times.
+     decoder's build time and the read times;
+ 19. the fp32 attention kernels (``--dtype float32``, the JAX root CLI's
+     precision): the forward and the backward at (8, 8, 4096, 24) and
+     (8, 8, 1024, 48) in fp32 against their plain versions with TF32 off,
+     the plain version with TF32 matmuls as the control that must fail the
+     tolerance, with kernel, plain and fp32 scaled_dot_product_attention ms
+     beside the fp32 FMA bound; ``python -m slice3d_tpu_torch.main -t
+     --dtype float32`` with configs/objaverse-ldm-kl-8.yaml (batch 8, 4
+     steps, exactly 10 + 10 fp32 launches a step and no bf16 one; ms per
+     step beside phase 14's bf16 ones, peak memory) on 8 synthetic objects
+     in ``_smoke/`` (removed after), then ``--mode sample --dtype float32``
+     with DDIM-20 from its checkpoint (exactly 200 fp32 forward launches for
+     the batch of 8, s per batch); one tiny fp32 ``LDMTrainer`` step (heads
+     of 24, T 1024 at ds 1) on the card (the fp32 kernels) and on the CPU
+     (the plain attention): logs and gradients at the regression trainers'
+     tolerance, which TF32 on must fail.
 The last three lines are the paths' JSON record, the kernels' JSON record
 and the run's status JSON.
 """
@@ -368,6 +384,28 @@ FSDP_AXES = (1, 2, 4, 8)
 TRAIN_TINY = dict(timesteps=20, vae_ch=32, vae_mult=(1, 2), vae_nres=1, unet_channels=32,
                   unet_mult=(1, 2), unet_nres=1, unet_attention_ds=(1,),
                   unet_inject_blocks=(0, 3), cond_widths=(32, 64), latent_size=8)
+ATTN_F32_SRC = {"spatial_attention_f32": ("slice3d_tpu_torch/csrc/spatial_attention_f32.cu",
+                                          "slice3d_tpu/ops/pallas_attention.py:59"),
+                "spatial_attention_bwd_f32": (
+                    "slice3d_tpu_torch/csrc/spatial_attention_bwd_f32.cu",
+                    "slice3d_tpu/ops/pallas_attention.py:150")}
+# phase 19: the fp32 attention kernels against their plain versions at
+# ATTN_SHAPES, element-wise: both compute in true fp32 and differ by summation
+# order and the exponential, so the tolerances sit far below what TF32
+# matmuls in the plain version give (the control that must fail them)
+ATTN_F32_TOL = dict(atol=5e-5, rtol=5e-5)
+ATTN_BWD_F32_TOL = dict(atol=2e-4, rtol=1e-4)
+# ``main -t --dtype float32`` at configs/objaverse-ldm-kl-8.yaml's widths (batch
+# 8) on F32_SHAPES synthetic objects, F32_STEPS steps (the first a warm-up),
+# then ``--mode sample --dtype float32`` with DDIM-20 over the test split (one
+# batch of 8) from the checkpoint it wrote
+F32_SHAPES, F32_STEPS = 8, 4
+F32_SAMPLE = ["--sampler", "ddim", "--ddim_steps", "20"]
+# the tiny fp32 step card vs CPU at heads of 24 (UNet 192 ch over 8 heads), so
+# that its ds 1 blocks (T = 1024) take the fp32 kernels on the card
+TRAIN_TINY_F32 = dict(TRAIN_TINY, unet_channels=192, cond_widths=(192, 384))
+
+
 
 
 def check(cond: bool, what: str) -> None:
@@ -394,6 +432,17 @@ def check_close(got: torch.Tensor, want: torch.Tensor, tol: dict, what: str) -> 
     check(got.shape == want.shape and not bad.any(), f"{what}: disagree")
 
 
+@contextlib.contextmanager
+def tf32(on: bool):
+    """TF32 in cuDNN's convolutions and cuBLAS's matmuls on or off within."""
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
+
+
 def reset_counts() -> None:
     from slice3d_tpu_torch.ops import fused_encoder as fe
     from slice3d_tpu_torch.ops import fused_ffn as ff
@@ -401,8 +450,7 @@ def reset_counts() -> None:
 
     fe.launches = 0
     ff.launches = 0
-    sa.launches = 0
-    sa.launches_bwd = 0
+    sa.launches = sa.launches_bwd = sa.launches_f32 = sa.launches_bwd_f32 = 0
 
 
 def read_counts() -> dict:
@@ -411,7 +459,9 @@ def read_counts() -> dict:
     from slice3d_tpu_torch.ops import spatial_attention as sa
 
     return {"fused_encoder_layer": fe.launches, "fused_ffn": ff.launches,
-            "spatial_attention": sa.launches, "spatial_attention_bwd": sa.launches_bwd}
+            "spatial_attention": sa.launches, "spatial_attention_bwd": sa.launches_bwd,
+            "spatial_attention_f32": sa.launches_f32,
+            "spatial_attention_bwd_f32": sa.launches_bwd_f32}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -474,6 +524,8 @@ def phase_build():
     t0 = time.perf_counter()
     builds = {"fused_encoder": fe.kernel, "fused_ffn": ff.kernel,
               "spatial_attention": sa.kernel, "spatial_attention_bwd": sa.kernel_bwd,
+              "spatial_attention_f32": lambda: sa.kernel(torch.float32),
+              "spatial_attention_bwd_f32": lambda: sa.kernel_bwd(torch.float32),
               "host mesh library": load_library, "zstd decoder": zstd.load_library}
     with ThreadPoolExecutor(len(builds)) as pool:
         futs = {name: pool.submit(timed, fn) for name, fn in builds.items()}
@@ -1175,19 +1227,23 @@ def phase_training():
             "batch": TRAIN_BATCH, "losses": losses, "counts": counts}, trainer, state
 
 
+def _ldm_grads(tr, st, batch, draws):
+    """One micro-step of ``tr`` from ``st``: (logs, gradients by name)."""
+    from slice3d_tpu_torch.train.train_ldm import trainable_parameters
+
+    st.optimizer.zero_grad(set_to_none=True)
+    logs = tr.loss_and_grads(st, batch, draws=draws)
+    return ({k: float(v) for k, v in logs.items()},
+            {n: p.grad.clone() for n, p in trainable_parameters(st.ldm).items()
+             if p.grad is not None})
+
+
 def phase_training_checks(trainer, state):
     """Small inputs on the card: one step's gradients at batch 1, kernel path
     vs plain path (bf16, full width), and the fp32 plain path card vs CPU on
     the tiny configuration."""
     from slice3d_tpu_torch.diffusion.latent import init_latent_diffusion
-    from slice3d_tpu_torch.train.train_ldm import LDMTrainer, trainable_parameters
-
-    def grads(tr, st, batch, draws):
-        st.optimizer.zero_grad(set_to_none=True)
-        logs = tr.loss_and_grads(st, batch, draws=draws)
-        return ({k: float(v) for k, v in logs.items()},
-                {n: p.grad.clone() for n, p in trainable_parameters(st.ldm).items()
-                 if p.grad is not None})
+    from slice3d_tpu_torch.train.train_ldm import LDMTrainer
 
     # 1. bf16, batch 1, full width: kernel path vs plain path, same weights
     rng = np.random.default_rng(8)
@@ -1196,12 +1252,12 @@ def phase_training_checks(trainer, state):
     draws = {"posterior_noise": rng.normal(size=(1, 13, 16, 16, 4)).astype(np.float32),
              "t": np.array([500]), "noise": rng.normal(size=(1, 64, 64, 4)).astype(np.float32)}
     reset_counts()
-    k_logs, kern = grads(trainer, state, batch, draws)
+    k_logs, kern = _ldm_grads(trainer, state, batch, draws)
     counts = read_counts()
     check(counts["spatial_attention"] == 10 and counts["spatial_attention_bwd"] == 10,
           f"the kernel path's step launched {counts}")
     set_fused(state.ldm, False)
-    p_logs, plain = grads(trainer, state, batch, draws)
+    p_logs, plain = _ldm_grads(trainer, state, batch, draws)
     set_fused(state.ldm, True)
     print(f"[check] training step, batch 1 (bf16): kernel path losses {k_logs}, plain path "
           f"{p_logs}")
@@ -1224,7 +1280,7 @@ def phase_training_checks(trainer, state):
     runs = {}
     for dev in ("cpu", "cuda"):
         tr = LDMTrainer(img_size=16, batch_size=2, timesteps=20, module=tiny, device=dev)
-        runs[dev] = grads(tr, tr.init_state(), batch, draws)
+        runs[dev] = _ldm_grads(tr, tr.init_state(), batch, draws)
     torch.backends.cudnn.allow_tf32 = True
     (c_logs, cpu), (g_logs, gpu) = runs["cpu"], runs["cuda"]
     print(f"[check] training step, tiny fp32: card losses {g_logs}, CPU {c_logs}")
@@ -2209,34 +2265,30 @@ def _regression_card_vs_cpu(vgg):
     g = torch.Generator(device="cuda").manual_seed(23)
     batch = {k: v.cpu() for k, v in regression_batches(1, g, b=2, size=32, n_qry=16,
                                                         n_pcd=64)[0].items()}
-    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     readings = {}
-    try:
-        for name in ("slicenet", "gtslice", "cameranet"):
-            c_logs, cpu = _regression_step_tiny(name, vgg, batch, "cpu")
-            readings[name] = {"cpu": c_logs}
-            for tf32 in (False, True):
-                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+    for name in ("slicenet", "gtslice", "cameranet"):
+        c_logs, cpu = _regression_step_tiny(name, vgg, batch, "cpu")
+        readings[name] = {"cpu": c_logs}
+        for on in (False, True):
+            with tf32(on):
                 g_logs, gpu = _regression_step_tiny(name, vgg, batch, "cuda")
-                r = regression_grad_readings(gpu, cpu, REG_GRAD_FP32_TOL)
-                r["log_rel_err"] = max(abs(g_logs[k] - c_logs[k]) / abs(c_logs[k])
-                                       for k in c_logs)
-                r["card"] = g_logs
-                ok = r["violations"] == 0 and r["log_rel_err"] <= REG_LOSS_RTOL
-                mode = "TF32 on" if tf32 else "fp32"
-                print(f"[check] regression step {name}, tiny, card ({mode}) vs CPU fp32: logs "
-                      f"{r['log_rel_err']:.6g} apart, relative (tolerance {REG_LOSS_RTOL}); "
-                      f"gradients max_abs_err {r['max_err_G']:.6g} G, "
-                      f"{r['err_G_without_ties']:.6g} G with at most {REG_TIE_FRAC} of a "
-                      f"tensor set aside, largest tensor L2 error / its norm "
-                      f"{r['max_rel_l2']:.6g}; tolerance |card-cpu| <= "
-                      f"{REG_GRAD_FP32_TOL['atol']}*G + {REG_GRAD_FP32_TOL['rtol']}*|cpu|, "
-                      f"violations {r['violations']}: {'agree' if ok else 'disagree'}")
-                check(ok != tf32, f"{name} step, card ({mode}) vs CPU: "
-                      + ("the check did not see TF32" if tf32 else "disagree"))
-                readings[name]["tf32" if tf32 else "fp32"] = r
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
+            r = regression_grad_readings(gpu, cpu, REG_GRAD_FP32_TOL)
+            r["log_rel_err"] = max(abs(g_logs[k] - c_logs[k]) / abs(c_logs[k])
+                                   for k in c_logs)
+            r["card"] = g_logs
+            ok = r["violations"] == 0 and r["log_rel_err"] <= REG_LOSS_RTOL
+            mode = "TF32 on" if on else "fp32"
+            print(f"[check] regression step {name}, tiny, card ({mode}) vs CPU fp32: logs "
+                  f"{r['log_rel_err']:.6g} apart, relative (tolerance {REG_LOSS_RTOL}); "
+                  f"gradients max_abs_err {r['max_err_G']:.6g} G, "
+                  f"{r['err_G_without_ties']:.6g} G with at most {REG_TIE_FRAC} of a "
+                  f"tensor set aside, largest tensor L2 error / its norm "
+                  f"{r['max_rel_l2']:.6g}; tolerance |card-cpu| <= "
+                  f"{REG_GRAD_FP32_TOL['atol']}*G + {REG_GRAD_FP32_TOL['rtol']}*|cpu|, "
+                  f"violations {r['violations']}: {'agree' if ok else 'disagree'}")
+            check(ok != on, f"{name} step, card ({mode}) vs CPU: "
+                  + ("the check did not see TF32" if on else "disagree"))
+            readings[name]["tf32" if on else "fp32"] = r
     return readings
 
 
@@ -2557,33 +2609,29 @@ def _vae_card_vs_cpu():
     noise = torch.from_numpy(rng.normal(size=(4, 16, 16, 4)).astype(np.float32))
     lpips_sd = random_init_(LPIPS(), torch.Generator().manual_seed(5)).state_dict()
     c_logs, cpu = _vae_step_tiny("cpu", lpips_sd, batch, noise)
-    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     readings = {"cpu": c_logs}
-    try:
-        for tf32 in (False, True):
-            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+    for on in (False, True):
+        with tf32(on):
             g_logs, gpu = _vae_step_tiny("cuda", lpips_sd, batch, noise)
-            r = {net: regression_grad_readings(g, c, REG_GRAD_FP32_TOL)
-                 for net, g, c in zip(("vae", "disc"), gpu, cpu)}
-            r["log_rel_err"] = max(abs(g_logs[k] - c_logs[k]) / max(abs(c_logs[k]), 1e-30)
-                                   for k in c_logs)
-            r["card"] = g_logs
-            ok = (r["vae"]["violations"] + r["disc"]["violations"] == 0
-                  and r["log_rel_err"] <= REG_LOSS_RTOL)
-            mode = "TF32 on" if tf32 else "fp32"
-            print(f"[check] vae finetune step, tiny, card ({mode}) vs CPU fp32: logs "
-                  f"{r['log_rel_err']:.6g} apart, relative (tolerance {REG_LOSS_RTOL}); "
-                  + "; ".join(f"{net} gradients max_abs_err {r[net]['max_err_G']:.6g} G, "
-                              f"{r[net]['err_G_without_ties']:.6g} G without near-ties, "
-                              f"largest tensor L2 error / its norm {r[net]['max_rel_l2']:.6g}, "
-                              f"violations {r[net]['violations']}" for net in ("vae", "disc"))
-                  + f"; tolerance |card-cpu| <= {REG_GRAD_FP32_TOL['atol']}*G + "
-                  f"{REG_GRAD_FP32_TOL['rtol']}*|cpu|: {'agree' if ok else 'disagree'}")
-            check(ok != tf32, f"vae finetune step, card ({mode}) vs CPU: "
-                  + ("the check did not see TF32" if tf32 else "disagree"))
-            readings["tf32" if tf32 else "fp32"] = r
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
+        r = {net: regression_grad_readings(g, c, REG_GRAD_FP32_TOL)
+             for net, g, c in zip(("vae", "disc"), gpu, cpu)}
+        r["log_rel_err"] = max(abs(g_logs[k] - c_logs[k]) / max(abs(c_logs[k]), 1e-30)
+                               for k in c_logs)
+        r["card"] = g_logs
+        ok = (r["vae"]["violations"] + r["disc"]["violations"] == 0
+              and r["log_rel_err"] <= REG_LOSS_RTOL)
+        mode = "TF32 on" if on else "fp32"
+        print(f"[check] vae finetune step, tiny, card ({mode}) vs CPU fp32: logs "
+              f"{r['log_rel_err']:.6g} apart, relative (tolerance {REG_LOSS_RTOL}); "
+              + "; ".join(f"{net} gradients max_abs_err {r[net]['max_err_G']:.6g} G, "
+                          f"{r[net]['err_G_without_ties']:.6g} G without near-ties, "
+                          f"largest tensor L2 error / its norm {r[net]['max_rel_l2']:.6g}, "
+                          f"violations {r[net]['violations']}" for net in ("vae", "disc"))
+              + f"; tolerance |card-cpu| <= {REG_GRAD_FP32_TOL['atol']}*G + "
+              f"{REG_GRAD_FP32_TOL['rtol']}*|cpu|: {'agree' if ok else 'disagree'}")
+        check(ok != on, f"vae finetune step, card ({mode}) vs CPU: "
+              + ("the check did not see TF32" if on else "disagree"))
+        readings["tf32" if on else "fp32"] = r
     return readings
 
 
@@ -3302,8 +3350,12 @@ def phase_fsdp(power: str):
 
 CKPT_BACKENDS = ("msgpack", "orbax", "orbax_async")
 CKPT_SHAPES = 8  # phase 14's synthetic dataset at one batch of 8
-CKPT_LDM = dict(max_steps=4, ckpt_every=2, val_every=0, log_images_every=0)
-CKPT_RESUME_STEPS = 6
+# each backend writes two ~5.3 GB checkpoints: ``last.ckpt`` at steps 1 and 2
+# of the first run (the second save of ``orbax_async`` waits for the first
+# write); the resume restores step 2 and takes step 3, whose closing save is
+# recorded and not written
+CKPT_LDM = dict(max_steps=2, ckpt_every=1, val_every=0, log_images_every=0)
+CKPT_RESUME_STEPS = 3
 CKPT_DIR = os.path.join(SMOKE_DIR, "ckpt")
 
 
@@ -3400,12 +3452,13 @@ def _disk_gb(path: str) -> float:
 
 def _ckpt_cli(data: str, backend: str, power: str):
     """(a) for one backend: ``main -t`` on configs/objaverse-ldm-kl-8.yaml for
-    CKPT_LDM's 4 steps (``last.ckpt`` at 2 and 4), then ``-r`` to step
-    CKPT_RESUME_STEPS; each save timed (the loop blocked, and within it the
-    wait for the write before it), its card and host memory above the save's
-    start (the host's peak resident set, which a process's later saves may
-    find already grown), the state at the last save of the first run kept
-    on the card and held bit for bit to what the resume restores."""
+    CKPT_LDM's 2 steps (``last.ckpt`` at 1 and 2), then ``-r`` to step
+    CKPT_RESUME_STEPS (its closing save recorded, not written); each save
+    timed (the loop blocked, and within it the wait for the write before
+    it), its card and host memory above the save's start (the host's peak
+    resident set, which a process's later saves may find already grown), the
+    state at the last save of the first run kept on the card and held bit for
+    bit to what the resume restores."""
     from slice3d_tpu_torch import main as gen_main
     from slice3d_tpu_torch.train import checkpoint as ckpt_mod
     from slice3d_tpu_torch.train.train_ldm import LDMTrainer
@@ -3414,7 +3467,7 @@ def _ckpt_cli(data: str, backend: str, power: str):
     common = ["-b", os.path.join(here, "configs", "objaverse-ldm-kl-8.yaml"), "-t",
               "--data_root", data, "-s", "3", "--ckpt_backend", backend]
     flags = [f"--{k}={v}" for k, v in CKPT_LDM.items()]
-    saves, kept, flushes, restored, waited = [], {}, [], [], [0.0]
+    saves, kept, flushes, restored, waited, skipped = [], {}, [], [], [0.0], []
     real_save, real_restore, real_wait = LDMTrainer.save, LDMTrainer.restore, gen_main.wait_pending
     real_inner = ckpt_mod.wait_pending
 
@@ -3424,6 +3477,9 @@ def _ckpt_cli(data: str, backend: str, power: str):
         waited[0] += (time.perf_counter() - t0) * 1e3
 
     def timed_save(self, state, path):
+        if state.step > CKPT_LDM["max_steps"]:  # the resume's closing save
+            skipped.append(state.step)
+            return path
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -3469,9 +3525,11 @@ def _ckpt_cli(data: str, backend: str, power: str):
         ckpt_mod.wait_pending = real_inner
     shutil.rmtree(logdir, ignore_errors=True)
     n1, n2 = CKPT_LDM["max_steps"], CKPT_RESUME_STEPS - CKPT_LDM["max_steps"]
-    check(ret == logdir and [s["step"] for s in steps + steps2] == list(range(1, 7)),
+    check(ret == logdir and [s["step"] for s in steps + steps2]
+          == list(range(1, CKPT_RESUME_STEPS + 1)),
           f"{backend}: steps {[s['step'] for s in steps + steps2]} in {ret}")
-    check([s["step"] for s in saves] == [2, 4, 6], f"{backend}: saves at {saves}")
+    check([s["step"] for s in saves] == [1, 2] and skipped == [CKPT_RESUME_STEPS],
+          f"{backend}: saves at {saves}, not written at {skipped}")
     check(len(restored) == 1 and not restored[0]["bad"],
           f"{backend}: restored tensors differ from the saved state: {restored}")
     for c, n in ((counts, n1), (counts2, n2)):
@@ -3716,6 +3774,243 @@ def phase_jax_orbax(power: str):
     return out
 
 
+def attention_f32_work(shape, sm_clock_hz: float, backward: bool):
+    """(flops, exps, bytes, bound_ms, bound_by) of one fp32 attention call:
+    its products as fp32 FMAs on the CUDA cores (132 SMs x 128 lanes x 2 at
+    the clock: 4 T^2 DH a head forward, 10 backward), one exponential per
+    logit, each input read and each output written once (fp32; the backward
+    reads q, k, v, o, do and the row log-sum-exp and writes dq, dk, dv)."""
+    b, h, t, dh = shape
+    flops = (10 if backward else 4) * b * h * t * t * dh
+    exps = b * h * t * t
+    nbytes = (8 * b * h * t * dh + b * h * t if backward else 4 * b * h * t * dh) * 4
+    times = {"operations (fp32 FMA)": flops / (132 * 128 * 2 * sm_clock_hz),
+             "operations (exponentials)": exps / (SFU_PER_CLOCK * sm_clock_hz),
+             "bytes": nbytes / PEAK_BYTES}
+    by = max(times, key=times.get)
+    return flops, exps, nbytes, times[by] * 1e3, by
+
+
+def _f32_readings(got, want, tol: dict, what: str, tf32_want=None) -> dict:
+    """``got`` against ``want`` element-wise at ``tol`` (fatal), and, given,
+    the plain version run with TF32 matmuls against the same ``want``: the
+    control, whose violations are returned with the readings."""
+    check(bool(all(torch.isfinite(g).all() for g in got)), f"{what}: not finite")
+    out = {"max_abs_err": 0.0, "tf32_max_abs_err": 0.0, "tf32_violations": 0}
+    for i, (g, w) in enumerate(zip(got, want)):
+        check_close(g, w, tol, f"{what}[{i}], kernel vs plain (fp32)")
+        out["max_abs_err"] = max(out["max_abs_err"], (g - w).abs().max().item())
+        if tf32_want is not None:
+            err = (tf32_want[i] - w).abs()
+            out["tf32_max_abs_err"] = max(out["tf32_max_abs_err"], err.max().item())
+            out["tf32_violations"] += int((err > tol["atol"] + tol["rtol"] * w.abs()).sum())
+    return out
+
+
+def phase_attention_f32(sm_clock_hz: float):
+    """The fp32 forward and backward kernels at ATTN_SHAPES against the plain
+    versions on the same fp32 inputs (TF32 off), with the plain version under
+    TF32 matmuls as the control that must fail the tolerance; ms of the
+    kernel, the plain version and ``scaled_dot_product_attention`` on the same
+    fp32 tensors (forward, and backward through autograd), beside the bound."""
+    from slice3d_tpu_torch.ops import spatial_attention as sa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device="cuda").manual_seed(19)
+    fwd, bwd = [], []
+    for shape in ATTN_SHAPES:
+        q, k = (2.0 * torch.randn(shape, generator=g, device="cuda") for _ in range(2))
+        v, do = (torch.randn(shape, generator=g, device="cuda") for _ in range(2))
+        scale = shape[-1] ** -0.5
+        with tf32(False), torch.no_grad():
+            got = sa.spatial_attention(q, k, v, scale)
+            torch.cuda.synchronize()
+            want = sa.spatial_attention_ref(q, k, v, scale)
+            with tf32(True):
+                control = sa.spatial_attention_ref(q, k, v, scale)
+            r = _f32_readings([got], [want], ATTN_F32_TOL, f"spatial_attention_f32 {shape}",
+                              [control])
+            r["sdpa_max_abs_err"] = (sdpa(q, k, v, scale=scale) - want).abs().max().item()
+            del got, want, control
+            ms = cuda_ms(lambda: sa.spatial_attention(q, k, v, scale), 10)
+            plain_ms = cuda_ms(lambda: sa.spatial_attention_ref(q, k, v, scale), 3)
+            library_ms = cuda_ms(lambda: sdpa(q, k, v, scale=scale), 10)
+        flops, exps, nbytes, bound_ms, by = attention_f32_work(shape, sm_clock_hz, False)
+        fwd.append({"shape": list(shape), **r, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": by,
+                    "gflop": flops / 1e9, "gexp": exps / 1e9, "mbytes": nbytes / 1e6,
+                    "bound_share": bound_ms / ms, "tflops": flops / ms / 1e9})
+        with tf32(False):
+            qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+            out = sa.spatial_attention(*qkv, scale)
+            got = torch.autograd.grad(out, qkv, do, retain_graph=True)
+            torch.cuda.synchronize()
+            want = sa.spatial_attention_bwd_ref(q, k, v, do, scale)
+            with tf32(True):
+                control = sa.spatial_attention_bwd_ref(q, k, v, do, scale)
+            rb = _f32_readings(got, want, ATTN_BWD_F32_TOL,
+                               f"spatial_attention_bwd_f32 {shape} (dq, dk, dv)", control)
+            del got, want, control
+            out_k, lse = out.detach(), out.grad_fn.saved_tensors[4]
+            ms_b = cuda_ms(lambda: sa._backward_kernel(q, k, v, out_k, lse, do, scale), 5)
+            autograd_ms = cuda_ms(lambda: torch.autograd.grad(out, qkv, do, retain_graph=True),
+                                  5)
+            plain_b = cuda_ms(lambda: sa.spatial_attention_bwd_ref(q, k, v, do, scale), 2)
+            lib_out = sdpa(*qkv, scale=scale)
+            library_b = cuda_ms(lambda: torch.autograd.grad(lib_out, qkv, do,
+                                                            retain_graph=True), 5)
+            del out, lib_out, qkv, lse
+        flops, exps, nbytes, bound_b, by = attention_f32_work(shape, sm_clock_hz, True)
+        bwd.append({"shape": list(shape), **rb, "ms": ms_b, "autograd_ms": autograd_ms,
+                    "plain_ms": plain_b, "library_ms": library_b, "bound_ms": bound_b,
+                    "bound_by": by, "gflop": flops / 1e9, "gexp": exps / 1e9,
+                    "mbytes": nbytes / 1e6, "bound_share": bound_b / ms_b,
+                    "tflops": flops / ms_b / 1e9})
+        for name, m in (("spatial_attention_f32", fwd[-1]), ("spatial_attention_bwd_f32",
+                                                              bwd[-1])):
+            print(f"[kernel] {name} {shape}: kernel {m['ms']:.4f} ms"
+                  + (f" (through autograd {m['autograd_ms']:.4f} ms)" if "autograd_ms" in m
+                     else "")
+                  + f", plain {m['plain_ms']:.4f} ms, library (scaled_dot_product_attention"
+                  f"{' backward, through autograd' if 'autograd_ms' in m else ''}, fp32) "
+                  f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms by "
+                  f"{m['bound_by']} ({m['gflop']:.2f} GFLOP, {m['gexp']:.4f} G exp, "
+                  f"{m['mbytes']:.2f} MB; {m['tflops']:.2f} TFLOP/s, bound / kernel "
+                  f"{m['bound_share']:.4f}); max_abs_err {m['max_abs_err']:.6g}, the plain "
+                  f"version with TF32 matmuls {m['tf32_max_abs_err']:.6g} "
+                  f"({m['tf32_violations']} violations)")
+        for name, m, tol in (("spatial_attention_f32", fwd[-1], ATTN_F32_TOL),
+                             ("spatial_attention_bwd_f32", bwd[-1], ATTN_BWD_F32_TOL)):
+            check(m["tf32_violations"] > 0, f"{name} {shape}: the plain version with TF32 "
+                  f"matmuls passes |k-p| <= {tol['atol']} + {tol['rtol']}*|p|, so the "
+                  "tolerance cannot tell fp32 from TF32")
+    return fwd, bwd
+
+
+def _ldm_f32_card_vs_cpu():
+    """One tiny fp32 ``LDMTrainer`` step (TRAIN_TINY_F32: heads of 24, T =
+    1024 at ds 1) on the CPU (the plain attention, which the CPU tests hold
+    against the JAX package) and on the card (the fp32 kernels: 3 forward and
+    3 backward launches), from the same weights, batch and draws: logs to
+    REG_LOSS_RTOL, gradients to the regression trainers' tolerance with TF32
+    off, which must agree, and on, which must not."""
+    from slice3d_tpu_torch.diffusion.latent import init_latent_diffusion
+    from slice3d_tpu_torch.train.train_ldm import LDMTrainer
+
+    tiny = init_latent_diffusion(seed=1, **TRAIN_TINY_F32)
+    rng = np.random.default_rng(19)
+    batch = {"image": rng.uniform(-1, 1, (2, 13, 16, 16, 3)).astype(np.float32),
+             "img_ipt_view": rng.uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)}
+    draws = {"posterior_noise": rng.normal(size=(2, 13, 8, 8, 4)).astype(np.float32),
+             "t": np.array([3, 17]), "noise": rng.normal(size=(2, 32, 32, 4)).astype(np.float32)}
+
+    def step(dev):
+        tr = LDMTrainer(img_size=16, batch_size=2, timesteps=20, module=tiny, device=dev)
+        logs, grads = _ldm_grads(tr, tr.init_state(), batch, draws)
+        return logs, {n: g.cpu() for n, g in grads.items()}
+
+    c_logs, cpu = step("cpu")
+    readings = {"cpu": c_logs}
+    for on in (False, True):
+        with tf32(on):
+            reset_counts()
+            g_logs, gpu = step("cuda")
+            counts = read_counts()
+        check(counts["spatial_attention_f32"] == 3 and counts["spatial_attention_bwd_f32"] == 3
+              and counts["spatial_attention"] == 0 and counts["spatial_attention_bwd"] == 0,
+              f"the tiny fp32 step on the card launched {counts}, expected 3 + 3 fp32")
+        r = regression_grad_readings(gpu, cpu, REG_GRAD_FP32_TOL)
+        r["log_rel_err"] = max(abs(g_logs[k] - c_logs[k]) / abs(c_logs[k]) for k in c_logs)
+        r["card"] = g_logs
+        ok = r["violations"] == 0 and r["log_rel_err"] <= REG_LOSS_RTOL
+        mode = "TF32 on" if on else "fp32"
+        print(f"[check] LDM step, tiny fp32 (heads of 24, T 1024 at ds 1), card ({mode}, the "
+              f"fp32 attention kernels) vs CPU (plain attention): logs "
+              f"{r['log_rel_err']:.6g} apart, relative (tolerance {REG_LOSS_RTOL}); gradients "
+              f"max_abs_err {r['max_err_G']:.6g} G, {r['err_G_without_ties']:.6g} G with at "
+              f"most {REG_TIE_FRAC} of a tensor set aside, largest tensor L2 error / its norm "
+              f"{r['max_rel_l2']:.6g}; tolerance |card-cpu| <= {REG_GRAD_FP32_TOL['atol']}*G + "
+              f"{REG_GRAD_FP32_TOL['rtol']}*|cpu|, violations {r['violations']}: "
+              f"{'agree' if ok else 'disagree'}; launches {counts}")
+        check(ok != on, "tiny fp32 LDM step, card vs CPU: "
+              + ("the check did not see TF32" if on else "disagree"))
+        readings["tf32" if on else "fp32"] = r
+    return readings
+
+
+def phase_fp32_attention(sm_clock_hz: float, power: str, bf16_step=None):
+    """Phase 19: the fp32 attention kernels alone (``phase_attention_f32``),
+    then the paths that run them: ``main -t --dtype float32`` and ``--mode
+    sample --dtype float32`` (DDIM-20) at configs/objaverse-ldm-kl-8.yaml's
+    widths on a synthetic dataset in ``_smoke/`` (removed after), with exact
+    launch counts, and the tiny fp32 step card vs CPU.  ``bf16_step`` is
+    phase 14's ms per step of the same config in bf16, printed beside."""
+    from slice3d_tpu_torch.data.builders import create_synthetic_dataset
+    from slice3d_tpu_torch.data.image import load_image
+    from slice3d_tpu_torch.train.train_ldm import LDMTrainer
+
+    t_phase = time.perf_counter()
+    fwd, bwd = phase_attention_f32(sm_clock_hz)
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    data = os.path.join(SMOKE_DIR, "data", "objaverse")
+    create_synthetic_dataset(data, n_shapes=F32_SHAPES, n_views=12, img_size=128, n_sdf=64,
+                             seed=4)
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                          "objaverse-ldm-kl-8.yaml")
+    common = ["-b", config, "--data_root", data, "-s", "3", "--dtype", "float32"]
+    counts_all = {}
+    try:
+        logdir, steps, dt, counts, peak = run_train_main(
+            "f32 train", common + ["-t", "-l", os.path.join(SMOKE_DIR, "logs"),
+                                   f"--max_steps={F32_STEPS}", "--ckpt_every=1000",
+                                   "--val_every=0", "--log_images_every=0"], LDMTrainer)
+        n = F32_STEPS
+        check(counts["spatial_attention_f32"] == 10 * n
+              and counts["spatial_attention_bwd_f32"] == 10 * n
+              and counts["spatial_attention"] == 0 and counts["spatial_attention_bwd"] == 0,
+              f"main -t --dtype float32: launches {counts} over {n} steps, expected 10 fp32 "
+              "forward and 10 fp32 backward a step and no bf16 one")
+        check([s["step"] for s in steps] == list(range(1, n + 1))
+              and all(np.isfinite(v) for s in steps for v in s["logs"].values()),
+              f"main -t --dtype float32: steps {[(s['step'], s['logs']) for s in steps]}")
+        ms = _ms_stats(steps[1:])
+        bf16 = (f"; phase 14's bf16 steps p50 {bf16_step['p50']:.4f}, min "
+                f"{bf16_step['min']:.4f}, max {bf16_step['max']:.4f}" if bf16_step else "")
+        print(f"[fp32] main -t --dtype float32: ms per step over steps {ms['steps']}: p50 "
+              f"{ms['p50']:.4f}, min {ms['min']:.4f}, max {ms['max']:.4f}; peak memory "
+              f"{peak:.4f} GB; the CLI {dt:.4f} s; 10 + 10 fp32 attention launches a step "
+              f"(exact){bf16}; {power}")
+        train = {"ms_per_step": ms, "step_ms": [s["ms"] for s in steps], "peak_gb": peak,
+                 "cli_s": dt, "launches": counts, "losses": [s["logs"] for s in steps]}
+        counts_all = dict(counts)
+
+        ret, per_batch, dt_s, counts, batches = run_main(
+            "f32 sample", common + ["-r", logdir, "--mode", "sample"] + F32_SAMPLE)
+        check(ret == logdir and len(per_batch) == 1 and per_batch[0][1] == 8
+              and set(batches) == {8}, f"--mode sample --dtype float32: {per_batch} in {ret}, "
+              f"attention at batches {set(batches)}")
+        check(counts["spatial_attention_f32"] == 200 and counts["spatial_attention_bwd_f32"] == 0
+              and counts["spatial_attention"] == 0,
+              f"--mode sample --dtype float32 (DDIM-20): launches {counts}, expected 200 fp32 "
+              "forward and nothing else")
+        mont = [load_image(os.path.join(logdir, "images_testing_sampled", f"0_{c}.png"))
+                for c in range(8)]
+        check(all(m.shape == (512, 512, 3) and m[:384].std() > 0 for m in mont),
+              "--mode sample --dtype float32: a montage of the wrong shape or constant")
+        print(f"[fp32] --mode sample --dtype float32, DDIM-20: {per_batch[0][2]:.4f} s per batch "
+              f"of 8, 200 fp32 attention launches at batch 8 (exact); the CLI {dt_s:.4f} s; "
+              f"{power}")
+        sample = {"s_per_batch": per_batch[0][2], "cli_s": dt_s, "launches": counts}
+        counts_all = {k: counts_all[k] + v for k, v in counts.items()}
+    finally:
+        shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    tiny = _ldm_f32_card_vs_cpu()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[fp32] phase 19 in {phase_s:.4f} s; launches {counts_all}; {power}")
+    return {"forward": fwd, "backward": bwd, "train": train, "sample": sample,
+            "card_vs_cpu": tiny, "phase_s": phase_s}, counts_all
+
+
 def phase_parallel(power: str):
     """Phase 15: sharded reconstruction, training in an NCCL group of one and
     the CLIs' multi-card options; the launches under the path "parallel"."""
@@ -3783,6 +4078,8 @@ def main() -> int:
     fsdp, fsdp_counts = phase_fsdp(power)
     ckpt, ckpt_counts = phase_checkpoints(power)
     jax_orbax = phase_jax_orbax(power)
+    fp32, fp32_counts = phase_fp32_attention(clock * 1e6, power,
+                                             gentrain["ldm"]["runs"]["train"]["ms_per_step"])
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"regression": main_counts, "generation": gen["counts"],
@@ -3792,7 +4089,8 @@ def main() -> int:
                                               if isinstance(r, dict) and "counts" in r)
                                        for k in regcli_counts},
                "regression_cli": regcli_counts, "generation_training_cli": gentrain_counts,
-               "parallel": parallel_counts, "fsdp": fsdp_counts, "checkpoints": ckpt_counts}
+               "parallel": parallel_counts, "fsdp": fsdp_counts, "checkpoints": ckpt_counts,
+               "fp32": fp32_counts}
     full = modes[0]
     encoder = {"name": "fused_encoder_layer", "route": "cuda",
                "source": "slice3d_tpu_torch/csrc/fused_encoder.cu",
@@ -3830,6 +4128,21 @@ def main() -> int:
                      "bound_ms": bwd1["bound_ms"],
                      "bound_by": "bytes" if bwd1["bound_by"] == "bytes" else "operations",
                      "library_ms": bwd1["library_ms"], "modes": bwd_modes}
+    attention_f32 = []
+    for name, f32_modes, tol in (("spatial_attention_f32", fp32["forward"], ATTN_F32_TOL),
+                                 ("spatial_attention_bwd_f32", fp32["backward"],
+                                  ATTN_BWD_F32_TOL)):
+        ds1 = f32_modes[0]
+        attention_f32.append({
+            "name": name, "route": "cuda", "source": ATTN_F32_SRC[name][0],
+            "replaces": ATTN_F32_SRC[name][1],
+            "launches": sum(c[name] for c in by_path.values()),
+            "launches_by_path": {k: c[name] for k, c in by_path.items()},
+            "max_abs_err": max(m["max_abs_err"] for m in f32_modes),
+            "tol": f"|k-p| <= {tol['atol']} + {tol['rtol']}*|p|", "ms": ds1["ms"],
+            "kernel_ms": ds1["ms"], "plain_ms": ds1["plain_ms"], "bound_ms": ds1["bound_ms"],
+            "bound_by": "bytes" if ds1["bound_by"] == "bytes" else "operations",
+            "library_ms": ds1["library_ms"], "modes": f32_modes})
     full_ffn = ffn_modes[0]
     ffn = {"name": "fused_ffn", "route": "cuda", "source": "slice3d_tpu_torch/csrc/fused_ffn.cu",
            "replaces": "slice3d_tpu/ops/pallas_ffn.py:49",
@@ -3846,8 +4159,10 @@ def main() -> int:
                       "serving": serving, "split": split, "options": options,
                       "generation_cli": gencli, "regression_training": regtrain,
                       "generation_training_cli": gentrain, "parallel": parallel,
-                      "fsdp": fsdp, "checkpoints": ckpt, "jax_orbax": jax_orbax}))
-    print(json.dumps({"kernels": [encoder, attention, attention_bwd, ffn]}))
+                      "fsdp": fsdp, "checkpoints": ckpt, "jax_orbax": jax_orbax,
+                      "fp32": {k: v for k, v in fp32.items()
+                               if k not in ("forward", "backward")}}))
+    print(json.dumps({"kernels": [encoder, attention, attention_bwd, ffn, *attention_f32]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -56,7 +56,8 @@ class _DiffusionWrapper(nn.Module):
 class LatentDiffusion(nn.Module):
     """``dtype`` is the networks' compute dtype; latents, the schedule and
     the sampler stay fp32.  ``fused=False`` keeps the UNet's attention on
-    the plain path."""
+    the plain path (a kernel-free reference); the default runs the kernels
+    of the compute dtype on the card, bf16 or fp32."""
 
     def __init__(self, *, timesteps: int = 1000, linear_start: float = 0.0015,
                  linear_end: float = 0.0155, vae_ch: int = 128,

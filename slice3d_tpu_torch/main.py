@@ -71,8 +71,10 @@ group.  At ``--max_steps`` ``last.ckpt`` is written unless that step's
 ``--ckpt_every`` one already was (the root CLI writes it again).
 
 Runs on CUDA unless ``--device cpu``; ``--dtype`` is the networks' compute
-dtype over fp32 master weights (``bfloat16``: the attention kernels, forward
-and backward; ``float32`` takes the attention's plain path).
+dtype over fp32 master weights.  On the card the UNet's long attention
+blocks run the attention kernels of that dtype, forward and backward
+(``ops/spatial_attention.py``: bf16 on ``wgmma``, fp32 on the CUDA cores), as
+the JAX package runs its Pallas kernel at both.
 """
 
 from __future__ import annotations
@@ -146,7 +148,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--ddim_eta", type=float, default=1.0)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     p.add_argument("--dtype", type=str, default="bfloat16", choices=list(DTYPES),
-                   help="the networks' compute dtype (float32: plain attention)")
+                   help="the networks' compute dtype; the attention kernels run in it "
+                        "(bfloat16 or float32)")
     return p
 
 
@@ -195,7 +198,7 @@ def build_module_and_trainer(cfg, device, dtype: torch.dtype, scale_lr: bool = T
             unet_nres=int(unet.get("num_res_blocks", 2)),
             unet_attention_ds=tuple(unet.get("attention_resolutions", (1, 2, 4, 8))),
             latent_size=img_size // 2 ** (len(vae_mult) - 1),
-            fused=dtype == torch.bfloat16, dtype=None if dtype == torch.float32 else dtype)
+            dtype=None if dtype == torch.float32 else dtype)
     trainer = LDMTrainer(
         img_size=img_size, batch_size=bs,
         base_lr=float(_params(cfg, "model").get("base_learning_rate", 5e-5)),

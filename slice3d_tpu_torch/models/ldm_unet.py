@@ -119,7 +119,7 @@ class AttentionBlock(nn.Module):
 class LDMUNet(nn.Module):
     """``dtype`` is the compute dtype (None: the input's); parameters stay
     fp32 and are cast at use.  ``fused=False`` keeps every attention block on
-    the plain path (a CUDA fp32 run, or a kernel-free reference run)."""
+    the plain path: a kernel-free reference, at any dtype and on any device."""
 
     fsdp_unit = True  # its parameters are read within its forward alone: sharded, one gather
 

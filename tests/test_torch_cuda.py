@@ -6,6 +6,8 @@ imports none, and it runs without tests/conftest.py (which imports JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +27,11 @@ ATTN_TOL = dict(atol=1e-2, rtol=2e-2)
 # against the plain version's fp32 rowsum(dp p), and bf16 rounding of dS (the
 # tolerance of chip_smoke.py, where the readings are written down)
 ATTN_BWD_TOL = dict(atol=0.08, rtol=0.04)
+# the fp32 kernels vs their plain versions with TF32 off: both in true fp32,
+# apart by summation order and the exponential; the plain version with TF32
+# matmuls must fail these (chip_smoke.py phase 19, where the readings are)
+ATTN_F32_TOL = dict(atol=5e-5, rtol=5e-5)
+ATTN_BWD_F32_TOL = dict(atol=2e-4, rtol=1e-4)
 
 
 def layer_params(seed, device):
@@ -109,8 +116,10 @@ def test_spatial_attention_matches_plain(card, shape):
 @pytest.mark.cuda
 def test_spatial_attention_rejects_what_it_does_not_take(card):
     x = torch.zeros((1, 2, 1024, 24), device=card, dtype=torch.bfloat16)
-    with pytest.raises(TypeError):  # fp32 has no instantiation
-        sa.spatial_attention(x.float(), x.float(), x.float(), 0.2)
+    with pytest.raises(TypeError):  # fp16 has no instantiation
+        sa.spatial_attention(x.half(), x.half(), x.half(), 0.2)
+    with pytest.raises(TypeError):  # one dtype a call
+        sa.spatial_attention(x.float(), x, x.float(), 0.2)
     with pytest.raises(ValueError):  # ragged T
         y = torch.zeros((1, 2, 1000, 24), device=card, dtype=torch.bfloat16)
         sa.spatial_attention(y, y, y, 0.2)
@@ -196,9 +205,93 @@ def test_spatial_attention_without_grad_launches_the_forward_alone(card):
     out = sa.spatial_attention(x, x, x, 0.2)  # no input requires grad
     assert out.grad_fn is None and (sa.launches, sa.launches_bwd) == (before[0] + 1,
                                                                       before[1])
-    with pytest.raises(TypeError):  # fp32 has no instantiation, with grad either
-        y = torch.zeros((1, 2, 1024, 24), device=card, requires_grad=True)
+    with pytest.raises(TypeError):  # fp16 has no instantiation, with grad either
+        y = torch.zeros((1, 2, 1024, 24), device=card, dtype=torch.float16,
+                        requires_grad=True)
         sa.spatial_attention(y, y, y, 0.2)
+
+
+@contextlib.contextmanager
+def _tf32_matmuls():
+    """The plain versions' matmuls in TF32 within: the control the fp32
+    tolerances must tell from fp32."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _violations(got, want, tol) -> int:
+    return int(((got - want).abs() > tol["atol"] + tol["rtol"] * want.abs()).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 1024, 24), (1, 2, 4096, 24),
+                                   (2, 3, 1024, 48), (1, 2, 1536, 48)],
+                         ids=["dh24-t1024", "dh24-t4096", "dh48-t1024", "dh48-t1536"])
+def test_spatial_attention_f32_matches_plain(card, shape):
+    """fp32 kernel vs the plain version on the same fp32 inputs (TF32 off):
+    summation order and the exponential apart; the plain version with TF32
+    matmuls fails the same tolerance.  Launches count on the fp32 counter."""
+    rng = np.random.default_rng(sum(shape) + 5)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32) * s).to(card)
+               for s in (2.0, 2.0, 1.0))
+    scale = shape[-1] ** -0.5
+    before = (sa.launches, sa.launches_f32)
+    got = sa.spatial_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert (sa.launches, sa.launches_f32) == (before[0], before[1] + 1)
+    want = sa.spatial_attention_ref(q, k, v, scale)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, **ATTN_F32_TOL)
+    with _tf32_matmuls():
+        assert _violations(sa.spatial_attention_ref(q, k, v, scale), want, ATTN_F32_TOL) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 1024, 24), (1, 2, 4096, 24),
+                                   (2, 3, 1024, 48), (1, 2, 1536, 48)],
+                         ids=["dh24-t1024", "dh24-t4096", "dh48-t1024", "dh48-t1536"])
+def test_spatial_attention_f32_backward_matches_plain(card, shape):
+    """Through autograd in fp32: the fp32 forward kernel saves the rows'
+    log-sum-exp, the fp32 backward kernels give dq, dk, dv of the plain
+    backward within ``ATTN_BWD_F32_TOL``, which the plain backward with TF32
+    matmuls fails; launches count on the fp32 counters alone."""
+    rng = np.random.default_rng(sum(shape) + 6)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32) * s).to(card)
+                   for s in (2.0, 2.0, 1.0, 1.0))
+    scale = shape[-1] ** -0.5
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (sa.launches, sa.launches_bwd, sa.launches_f32, sa.launches_bwd_f32)
+    out = sa.spatial_attention(*qkv, scale)
+    got = torch.autograd.grad(out, qkv, do)
+    torch.cuda.synchronize()
+    assert (sa.launches, sa.launches_bwd, sa.launches_f32, sa.launches_bwd_f32) == (
+        before[0], before[1], before[2] + 1, before[3] + 1)
+    want = sa.spatial_attention_bwd_ref(q, k, v, do, scale)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        torch.testing.assert_close(g, w, **ATTN_BWD_F32_TOL)
+    with _tf32_matmuls():
+        control = sa.spatial_attention_bwd_ref(q, k, v, do, scale)
+    assert sum(_violations(c, w, ATTN_BWD_F32_TOL) for c, w in zip(control, want)) > 0
+
+
+@pytest.mark.cuda
+def test_spatial_attention_f32_backward_repeats(card):
+    """The fp32 backward sums every gradient in a fixed order (no atomics):
+    two runs on the same inputs give bit-equal dq, dk, dv."""
+    shape = (2, 4, 4096, 24)
+    rng = np.random.default_rng(78)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32) * s).to(card)
+                   for s in (2.0, 2.0, 1.0, 1.0))
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = sa.spatial_attention(*qkv, 24 ** -0.5)
+    runs = [torch.autograd.grad(out, qkv, do, retain_graph=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.cuda

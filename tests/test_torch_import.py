@@ -248,13 +248,16 @@ def test_weight_bridge_round_trip_generation(part):
     assert float(ldm.scale_factor) == 0.5
 
 
-@pytest.mark.parametrize("module,entry,library", [
-    ("fused_encoder", "kernel", "s3d_fused_encoder"),
-    ("fused_ffn", "kernel", "s3d_fused_ffn"),
-    ("spatial_attention", "kernel", "s3d_spatial_attention"),
-    ("spatial_attention", "kernel_bwd", "s3d_spatial_attention_bwd")],
-    ids=["fused_encoder", "fused_ffn", "spatial_attention", "spatial_attention_bwd"])
-def test_kernel_entry_point_is_bound_once(module, entry, library, monkeypatch):
+@pytest.mark.parametrize("module,entry,library,args", [
+    ("fused_encoder", "kernel", "s3d_fused_encoder", ()),
+    ("fused_ffn", "kernel", "s3d_fused_ffn", ()),
+    ("spatial_attention", "kernel", "s3d_spatial_attention", ()),
+    ("spatial_attention", "kernel_bwd", "s3d_spatial_attention_bwd", ()),
+    ("spatial_attention", "kernel", "s3d_spatial_attention_f32", (torch.float32,)),
+    ("spatial_attention", "kernel_bwd", "s3d_spatial_attention_bwd_f32", (torch.float32,))],
+    ids=["fused_encoder", "fused_ffn", "spatial_attention", "spatial_attention_bwd",
+         "spatial_attention_f32", "spatial_attention_bwd_f32"])
+def test_kernel_entry_point_is_bound_once(module, entry, library, args, monkeypatch):
     """A kernel wrapper resolves its library on the first launch only: later
     launches never reach ``native`` (no compiler search, no locks)."""
     import importlib
@@ -269,11 +272,14 @@ def test_kernel_entry_point_is_bound_once(module, entry, library, monkeypatch):
         return types.SimpleNamespace(s3d_fused_encoder_layer=lambda *args: 0,
                                      s3d_fused_ffn=lambda *args: 0,
                                      s3d_spatial_attention=lambda *args: 0,
-                                     s3d_spatial_attention_bwd=lambda *args: 0)
+                                     s3d_spatial_attention_bwd=lambda *args: 0,
+                                     s3d_spatial_attention_f32=lambda *args: 0,
+                                     s3d_spatial_attention_bwd_f32=lambda *args: 0)
 
     monkeypatch.setattr(native, "build_library", fake_build)
     monkeypatch.setattr(native, "nvcc_path", lambda: "nvcc")
     monkeypatch.setattr(ops, "_KERNEL", None)
-    monkeypatch.setattr(ops, "_KERNEL_BWD", None, raising=False)
-    first = getattr(ops, entry)()
-    assert getattr(ops, entry)() is first and builds == [library]
+    for name in ("_KERNEL_BWD", "_KERNEL_F32", "_KERNEL_BWD_F32"):
+        monkeypatch.setattr(ops, name, None, raising=False)
+    first = getattr(ops, entry)(*args)
+    assert getattr(ops, entry)(*args) is first and builds == [library]
