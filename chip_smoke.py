@@ -17,7 +17,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the two head kernels also print achieved TFLOP/s, the share of the
      bound, the weight bytes each call fetches from L2 (counted from the
      tiling, not read from the card) and the resident blocks per SM (the
-     occupancy API's answer);
+     occupancy API's answer); then the fp32 head kernels (``--dtype
+     float32``) at the same shapes against their plain versions with TF32
+     off, the plain versions with TF32 matmuls as the control that must fail
+     the tolerance, with kernel, plain and fp32 library ms (fp32
+     ``nn.TransformerEncoderLayer``; ``F.linear`` -> ``relu`` -> ``F.linear``)
+     beside the fp32 FMA bound;
   4. the regression path: ``Reconstructor.reconstruct`` on 3 seeded 128x128
      images (SliceNet, random seeded weights, bf16, res0 64 / up 2 / chunk
      32768), with every kernel's launch count read around that run;
@@ -31,7 +36,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   6. correctness on small inputs: kernel path vs plain path on the card, and
      the card's fp32 plain path vs the CPU's (which the CPU tests hold
      against the JAX reference), for SliceNet (fused and split routes), the
-     sampler's atlas and GTSlice;
+     sampler's atlas and GTSlice; and fp32 SliceNet on the fused and split
+     routes (the fp32 head kernels) on the card vs the CPU, TF32 off;
   7. spatial_attention's backward kernel against its plain version at the
      training path's shapes (through autograd), with its time beside the
      bound, the plain version's and scaled_dot_product_attention's backward
@@ -55,7 +61,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
  10. the split-encoder route: the same weights with ``route="split"`` on 2 of
      the images, 0 encoder launches and 3 fused_ffn launches per head call;
  11. the regression route's options through the port's CLIs at the serving
-     point, on a 3-object dataset this phase writes into ``_smoke/`` (and
+     point, on a 2-object dataset this phase writes into ``_smoke/`` (and
      removes) with an analytic sphere as ground truth: ``reconstruct
      --est_campose`` on SliceNet (CameraNet, seeded weights; the fused
      route, launches counted), simplification to 10,000 faces at res0 32 /
@@ -65,7 +71,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      ``--est_campose`` at batch 1 and at ``mc_batch_size`` 2 (answers within
      1e-2), one object by marching tetrahedra, the DISN service over HTTP,
      and ``python -m slice3d_tpu_torch.eval`` with ICP at 100,000 points on
-     the card, then card against CPU at 5,000 points with and without ICP;
+     the card, then card against CPU at 5,000 points with and without ICP
+     on the simplified meshes;
  12. the generation route's on-disk CLIs: spatial_attention against its plain
      version at the guided batch, (16, 8, 4096, 24) and (16, 8, 1024, 48);
      then on a dataset of 8 objects x 12 views written into ``_smoke/`` (and
@@ -176,7 +183,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the batch of 8, s per batch); one tiny fp32 ``LDMTrainer`` step (heads
      of 24, T 1024 at ds 1) on the card (the fp32 kernels) and on the CPU
      (the plain attention): logs and gradients at the regression trainers'
-     tolerance, which TF32 on must fail.
+     tolerance, which TF32 on must fail;
+ 20. the fp32 head (``--dtype float32``, the JAX package's fp32 inference)
+     through the entry points a user calls, each with exact launch counts
+     (three fp32 launches a head call, of the encoder layer on the fused
+     route or of the FFN on the split route; no bf16 launch; no plain head
+     call on the card): ``Reconstructor.reconstruct`` on phase 4's 3 feeds
+     and weights at fp32, then on the plain route (s per object beside
+     phase 4's bf16); on a 3-object dataset in ``_smoke/`` (removed after)
+     ``python -m slice3d_tpu_torch.reconstruct --dtype float32`` (SliceNet,
+     3 objects) and ``--name_model gtslice --from_which_slices gt`` (one
+     object), and ``reconstruct_slices --dtype float32`` (SliceNet's slice
+     decoder: no head, no launch); 2 requests to the service built at
+     ``--dtype float32``; the split route at fp32 on one object.
 The last three lines are the paths' JSON record, the kernels' JSON record
 and the run's status JSON.
 """
@@ -186,6 +205,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
+import functools
 import gc
 import glob
 import http.client
@@ -257,14 +277,17 @@ ATLAS_FP32_TOL = dict(atol=1e-3, rtol=1e-3)
 # DPM-4 read 0.056 and 0.060, within ATLAS_TOL)
 GUIDED_ATLAS_TOL = dict(atol=1.0, rtol=0.05)
 GEN_BATCH, GEN_STEPS = 8, 200
-# the regression route's options (phase 11): 3 objects at the serving point,
+# the regression route's options (phase 11): 2 objects at the serving point
+# (3 until the script neared its time limit: phase 11's CLIs, the eval's
+# card-vs-CPU checks most, scale with the objects, and the checks now read
+# the 10,000-face simplified meshes),
 # the polish after simplification, the eval CLI at 100,000 points on the card
 # and, against the CPU's plain computation (the JAX package's arithmetic),
 # at 5,000: Chamfer-L1/L2 to relative 1e-5 and threshold counts within one
 # point without ICP; with ICP, whose correspondences can break a near tie
 # the other way between the two, Chamfer and Hausdorff to relative 1e-3 and
 # counts and IoU within 1e-3
-OPT_OBJECTS = 3
+OPT_OBJECTS = 2
 # simplification at res0 32 / up 1: at the serving point these random-weight
 # meshes have ~970,000 faces, on which the JAX package's quadric simplifier
 # (copied bit for bit) did not end in 13 minutes
@@ -288,8 +311,10 @@ OPT_POLISH_POINT = (32, 1)
 # JAX package's); the tolerance as in tests/test_torch_cuda.py's polish case
 # for the vertices, and the losses to relative 2e-3 (readings on the H100
 # with cuDNN's TF32 convolutions in the encoder: vertices 6.4e-4, losses
-# 1.7e-3 relative; with them off, as the witness runs: 5.9e-4 and 4.3e-4)
-WITNESS_FACES, WITNESS_STEPS, WITNESS_ATOL, WITNESS_LOSS_RTOL = 4000, 10, 1e-3, 2e-3
+# 1.7e-3 relative; with them off, as the witness runs: 5.9e-4 and 4.3e-4, at
+# 4,000 faces; 2,000 since the script neared its time limit, the CPU's
+# polish of 4,000 faces taking 32-43 s)
+WITNESS_FACES, WITNESS_STEPS, WITNESS_ATOL, WITNESS_LOSS_RTOL = 2000, 10, 1e-3, 2e-3
 EVAL_PTS, EVAL_CHECK_PTS = 100000, 5000
 EVAL_RTOL, EVAL_ICP_RTOL, EVAL_ICP_ATOL = 1e-5, 1e-3, 1e-3
 SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke")
@@ -404,6 +429,27 @@ F32_SAMPLE = ["--sampler", "ddim", "--ddim_steps", "20"]
 # the tiny fp32 step card vs CPU at heads of 24 (UNet 192 ch over 8 heads), so
 # that its ds 1 blocks (T = 1024) take the fp32 kernels on the card
 TRAIN_TINY_F32 = dict(TRAIN_TINY, unet_channels=192, cond_widths=(192, 384))
+# the SDF head's kernels, both dtypes (counters of read_counts)
+HEAD_KERNELS = ("fused_encoder_layer", "fused_ffn", "fused_encoder_layer_f32", "fused_ffn_f32")
+HEAD_F32_SRC = {"fused_encoder_layer_f32": ("slice3d_tpu_torch/csrc/fused_encoder_f32.cu",
+                                            "slice3d_tpu/ops/pallas_encoder.py:463"),
+                "fused_ffn_f32": ("slice3d_tpu_torch/csrc/fused_ffn_f32.cu",
+                                  "slice3d_tpu/ops/pallas_ffn.py:49")}
+# phase 3: the fp32 head kernels against their plain versions at the bf16
+# kernels' shapes, element-wise: both compute in true fp32 and differ by
+# summation order (and the exponential in the layer); the plain versions
+# with TF32 matmuls must fail the tolerance (the control).  Readings on an
+# NVIDIA H100 80GB HBM3 at 700 W (this phase): the layer 1.2e-6 / 1.7e-6
+# (head_tokens 0 / 1) at outputs up to 5.4, the FFN 0 / 1.8e-6 at N =
+# 439,400 / 33,800; with TF32 matmuls 5.8e-4 to 7.0e-4 (millions of
+# violations): the tolerance sits ~6x above the first, ~60x below the second
+HEAD_F32_TOL = dict(atol=1e-5, rtol=1e-5)
+# phase 20: the fp32 head through the entry points a user calls: the API on
+# phase 4's feeds (fp32 fused, then fp32 plain: s per object beside phase 4's
+# bf16), the reconstruct CLI on F32_OBJECTS objects (SliceNet) and on one
+# GTSlice object from its GT slices, reconstruct_slices, F32_REQUESTS
+# requests to the service, and the split route on one object
+F32_OBJECTS, F32_REQUESTS = 3, 2
 
 
 
@@ -448,8 +494,8 @@ def reset_counts() -> None:
     from slice3d_tpu_torch.ops import fused_ffn as ff
     from slice3d_tpu_torch.ops import spatial_attention as sa
 
-    fe.launches = 0
-    ff.launches = 0
+    fe.launches = fe.launches_f32 = 0
+    ff.launches = ff.launches_f32 = 0
     sa.launches = sa.launches_bwd = sa.launches_f32 = sa.launches_bwd_f32 = 0
 
 
@@ -461,7 +507,8 @@ def read_counts() -> dict:
     return {"fused_encoder_layer": fe.launches, "fused_ffn": ff.launches,
             "spatial_attention": sa.launches, "spatial_attention_bwd": sa.launches_bwd,
             "spatial_attention_f32": sa.launches_f32,
-            "spatial_attention_bwd_f32": sa.launches_bwd_f32}
+            "spatial_attention_bwd_f32": sa.launches_bwd_f32,
+            "fused_encoder_layer_f32": fe.launches_f32, "fused_ffn_f32": ff.launches_f32}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -491,16 +538,17 @@ def host_ms(fn, iters: int) -> float:
 
 
 def encoder_work(n: int, t: int, head_tokens: int, d: int = 128, f: int = 2048,
-                 heads: int = 4):
+                 heads: int = 4, elt: int = 2):
     """(flops, bytes) one layer needs: q for the kept tokens, k/v for all,
     attention, out-proj and FFN on the kept tokens; x read and the output
-    written once, weights and vectors read once."""
+    written once, weights and vectors read once; activations and weights
+    of ``elt`` bytes (2: bf16, 4: fp32), vectors fp32."""
     t_out = head_tokens or t
     dh = d // heads
     flops = 2 * n * (d * (t_out * d + t * 2 * d) + heads * t_out * t * dh * 2
                      + t_out * d * d + 2 * t_out * d * f)
-    weights = 2 * (4 * d * d + 2 * d * f) + 4 * (3 * d + 6 * d + f)
-    return flops, n * (t + t_out) * d * 2 + weights
+    weights = elt * (4 * d * d + 2 * d * f) + 4 * (3 * d + 6 * d + f)
+    return flops, n * (t + t_out) * d * elt + weights
 
 
 BUILD_S: dict = {}  # seconds each library of phase_build took to build
@@ -526,6 +574,8 @@ def phase_build():
               "spatial_attention": sa.kernel, "spatial_attention_bwd": sa.kernel_bwd,
               "spatial_attention_f32": lambda: sa.kernel(torch.float32),
               "spatial_attention_bwd_f32": lambda: sa.kernel_bwd(torch.float32),
+              "fused_encoder_f32": lambda: fe.kernel(torch.float32),
+              "fused_ffn_f32": lambda: ff.kernel(torch.float32),
               "host mesh library": load_library, "zstd decoder": zstd.load_library}
     with ThreadPoolExecutor(len(builds)) as pool:
         futs = {name: pool.submit(timed, fn) for name, fn in builds.items()}
@@ -606,11 +656,11 @@ def phase_kernels(model):
     return modes
 
 
-def ffn_work(n: int, d: int = 128, f: int = 2048):
-    """(flops, bytes) of one FFN call: both products on the tensor cores, x
-    read and the output written once (bf16), the weights (bf16) and biases
-    (fp32) read once."""
-    return 4 * n * d * f, 2 * n * d * 2 + 2 * d * f * 2 + (f + d) * 4
+def ffn_work(n: int, d: int = 128, f: int = 2048, elt: int = 2):
+    """(flops, bytes) of one FFN call: x read and the output written once
+    and the weights read once, of ``elt`` bytes (2: bf16, 4: fp32), the
+    biases (fp32) read once."""
+    return 4 * n * d * f, 2 * n * d * elt + 2 * d * f * elt + (f + d) * 4
 
 
 def phase_ffn(model):
@@ -658,6 +708,96 @@ def phase_ffn(model):
         print(f"[kernel] fused_ffn N={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"(F.linear -> relu -> F.linear, bf16) {library_ms:.4f} ms, bound "
               f"{bound:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    return modes
+
+
+def fp32_fma_ms(flops: float, sm_clock_hz: float) -> float:
+    """The least time of ``flops`` as fp32 FMAs on the CUDA cores: 132 SMs x
+    128 lanes x 2 flops a clock (66.9 TFLOP/s at 1980 MHz)."""
+    return flops / (132 * 128 * 2 * sm_clock_hz) * 1e3
+
+
+def phase_head_f32(sm_clock_hz: float):
+    """The fp32 head kernels against their plain versions (TF32 off) at the
+    bf16 kernels' shapes, on an fp32 SliceNet's seeded layers: the layer at
+    N = 33,800 points of 13 tokens with head_tokens 0 and 1, the FFN at the
+    split route's row counts; the plain versions with TF32 matmuls as the
+    control that must fail ``HEAD_F32_TOL``; ms of the kernel, the plain
+    version and the library (fp32 ``nn.TransformerEncoderLayer`` for the
+    full layer, ``F.linear`` -> ``relu`` -> ``F.linear`` for the FFN, TF32
+    off) beside the fp32 FMA bound."""
+    from slice3d_tpu_torch.models.slicenet import init_slicenet
+    from slice3d_tpu_torch.ops import fused_encoder as fe
+    from slice3d_tpu_torch.ops import fused_ffn as ff
+
+    layers = init_slicenet(seed=0).to("cuda").att_decoder.layers
+    g = torch.Generator(device="cuda").manual_seed(20)
+    attn_blocks, post_blocks = ctypes.c_int(), ctypes.c_int()
+    modes = {"fused_encoder_layer_f32": [], "fused_ffn_f32": []}
+    cases = [("fused_encoder_layer_f32", ht, layers[2 * ht]) for ht in (0, 1)]
+    cases += [("fused_ffn_f32", n, layer) for n, layer in zip(FFN_ROWS, (layers[0], layers[2]))]
+    lib_layer = torch.nn.TransformerEncoderLayer(128, 4, 2048, batch_first=True).eval().to("cuda")
+    for name, arg, layer in cases:
+        params = dict(layer.named_parameters())
+        ffn_args = (params["linear1.weight"], params["linear1.bias"],
+                    params["linear2.weight"], params["linear2.bias"])
+        if name == "fused_encoder_layer_f32":
+            x = torch.randn((1, N_POINTS, 13, 128), generator=g, device="cuda")
+            what = f"{name} head_tokens={arg} N={N_POINTS}"
+            run = functools.partial(fe.fused_encoder_layer, x, params, head_tokens=arg)
+            plain = functools.partial(fe.fused_encoder_layer_ref, x, params, head_tokens=arg)
+            library = (functools.partial(lib_layer, x.reshape(N_POINTS, 13, 128))
+                       if arg == 0 else None)
+            flops, nbytes = encoder_work(N_POINTS, 13, arg, elt=4)
+            check(fe.library(torch.float32).s3d_fused_encoder_f32_blocks_per_sm(
+                arg, ctypes.byref(attn_blocks), ctypes.byref(post_blocks)) == 0,
+                "occupancy query failed")
+            tiling = (f"L2 weight bytes per call (counted from the tiling) "
+                      f"{fe.weight_bytes_per_call(N_POINTS, 13, arg, dtype=torch.float32) / 1e9:.4f}"
+                      f" GB, resident blocks per SM {attn_blocks.value} (attention), "
+                      f"{post_blocks.value} (the rest)")
+        else:
+            x = torch.randn((arg, 128), generator=g, device="cuda")
+            what = f"{name} N={arg}"
+            run = functools.partial(ff.fused_ffn, x, *ffn_args)
+            plain = functools.partial(ff.fused_ffn_ref, x, *ffn_args)
+            library = functools.partial(
+                lambda x, w1, b1, w2, b2: torch.nn.functional.linear(
+                    torch.relu(torch.nn.functional.linear(x, w1, b1)), w2, b2), x, *ffn_args)
+            flops, nbytes = ffn_work(arg, elt=4)
+            tiling = (f"L2 weight bytes per call (counted from the tiling) "
+                      f"{ff.weight_bytes_per_call(arg, dtype=torch.float32) / 1e9:.4f} GB, "
+                      f"resident blocks per SM "
+                      f"{resident_blocks(ff.library(torch.float32).s3d_fused_ffn_f32_blocks_per_sm)}")
+        with tf32(False), torch.no_grad():
+            got = run()
+            torch.cuda.synchronize()
+            want = plain()
+            with tf32(True):
+                control = plain()
+            r = _f32_readings([got], [want], HEAD_F32_TOL, what, [control])
+            del got, want, control
+            ms = cuda_ms(run, 10)
+            plain_ms = cuda_ms(plain, 3)
+            library_ms = cuda_ms(library, 5) if library is not None else None
+        t_ops, t_bytes = fp32_fma_ms(flops, sm_clock_hz), nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        m = {"head_tokens" if name == "fused_encoder_layer_f32" else "n_rows": arg, **r,
+             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "gflop": flops / 1e9,
+             "mbytes": nbytes / 1e6, **kernel_rates(ms, flops, bound)}
+        modes[name].append(m)
+        lib_s = f"{library_ms:.4f} ms" if library_ms is not None else "none (no single call)"
+        print(f"[kernel] {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (fp32, "
+              f"TF32 off) {lib_s}, bound {bound:.4f} ms by {m['bound_by']} (fp32 FMA; "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; {m['tflops']:.2f} TFLOP/s, bound "
+              f"/ kernel {m['bound_share']:.4f}); {tiling}; max_abs_err {r['max_abs_err']:.6g}, "
+              f"the plain version with TF32 matmuls {r['tf32_max_abs_err']:.6g} "
+              f"({r['tf32_violations']} violations)")
+        check(r["tf32_violations"] > 0, f"{what}: the plain version with TF32 matmuls passes "
+              f"|k-p| <= {HEAD_F32_TOL['atol']} + {HEAD_F32_TOL['rtol']}*|p|, so the tolerance "
+              "cannot tell fp32 from TF32")
+    del lib_layer, layers
     return modes
 
 
@@ -847,7 +987,7 @@ def phase_main_path(model):
         mesh, stats = rec.reconstruct(feed)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        results.append((mesh, stats))
+        results.append((mesh, dict(stats, latency_s=dt)))
         print(f"[main] request {i}: latency {dt:.4f} s, n_points_evaluated "
               f"{stats['n_points_evaluated']}, final_resolution "
               f"{stats['final_resolution']}, vertices {len(mesh.vertices)}, faces "
@@ -862,12 +1002,15 @@ def phase_main_path(model):
         check(stats["final_resolution"] == 256, "wrong final resolution")
         check(not mesh.is_empty and bool(np.isfinite(mesh.vertices).all()),
               "empty mesh or non-finite vertices")
-    return counts, rec, feeds
+    return counts, rec, feeds, [st for _, st in results]
 
 
 def phase_correctness(model, rec, feed):
-    """Checks of the path around the kernel, on the card."""
+    """Checks of the path around the kernel, on the card: bf16 kernel path
+    vs plain path, the fp32 plain path and the fp32 kernel path (the fp32
+    encoder kernel) vs the CPU."""
     from slice3d_tpu_torch.models.slicenet import init_slicenet
+    from slice3d_tpu_torch.ops import fused_encoder as fe
     from slice3d_tpu_torch.pipeline import Reconstructor
 
     grid, _ = rec.build_grid(feed)
@@ -889,16 +1032,30 @@ def phase_correctness(model, rec, feed):
         check(err_k <= 5e-2, f"{route}: kernel path disagrees with the plain path")
 
         # 2. fp32 plain path: card vs CPU (the CPU tests hold it against JAX)
-        torch.backends.cudnn.allow_tf32 = False
         m32 = init_slicenet(0, route="plain")
         cpu, _ = Reconstructor(m32, device="cpu", lattice_dense=lattice,
                                **small).build_grid(feed)
-        gpu, _ = Reconstructor(m32, lattice_dense=lattice, **small).build_grid(feed)
-        torch.backends.cudnn.allow_tf32 = True
+        with tf32(False):
+            gpu, _ = Reconstructor(m32, lattice_dense=lattice, **small).build_grid(feed)
         err_f = float(np.abs(cpu - gpu).max())
         print(f"[check] {route}: 17^3 logits, fp32 card vs CPU: max_abs_err "
               f"{err_f:.6g} (tolerance 1e-3: fp32 summation order)")
         check(err_f <= 1e-3, f"{route}: card and CPU fp32 paths disagree")
+
+        # 3. fp32 kernel path (the fp32 encoder kernel, --dtype float32's
+        #    route) on the card vs the CPU, TF32 off
+        set_route(m32, "fused")
+        before = (fe.launches, fe.launches_f32)
+        with tf32(False):
+            gpu, _ = Reconstructor(m32, lattice_dense=lattice, **small).build_grid(feed)
+        check(fe.launches == before[0] and fe.launches_f32 > before[1],
+              f"{route}: the fp32 fused route launched {fe.launches - before[0]} bf16 and "
+              f"{fe.launches_f32 - before[1]} fp32 encoder kernels")
+        err_k = float(np.abs(cpu - gpu).max())
+        print(f"[check] {route}: 17^3 logits, fp32 kernel path (fused_encoder_layer_f32, "
+              f"{fe.launches_f32 - before[1]} launches) on the card vs CPU, TF32 off: "
+              f"max_abs_err {err_k:.6g} (tolerance 1e-3: fp32 summation order)")
+        check(err_k <= 1e-3, f"{route}: the fp32 kernel path disagrees with the CPU")
 
 
 def set_route(model, route: str) -> None:
@@ -910,8 +1067,7 @@ def set_route(model, route: str) -> None:
 def phase_split_checks(model, feed):
     """The split route on small inputs: kernel path (fused_ffn) vs its
     plain path (fused_ffn_ref in the same layers) in bf16, and the fp32
-    split route on the card (the FFN's plain version: the kernel takes bf16
-    only) vs the CPU."""
+    split route on the card (the fp32 FFN kernel, TF32 off) vs the CPU."""
     from slice3d_tpu_torch.models import layers
     from slice3d_tpu_torch.models.slicenet import init_slicenet
     from slice3d_tpu_torch.ops import fused_ffn as ff
@@ -929,24 +1085,22 @@ def phase_split_checks(model, feed):
             layers.fused_ffn = ff.fused_ffn_ref
             try:
                 plain, _ = Reconstructor(model, lattice_dense=lattice, **small).build_grid(feed)
-                torch.backends.cudnn.allow_tf32 = False
-                # the Reconstructor refuses an fp32 kernel route on the card:
-                # build it on the plain route, then split with the FFN plain
-                set_route(m32, "plain")
-                rec32 = Reconstructor(m32, lattice_dense=lattice, **small)
-                set_route(m32, "split")
-                gpu, _ = rec32.build_grid(feed)
             finally:
                 layers.fused_ffn = ff.fused_ffn
-                torch.backends.cudnn.allow_tf32 = True
+            before = (ff.launches, ff.launches_f32)
+            with tf32(False):
+                gpu, _ = Reconstructor(m32, lattice_dense=lattice, **small).build_grid(feed)
+            check(ff.launches == before[0] and ff.launches_f32 > before[1],
+                  "the fp32 split route launched no fp32 fused_ffn kernel, or a bf16 one")
             cpu, _ = Reconstructor(m32, device="cpu", lattice_dense=lattice,
                                    **small).build_grid(feed)
             err_k = float(np.abs(kern - plain).max())
             err_f = float(np.abs(cpu - gpu).max())
             print(f"[check] split route, {route}: 17^3 logits, kernel path vs plain path "
                   f"(bf16): max_abs_err {err_k:.6g} (tolerance 5e-2: bf16 rounding flips "
-                  f"through 3 layers and fc_out); fp32 card vs CPU: max_abs_err {err_f:.6g} "
-                  f"(tolerance 1e-3: fp32 summation order)")
+                  f"through 3 layers and fc_out); fp32 kernel path (fused_ffn_f32, "
+                  f"{ff.launches_f32 - before[1]} launches, TF32 off) on the card vs CPU: "
+                  f"max_abs_err {err_f:.6g} (tolerance 1e-3: fp32 summation order)")
             check(err_k <= 5e-2, f"split {route}: kernel path disagrees with the plain path")
             check(err_f <= 1e-3, f"split {route}: card and CPU fp32 paths disagree")
     finally:
@@ -1830,9 +1984,12 @@ def phase_regression_options():
     check(all(np.isfinite(v) for v in summary.values()), "eval: non-finite metrics")
     print(f"[opts] eval on the card: {eval_s:.4f} s for {OPT_OBJECTS} objects "
           f"({eval_s / OPT_OBJECTS:.4f} s an object) at --n_pts {EVAL_PTS} with ICP: {summary}")
+    # the card against the CPU on the simplified meshes (10,000 faces: the
+    # eval CLI's time goes to reading the OBJ text, ~9 s a ~967,000-face mesh)
     compared = {}
     for icp_on in (False, True):
-        args = ev[:-1] + (["--icp_align"] if icp_on else []) + ["--n_pts", str(EVAL_CHECK_PTS)]
+        args = (["--name_exp", "simplify"] + ev[2:-1] + (["--icp_align"] if icp_on else [])
+                + ["--n_pts", str(EVAL_CHECK_PTS)])
         card, _, card_s = run_cli("opts eval check", eval_cli.main, args)
         cpu, _, cpu_s = run_cli("opts eval check", eval_cli.main, args + ["--device", "cpu"])
         rtol = EVAL_ICP_RTOL if icp_on else EVAL_RTOL
@@ -2164,7 +2321,7 @@ def _timed_steps(tag: str, step, state, batches, power: str, lr_of=None):
     check(all(np.isfinite(v) for s in losses for v in s.values()), f"{tag}: a loss is not finite")
     check(moved == len(live) > 0, f"{tag}: a parameter with a nonzero gradient did not move")
     check(bn_moved == len(stats0) > 0, f"{tag}: a BatchNorm's running statistics did not move")
-    check(counts["fused_encoder_layer"] == 0 and counts["fused_ffn"] == 0,
+    check(all(counts[k] == 0 for k in HEAD_KERNELS),
           f"{tag}: training launched a head kernel: {counts}")
     return {"ms_per_step": ms, "step_ms": times, "peak_gb": peak_gb, "steps": len(times),
             "batch": REG_BATCH, "losses": losses, "counts": counts}
@@ -2960,7 +3117,8 @@ def phase_parallel_training(power: str):
     check(c["spatial_attention"] == 10 * n and c["spatial_attention_bwd"] == 10 * n,
           f"LDM training in the group launched {c}, expected 10 and 10 a step")
     total = {k: counts["regression"][k] + c[k] for k in c}
-    check(counts["regression"]["fused_encoder_layer"] == 0, "regression training ran the head")
+    check(all(counts["regression"][k] == 0 for k in HEAD_KERNELS),
+          "regression training ran the head")
     return out, total
 
 
@@ -3313,7 +3471,8 @@ def phase_fsdp(power: str):
     check(c["spatial_attention"] == 10 * (1 + FSDP_STEPS)
           and c["spatial_attention_bwd"] == 10 * (1 + FSDP_STEPS),
           f"sharded LDM training launched {c}, expected 10 and 10 a step")
-    check(counts["regression"]["fused_encoder_layer"] == 0, "regression training ran the head")
+    check(all(counts["regression"][k] == 0 for k in HEAD_KERNELS),
+          "regression training ran the head")
     del ldm_batches
 
     slicenet = RegressionTrainer(opts, vgg19=vgg, device="cpu").init_state().model
@@ -4011,6 +4170,238 @@ def phase_fp32_attention(sm_clock_hz: float, power: str, bf16_step=None):
             "card_vs_cpu": tiny, "phase_s": phase_s}, counts_all
 
 
+@contextlib.contextmanager
+def head_watch():
+    """Within: ``heads`` gets the encoder layers of every head call (a
+    forward hook on every ``TransformerEncoder``, the SDF head's only), and
+    ``plain`` every call of a head's plain version on a CUDA tensor (the
+    plain route, and the wrappers' plain twins)."""
+    from slice3d_tpu_torch.models import layers
+    from slice3d_tpu_torch.models.layers import TransformerEncoder
+    from slice3d_tpu_torch.ops import fused_encoder as fe
+    from slice3d_tpu_torch.ops import fused_ffn as ff
+
+    seen = {"heads": [], "plain": []}
+
+    def spy(fn):
+        def plain(x, *args, **kwargs):
+            if x.device.type == "cuda":
+                seen["plain"].append(fn.__name__)
+            return fn(x, *args, **kwargs)
+        return plain
+
+    saved = (layers._ROUTE_FNS["plain"], fe.fused_encoder_layer_ref, ff.fused_ffn_ref)
+    layers._ROUTE_FNS["plain"] = spy(saved[0])
+    fe.fused_encoder_layer_ref, ff.fused_ffn_ref = spy(saved[1]), spy(saved[2])
+    hook = torch.nn.modules.module.register_module_forward_hook(
+        lambda mod, args, out: seen["heads"].append(len(mod.layers))
+        if isinstance(mod, TransformerEncoder) else None)
+    try:
+        yield seen
+    finally:
+        hook.remove()
+        layers._ROUTE_FNS["plain"], fe.fused_encoder_layer_ref, ff.fused_ffn_ref = saved
+
+
+def phase_fp32_head(power: str, bf16_main=None):
+    """Phase 20: the fp32 head (``--dtype float32``) through the entry points
+    a user calls, each run with exact launch counts (three fp32 launches a
+    head call, of the layer on the fused route or of the FFN on the split
+    route; no bf16 launch; no plain head call on the card): the API on phase
+    4's feeds and weights at fp32 (fused), again on the plain route (s per
+    object beside each other and beside phase 4's bf16 ``bf16_main``); the
+    reconstruct CLI on F32_OBJECTS SliceNet objects and one GTSlice object
+    from its GT slices, and reconstruct_slices (SliceNet's slice decoder: no
+    head), on a dataset in ``_smoke/`` (removed after); F32_REQUESTS
+    requests to the service; the split route on one object."""
+    from http.server import ThreadingHTTPServer
+
+    from slice3d_tpu_torch import reconstruct, reconstruct_slices, serve
+    from slice3d_tpu_torch.config import Options
+    from slice3d_tpu_torch.data.dataset import Slice3DDataset
+    from slice3d_tpu_torch.models.gtslice import init_gtslice
+    from slice3d_tpu_torch.models.slicenet import init_slicenet
+    from slice3d_tpu_torch.pipeline import Reconstructor
+
+    t_phase = time.perf_counter()
+    out, total = {}, {}
+
+    def start(seen) -> None:
+        """Set the launch counts and the head watch's lists to nothing."""
+        reset_counts()
+        seen["heads"].clear()
+        seen["plain"].clear()
+
+    def counted(tag: str, route: str, seen) -> dict:
+        """Read and check the launches and head calls since ``start``."""
+        counts = read_counts()
+        n, calls = sum(seen["heads"]), len(seen["heads"])
+        want = {"fused_encoder_layer_f32": n if route == "fused" else 0,
+                "fused_ffn_f32": n if route == "split" else 0,
+                "fused_encoder_layer": 0, "fused_ffn": 0}
+        plain = len(seen["plain"])
+        print(f"[fp32head] {tag}: launches {counts}; {calls} head calls of {n} encoder "
+              f"layers; plain head calls on the card {plain}")
+        check(all(counts[k] == v for k, v in want.items())
+              and plain == (n if route == "plain" else 0)
+              and all(h == 3 for h in seen["heads"]) and (n > 0) == (route != "none"),
+              f"{tag}: launches {counts} and {plain} plain head calls over {n} encoder layers "
+              f"in {calls} head calls; expected {want} on the {route} route")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return {"launches": counts, "head_calls": calls}
+
+    with head_watch() as seen:
+        # 1. the API on phase 4's feeds and weights, fp32: the kernels, then
+        #    the plain route
+        feeds = make_feeds(3)
+        model = init_slicenet(seed=0).to("cuda")
+        thr = probe_threshold(model, feeds[0])
+        rec = Reconstructor(model, resolution0=SERVE_POINT["mc_res0"],
+                            upsampling_steps=SERVE_POINT["mc_up_steps"],
+                            chunk_size=SERVE_POINT["mc_chunk_size"], threshold=thr)
+        for route in ("fused", "plain"):
+            set_route(model, route)
+            start(seen)
+            runs = []
+            for feed in feeds:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mesh, stats = rec.reconstruct(feed)
+                torch.cuda.synchronize()
+                runs.append({"latency_s": time.perf_counter() - t0,
+                             "n_points_evaluated": stats["n_points_evaluated"],
+                             "vertices": len(mesh.vertices)})
+                check(not mesh.is_empty and bool(np.isfinite(mesh.vertices).all()),
+                      f"fp32 {route}: empty mesh or non-finite vertices")
+            out[f"api_{route}"] = dict(counted(f"API, fp32 {route} route", route, seen),
+                                       objects=runs)
+        set_route(model, "fused")
+        lat = {r: [o["latency_s"] for o in out[f"api_{r}"]["objects"]] for r in ("fused", "plain")}
+        lat["bf16"] = [st["latency_s"] for st in bf16_main or ()]
+        worst = max(abs(a["n_points_evaluated"] - b["n_points_evaluated"])
+                    / b["n_points_evaluated"]
+                    for a, b in zip(out["api_fused"]["objects"], out["api_plain"]["objects"]))
+        print(f"[fp32head] s per object on phase 4's 3 feeds (threshold {thr:.6f}): fp32 fused "
+              f"{lat['fused']}, fp32 plain {lat['plain']}, phase 4's bf16 {lat['bf16']}; "
+              f"n_points_evaluated fused vs plain within {worst:.6g} (relative; tolerance "
+              f"{SERVE_RTOL}); {power}")
+        check(worst <= SERVE_RTOL, "fp32 fused and plain routes refine different points")
+        out["s_per_object"] = lat
+        del rec, model
+
+        # 2. the CLIs on a dataset of F32_OBJECTS objects with GT slices
+        shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+        try:
+            write_options_dataset(SMOKE_DIR, serving_pngs(F32_OBJECTS, seed=23), slices=True)
+            data = os.path.join(SMOKE_DIR, "data")
+            exp = os.path.join(SMOKE_DIR, "exp")
+            ds = Slice3DDataset(os.path.join(data, "opts"), split="test",
+                                img_size=SERVE_POINT["img_size"], from_which_slices="gt",
+                                load_sdf=False)
+            thr_s = probe_threshold(init_slicenet(0).to("cuda"), ds[0])
+            thr_g = probe_threshold(init_gtslice(0).to("cuda"), ds[0])
+            point = [f"--{k}={v}" for k, v in SERVE_POINT.items()]
+            point += ["--dtype", "float32", "--random_init", "--dir_data", data,
+                      "--name_dataset", "opts", "--dir_experiments", exp]
+            start(seen)
+            _, objs, cli_s = run_cli("fp32head reconstruct", reconstruct.main, point + [
+                "--name_model", "slicenet", "--mode", "test", "--name_exp", "f32",
+                "--mc_threshold", repr(thr_s)])
+            check_objects("reconstruct --dtype float32", objs, F32_OBJECTS)
+            out["reconstruct"] = dict(counted("reconstruct --dtype float32", "fused", seen),
+                                      objects=objs, s=cli_s)
+            start(seen)
+            _, gobjs, g_s = run_cli("fp32head gtslice", reconstruct.main, point + [
+                "--name_model", "gtslice", "--from_which_slices", "gt", "--mode", "val",
+                "--name_exp", "f32gt", "--mc_threshold", repr(thr_g)])
+            check_objects("reconstruct --name_model gtslice --dtype float32", gobjs, 1)
+            out["gtslice"] = dict(counted("reconstruct --name_model gtslice --from_which_slices "
+                                          "gt --dtype float32", "fused", seen),
+                                  objects=gobjs, s=g_s)
+            start(seen)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(_Tee("fp32head slices", sys.stdout)):
+                dumped = reconstruct_slices.main(
+                    ["--name_dataset", "opts", "--dir_data", data, "--random_init",
+                     "--img_size", str(SERVE_POINT["img_size"]), "--dtype", "float32",
+                     "--dir_experiments", exp, "--name_exp", "f32slices"])
+            torch.cuda.synchronize()
+            pngs = glob.glob(os.path.join(dumped, "*", "*.png"))
+            check(len(pngs) == 12 * F32_OBJECTS, f"reconstruct_slices wrote {len(pngs)} PNGs")
+            out["reconstruct_slices"] = dict(
+                counted("reconstruct_slices --dtype float32 (no head)", "none", seen),
+                pngs=len(pngs), s=time.perf_counter() - t0)
+        finally:
+            shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+
+        # 3. the service at --dtype float32, F32_REQUESTS requests one at a time
+        opts = Options(name_model="slicenet", dtype="float32", random_init=True,
+                       mc_threshold=thr_s, **SERVE_POINT)
+        service = serve.build_service(opts)
+        service.warmup()
+        server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(service))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        served = []
+        start(seen)
+        try:
+            for i, body in enumerate(serving_pngs(F32_REQUESTS, seed=24)):
+                conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
+                                                  timeout=300)
+                t0 = time.perf_counter()
+                conn.request("POST", "/reconstruct", body=body)
+                resp = conn.getresponse()
+                payload = resp.read()
+                dt = time.perf_counter() - t0
+                conn.close()
+                check(resp.status == 200, f"fp32 request {i}: HTTP {resp.status}: "
+                      f"{payload[:200]!r}")
+                stats = json.loads(resp.getheader("X-Slice3D-Stats"))
+                served.append({"latency_s": dt, "n_points_evaluated": stats["n_points_evaluated"],
+                               "vertices": payload.count(b"\nv ") + payload.startswith(b"v ")})
+                print(f"[fp32head] serve --dtype float32 request {i}: latency {dt:.4f} s, "
+                      f"n_points_evaluated {stats['n_points_evaluated']}, vertices "
+                      f"{served[-1]['vertices']}")
+                check(stats["n_points_evaluated"] > (SERVE_POINT["mc_res0"] + 1) ** 3
+                      and served[-1]["vertices"] > 0, f"fp32 request {i}: no refinement or mesh")
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+            thread.join(timeout=60)
+        check(not thread.is_alive(), "the HTTP server did not stop")
+        out["serve"] = dict(counted("serve --dtype float32", "fused", seen), requests=served)
+        del service
+
+        # 4. the split route at fp32 on one object
+        model = init_slicenet(seed=0, route="split").to("cuda")
+        rec = Reconstructor(model, resolution0=SERVE_POINT["mc_res0"],
+                            upsampling_steps=SERVE_POINT["mc_up_steps"],
+                            chunk_size=SERVE_POINT["mc_chunk_size"], threshold=thr)
+        start(seen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh, stats = rec.reconstruct(feeds[0])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        fused_points = out["api_fused"]["objects"][0]["n_points_evaluated"]
+        rel = abs(stats["n_points_evaluated"] - fused_points) / fused_points
+        check(not mesh.is_empty and rel <= SERVE_RTOL,
+              f"fp32 split: {stats['n_points_evaluated']} points, the fused route "
+              f"{fused_points} (relative {rel:.6g}, tolerance {SERVE_RTOL})")
+        out["split"] = dict(counted("split route, fp32", "split", seen), latency_s=dt,
+                            n_points_evaluated=stats["n_points_evaluated"])
+        print(f"[fp32head] split route, fp32, one object: {dt:.4f} s (the fused route "
+              f"{lat['fused'][0]:.4f} s); n_points_evaluated {stats['n_points_evaluated']} "
+              f"(the fused route {fused_points}: relative {rel:.6g}, tolerance {SERVE_RTOL}: "
+              "the split route's attention sums in another order)")
+        del rec, model
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[fp32head] phase 20 in {out['phase_s']:.4f} s; launches {total}; {power}")
+    return out, total
+
+
 def phase_parallel(power: str):
     """Phase 15: sharded reconstruction, training in an NCCL group of one and
     the CLIs' multi-card options; the launches under the path "parallel"."""
@@ -4050,7 +4441,8 @@ def main() -> int:
     modes = phase_kernels(model)
     ffn_modes = phase_ffn(model)
     attn_modes = phase_attention(clock * 1e6)
-    main_counts, rec, feeds = phase_main_path(model)
+    head_f32_modes = phase_head_f32(clock * 1e6)
+    main_counts, rec, feeds, main_stats = phase_main_path(model)
     gen, ldm, gts, views, gen_feeds = phase_generation()
     phase_correctness(model, rec, feeds[0])
     phase_split_checks(model, feeds[0])
@@ -4080,6 +4472,7 @@ def main() -> int:
     jax_orbax = phase_jax_orbax(power)
     fp32, fp32_counts = phase_fp32_attention(clock * 1e6, power,
                                              gentrain["ldm"]["runs"]["train"]["ms_per_step"])
+    fp32head, fp32head_counts = phase_fp32_head(power, main_stats)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"regression": main_counts, "generation": gen["counts"],
@@ -4090,7 +4483,7 @@ def main() -> int:
                                        for k in regcli_counts},
                "regression_cli": regcli_counts, "generation_training_cli": gentrain_counts,
                "parallel": parallel_counts, "fsdp": fsdp_counts, "checkpoints": ckpt_counts,
-               "fp32": fp32_counts}
+               "fp32": fp32_counts, "fp32_head": fp32head_counts}
     full = modes[0]
     encoder = {"name": "fused_encoder_layer", "route": "cuda",
                "source": "slice3d_tpu_torch/csrc/fused_encoder.cu",
@@ -4161,8 +4554,27 @@ def main() -> int:
                       "generation_training_cli": gentrain, "parallel": parallel,
                       "fsdp": fsdp, "checkpoints": ckpt, "jax_orbax": jax_orbax,
                       "fp32": {k: v for k, v in fp32.items()
-                               if k not in ("forward", "backward")}}))
-    print(json.dumps({"kernels": [encoder, attention, attention_bwd, ffn, *attention_f32]}))
+                               if k not in ("forward", "backward")},
+                      "fp32_head": fp32head}))
+    head_f32 = []
+    for name in HEAD_F32_SRC:
+        f32_modes = head_f32_modes[name]
+        first = f32_modes[0]  # the full layer; the FFN at N = 439,400
+        head_f32.append({
+            "name": name, "route": "cuda", "source": HEAD_F32_SRC[name][0],
+            "replaces": HEAD_F32_SRC[name][1],
+            "launches": sum(c[name] for c in by_path.values()),
+            "launches_by_path": {k: c[name] for k, c in by_path.items()},
+            "max_abs_err": max(m["max_abs_err"] for m in f32_modes),
+            "tol": f"|k-p| <= {HEAD_F32_TOL['atol']} + {HEAD_F32_TOL['rtol']}*|p|",
+            "ms": first["ms"], "kernel_ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"], "tflops": first["tflops"],
+            "bound_share": first["bound_share"], "modes": f32_modes})
+        check(head_f32[-1]["launches_by_path"]["fp32_head"] > 0,
+              f"the fp32 head's paths launched no {name}")
+    print(json.dumps({"kernels": [encoder, attention, attention_bwd, ffn, *attention_f32,
+                                  *head_f32]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,8 +1,10 @@
 """Model factory and weight loading for the port's CLIs.
 
 ``build_model`` mirrors ``slice3d_tpu/models/build.py::build_model`` for the
-inference models: bf16 (SliceNet and GTSlice on the fused encoder route), or
-fp32 (the plain route; both kernel routes take bf16 only).  ``load_model``
+inference models: bf16 or fp32 (compute dtype None), SliceNet and GTSlice on
+the fused encoder route at both, whose kernel runs at the model's dtype
+(``ops/fused_encoder.py``), as the JAX package's head runs its Pallas kernel
+at either.  ``load_model``
 gives the model its weights: the port's seeded init for ``--random_init`` or
 no checkpoint, else a reference torch checkpoint, whose ``state_dict`` names
 the port uses as they are, a checkpoint directory of the port's trainers
@@ -43,7 +45,7 @@ def _dtype_route(opts: Options):
     if opts.dtype == "bfloat16":
         return torch.bfloat16, "fused"
     if opts.dtype == "float32":
-        return None, "plain"
+        return None, "fused"
     raise ValueError(f"unknown --dtype {opts.dtype!r}: bfloat16 or float32")
 
 

@@ -112,12 +112,14 @@ def _layer_norm(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
 def split_encoder_layer(x: torch.Tensor, params, *, n_heads: int = 4,
                         head_tokens: int = 0) -> torch.Tensor:
     """The split-encoder route: x (..., T, D) -> (..., T_out, D), T_out =
-    ``head_tokens or T``, in x's dtype.  Op for op the JAX layer with
-    ``fused_ffn=True`` and the whole-layer kernel switched off
-    (``slice3d_tpu/models/layers.py:184-211``): qkv; logits in x's dtype,
+    ``head_tokens or T``, in x's dtype (bf16 or fp32 on the card).  Op for op
+    the JAX layer with ``fused_ffn=True`` and the whole-layer kernel switched
+    off (``slice3d_tpu/models/layers.py:184-211``): qkv; logits in x's dtype,
     then cast to fp32 and scaled; fp32 softmax rounded to x's dtype; the
     attention output and out-proj; residual + LayerNorm in x's dtype; the FFN
-    through ``fused_ffn`` (the kernel on the card); residual + LayerNorm."""
+    through ``fused_ffn`` (the kernel of x's dtype on the card, as the JAX
+    layer's ``pallas_ffn.fused_ffn`` runs its kernel at x's dtype);
+    residual + LayerNorm."""
     dt = x.dtype
     d = x.shape[-1]
     dh = d // n_heads
@@ -163,8 +165,9 @@ class TransformerEncoderLayer(nn.Module):
     last layer reads token 0 alone).  ``route`` picks how it runs: ``"fused"``
     sends a CUDA input to the whole-layer kernel, ``"split"`` runs attention
     as plain ops and the FFN through the ``fused_ffn`` kernel, ``"plain"``
-    runs the whole layer's plain version; a CPU input takes the kernels'
-    plain versions on every route.
+    runs the whole layer's plain version; the kernels run at the input's
+    dtype, bf16 or fp32; a CPU input takes the kernels' plain versions on
+    every route.
     """
 
     fsdp_unit = True  # forward reads its children's parameters: sharded, they gather here

@@ -1,16 +1,23 @@
 """Fused post-LN encoder layer of the SDF head: CUDA kernel and plain twin.
 
-Replaces ``slice3d_tpu/ops/pallas_encoder.py::fused_encoder_layer``.  The
-kernel (``csrc/fused_encoder.cu``) is written by hand for Hopper (sm_90a);
-its source note says what bounds it and how the design answers that.
+Replaces ``slice3d_tpu/ops/pallas_encoder.py::fused_encoder_layer``, which
+the JAX package runs at the model's compute dtype, bf16 or fp32.  The
+kernels are written by hand for Hopper (sm_90a), one a dtype: bf16 in
+``csrc/fused_encoder.cu`` (``wgmma``/TMA), fp32 in
+``csrc/fused_encoder_f32.cu`` (fp32 FMAs on the CUDA cores: no TF32, no
+bf16); their source notes say what bounds them and how the design answers
+that.
 
 ``fused_encoder_layer`` takes a CPU tensor to ``fused_encoder_layer_ref`` and
-a CUDA tensor to the kernel, which takes bf16 activations only and raises on
-anything else.  Both round to the activation dtype at the same points as the
-TPU kernel's default body (``_layer_kernel_bdq``): q/k/v after their bias,
-the softmax probabilities, the attention output, h1 after the first
-LayerNorm and the ReLU output; the products accumulate, and the softmax and
-both LayerNorms run, in fp32.
+a CUDA tensor to the kernel of its dtype (``kernel_dtype``: bf16 or fp32),
+and raises on anything else.  Each kernel counts its launches: ``launches``
+(bf16), ``launches_f32`` (fp32).  Both versions round to the activation
+dtype at the same points as the TPU kernel's default body
+(``_layer_kernel_bdq``): q/k/v after their bias, the softmax probabilities,
+the attention output, h1 after the first LayerNorm and the ReLU output; the
+products accumulate, and the softmax and both LayerNorms run, in fp32.  In
+fp32 every rounding is the identity, and the fp32 kernel differs from the
+plain version by summation order and the exponential alone.
 
 ``params`` holds one layer's tensors under the reference torch names (the
 keys of ``TransformerEncoderLayer.named_parameters()``):
@@ -24,21 +31,27 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Mapping
+from typing import Mapping, Tuple
 
 import torch
 
-from .prepared import prepare
+from .fused_ffn import NVCC_FLAGS, ffn_stream_f32
+from .prepared import KERNEL_DTYPES, aligned, one_kernel_dtype, prepare
 
-__all__ = ["fused_encoder_layer", "fused_encoder_layer_ref", "launches"]
+__all__ = ["fused_encoder_layer", "fused_encoder_layer_ref", "kernel_dtype", "KERNEL_DTYPES",
+           "launches", "launches_f32"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _SRC = os.path.join(_CSRC, "fused_encoder.cu")
 # the F-tile loop (shared with fused_ffn.cu) and the Hopper pieces it is built from
 _HDRS = [os.path.join(_CSRC, "ffn_tile.cuh"), os.path.join(_CSRC, "attention_sm90.cuh")]
+_SRC_F32 = os.path.join(_CSRC, "fused_encoder_f32.cu")
+_HDRS_F32 = [os.path.join(_CSRC, "ffn_tile_f32.cuh")]  # shared with fused_ffn_f32.cu
 
-# kernel launches made through fused_encoder_layer (see chip_smoke.py)
+# kernel launches made through fused_encoder_layer, bf16 and fp32 (see
+# chip_smoke.py)
 launches = 0
+launches_f32 = 0
 
 _WEIGHTS = ("self_attn.in_proj_weight", "self_attn.out_proj.weight",
             "linear1.weight", "linear2.weight")
@@ -94,25 +107,36 @@ def fused_encoder_layer_ref(x: torch.Tensor, params: Mapping[str, torch.Tensor],
     return out.to(dt)
 
 
-# Tile constants of the kernel's sources (tests/test_torch_ffn.py ties them
+# Tile constants of the kernels' sources (tests/test_torch_ffn.py ties them
 # to the .cu and .cuh files): F is taken in F-tiles of FT, and a token tile
 # holds ROWS rows (ROWS // T whole points, or at most ROWS points with
-# head_tokens = 1) of points of at most MAX_T tokens
+# head_tokens = 1 in bf16) of points of at most MAX_T tokens; the fp32
+# kernels' attention takes ROWS // T whole points a tile and the rest ROWS
+# rows of its output, over NH heads of DH
 KERNEL_TILES = {"ffn_tile.cuh": {"D": 128, "FT": 64, "ROWS": 128, "STAGES": 3},
-                "fused_encoder.cu": {"MAX_T": 16}}
+                "fused_encoder.cu": {"MAX_T": 16},
+                "ffn_tile_f32.cuh": {"D": 128, "FT": 64, "ROWS": 128, "STAGES": 3},
+                "fused_encoder_f32.cu": {"NH": 4, "DH": 32, "MAX_T": 16}}
 F_MULTIPLE = KERNEL_TILES["ffn_tile.cuh"]["FT"]
 _ROWS = KERNEL_TILES["ffn_tile.cuh"]["ROWS"]
 
 
 def weight_bytes_per_call(n: int, t: int, head_tokens: int, f: int = 2048,
-                          grid: int = 132) -> int:
-    """Bytes of weights the kernel fetches from L2 in one call over n points
-    of t tokens, counted from its tiling (not read from the card): every
-    block reads Wqkv, Wo, W1 and W2 once a tile.  A tile holds ROWS // t
-    points, or with head_tokens = 1 as few points (at most ROWS) as keep the
-    rounds of a persistent grid of ``grid`` blocks (one an SM: 132 on the
-    H100) that ROWS-point tiles would take, as the kernel chooses."""
+                          grid: int = 132, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Bytes of weights the kernel of ``dtype`` fetches from L2 in one call
+    over n points of t tokens, counted from its tiling (not read from the
+    card).  bf16: every block reads Wqkv, Wo, W1 and W2 once a tile.  A tile
+    holds ROWS // t points, or with head_tokens = 1 as few points (at most
+    ROWS) as keep the rounds of a persistent grid of ``grid`` blocks (one an
+    SM: 132 on the H100) that ROWS-point tiles would take, as the kernel
+    chooses.  fp32: the attention kernel reads Wqkv once a tile of ROWS // t
+    points, the rest Wo, W1 and W2 once a tile of ROWS output rows."""
     d = KERNEL_TILES["ffn_tile.cuh"]["D"]
+    if dtype == torch.float32:
+        rows = KERNEL_TILES["ffn_tile_f32.cuh"]["ROWS"]
+        attn_tiles = -(-n // (rows // t))
+        post_tiles = -(-(n * (head_tokens or t)) // rows)
+        return 4 * (attn_tiles * 3 * d * d + post_tiles * (d * d + 2 * d * f))
     if head_tokens:
         rounds = -(-(-(-n // _ROWS)) // grid)
         tile_pts = -(-n // (rounds * grid))
@@ -123,35 +147,44 @@ def weight_bytes_per_call(n: int, t: int, head_tokens: int, f: int = 2048,
     return tiles * per_tile
 
 
-_LIB = None  # the library, bound once per process
+_LIB = None  # the bf16 library, bound once per process
 _KERNEL = None  # its launch entry point
+_LIB_F32 = None  # the fp32 library
+_KERNEL_F32 = None  # its launch entry point
 
 
-def kernel():
-    """The kernel's C entry point: built (if stale, nvcc for sm_90a) and
-    bound on the first call, then cached, so a launch never reaches
-    ``native``."""
-    global _LIB, _KERNEL
-    if _KERNEL is None:
+def kernel(dtype: torch.dtype = torch.bfloat16):
+    """The launch entry point of ``dtype``'s kernel: built (if stale, nvcc
+    for sm_90a) and bound on the first call, then cached, so a launch never
+    reaches ``native``."""
+    global _LIB, _KERNEL, _LIB_F32, _KERNEL_F32
+    f32 = dtype == torch.float32
+    if (_KERNEL_F32 if f32 else _KERNEL) is None:
         from ..native import build_library, nvcc_path
 
-        lib = build_library(
-            "s3d_fused_encoder", [_SRC],
-            [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"], headers=_HDRS)
-        fn = lib.s3d_fused_encoder_layer
+        lib = build_library("s3d_fused_encoder_f32" if f32 else "s3d_fused_encoder",
+                            [_SRC_F32 if f32 else _SRC], [nvcc_path(), *NVCC_FLAGS],
+                            headers=_HDRS_F32 if f32 else _HDRS)
+        fn = lib.s3d_fused_encoder_f32 if f32 else lib.s3d_fused_encoder_layer
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        _LIB, _KERNEL = lib, fn
-    return _KERNEL
+        # fp32: the two weight streams and the o scratch in place of the maps
+        fn.argtypes = ([ctypes.c_void_p] * (13 if f32 else 11) + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        if f32:
+            _LIB_F32, _KERNEL_F32 = lib, fn
+        else:
+            _LIB, _KERNEL = lib, fn
+    return _KERNEL_F32 if f32 else _KERNEL
 
 
-def library() -> ctypes.CDLL:
-    """The kernel's library (built by ``kernel``): besides the launch it
-    exports the weight maps' encoder and the kernel's resident blocks an SM
-    (``s3d_fused_encoder_blocks_per_sm``)."""
-    kernel()
-    return _LIB
+def library(dtype: torch.dtype = torch.bfloat16) -> ctypes.CDLL:
+    """The library of ``dtype``'s kernel (built by ``kernel``): besides the
+    launch it exports the kernels' resident blocks an SM
+    (``s3d_fused_encoder_blocks_per_sm``,
+    ``s3d_fused_encoder_f32_blocks_per_sm``) and, bf16, the weight maps'
+    encoder."""
+    kernel(dtype)
+    return _LIB_F32 if dtype == torch.float32 else _LIB
 
 
 def _maps(prep) -> ctypes.Array:
@@ -179,25 +212,46 @@ def _on_card(x: torch.Tensor) -> bool:
     return x.device.type == "cuda"
 
 
-def prepared_params(params: Mapping[str, torch.Tensor]):
-    """The layer's weights in bf16 and vectors in fp32, cast once per weight
-    set (``ops/prepared.py``), in the order of ``_WEIGHTS`` and ``_VECTORS``."""
+def _pack_f32(wqkv: torch.Tensor, wo: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
+    """The fp32 kernels' weight streams (csrc/fused_encoder_f32.cu): the
+    attention kernel's, one [D][3 DH] stage a head (``[k][which * DH + c] =
+    wqkv[which * D + h * DH + c][k]``, which 0 q, 1 k, 2 v), and the rest's,
+    Wo^T ([k][n] = wo[n][k], two stages of D / 2 rows) then the FFN's
+    (``fused_ffn.ffn_stream_f32``)."""
+    nh, dh = (KERNEL_TILES["fused_encoder_f32.cu"][k] for k in ("NH", "DH"))
+    d = wo.shape[0]
+    qkv = wqkv.reshape(3, nh, dh, d).permute(1, 3, 0, 2).reshape(-1)
+    return qkv, torch.cat((wo.t().reshape(-1), ffn_stream_f32(w1, w2)))
+
+
+def prepared_params(params: Mapping[str, torch.Tensor], dtype: torch.dtype = torch.bfloat16):
+    """The layer's weight set for the kernel of ``dtype``, made once per
+    weight set (``ops/prepared.py``): the weights in bf16, in the order of
+    ``_WEIGHTS``, or the fp32 streams of ``_pack_f32``, and the vectors in
+    fp32 in the order of ``_VECTORS``."""
     return prepare("fused_encoder_layer", [params[k] for k in _WEIGHTS],
-                   [params[k] for k in _VECTORS])
+                   [params[k] for k in _VECTORS], dtype=dtype,
+                   pack=_pack_f32 if dtype == torch.float32 else None)
+
+
+def kernel_dtype(*named: Tuple[str, torch.Tensor]) -> torch.dtype:
+    """The one dtype of the named tensors, which must be a kernel's
+    (``KERNEL_DTYPES``): a ``TypeError`` names the first that is not, or
+    that differs from the first tensor's.  Reads dtypes only, on any device."""
+    return one_kernel_dtype("fused_encoder_layer", named)
 
 
 def fused_encoder_layer(x: torch.Tensor, params: Mapping[str, torch.Tensor], *,
                         n_heads: int = 4, head_tokens: int = 0) -> torch.Tensor:
     """x: (B, M, T, D) -> (B, M, T_out, D).
 
-    A CPU tensor takes the plain version.  A CUDA tensor launches the kernel,
-    which needs bf16 x, D = 128, 4 heads, 1 <= T <= 16, F a positive multiple
-    of 64 (the kernel's F-tile, ``F_MULTIPLE``) and head_tokens in {0, 1};
-    anything else raises.  The kernel has no backward: with grad mode on and
-    x or a weight that requires grad it raises rather than return a tensor
-    cut from the graph.
+    A CPU tensor takes the plain version.  A CUDA tensor launches the kernel
+    of x's dtype, which needs bf16 or fp32 x, D = 128, 4 heads, 1 <= T <= 16,
+    F a positive multiple of 64 (the kernels' F-tile, ``F_MULTIPLE``) and
+    head_tokens in {0, 1}; anything else raises.  The kernels have no
+    backward: with grad mode on and x or a weight that requires grad it
+    raises rather than return a tensor cut from the graph.
     """
-    global launches
     if not _on_card(x):
         return fused_encoder_layer_ref(x, params, n_heads=n_heads,
                                        head_tokens=head_tokens)
@@ -209,8 +263,7 @@ def fused_encoder_layer(x: torch.Tensor, params: Mapping[str, torch.Tensor], *,
                            "to train through the plain version")
     b, m, t, d = x.shape
     f = params["linear1.weight"].shape[0]
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"fused_encoder_layer kernel takes bf16, got {x.dtype}")
+    dtype = kernel_dtype(("x", x))
     if (d != 128 or n_heads != 4 or not 1 <= t <= KERNEL_TILES["fused_encoder.cu"]["MAX_T"]
             or f <= 0 or f % F_MULTIPLE):
         raise ValueError(f"fused_encoder_layer kernel: unsupported shape T={t} D={d} F={f} "
@@ -229,22 +282,39 @@ def fused_encoder_layer(x: torch.Tensor, params: Mapping[str, torch.Tensor], *,
     for name in _VECTORS:
         if params[name].device != x.device:
             raise ValueError(f"fused_encoder_layer: {name} on {params[name].device}")
+    return _launch_kernel(x, params, head_tokens, dtype)
 
+
+def _launch_kernel(x: torch.Tensor, params: Mapping[str, torch.Tensor], head_tokens: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """Launch ``dtype``'s kernel on a checked x (B, M, T, D) and its layer's
+    parameters -> (B, M, T_out, D)."""
+    global launches, launches_f32
+    b, m, t, d = x.shape
+    f = params["linear1.weight"].shape[0]
     n = b * m
-    xf = x.reshape(n, t, d).contiguous()
+    xf = aligned(x.reshape(n, t, d))
     t_out = head_tokens or t
     out = torch.empty((n, t_out, d), dtype=x.dtype, device=x.device)
     if n == 0:
         return out.reshape(b, m, t_out, d)
-    launch = kernel()
-    prep = prepared_params(params)
-    maps = _maps(prep)
-    bqkv, bo, g1, be1, b1, b2, g2, be2 = (v.data_ptr() for v in prep.vectors)
+    f32 = dtype == torch.float32
+    launch = kernel(dtype)
+    prep = prepared_params(params, dtype)
+    vectors = [v.data_ptr() for v in prep.vectors]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = launch(xf.data_ptr(), ctypes.addressof(maps), bqkv, bo, g1, be1, b1, b2, g2,
-                    be2, out.data_ptr(), n, t, f, head_tokens, stream)
+        if f32:  # the attention kernel's output o goes through a scratch
+            o = torch.empty((n * t_out, d), dtype=x.dtype, device=x.device)
+            rc = launch(xf.data_ptr(), *(w.data_ptr() for w in prep.weights), *vectors,
+                        o.data_ptr(), out.data_ptr(), n, t, f, head_tokens, stream)
+        else:
+            rc = launch(xf.data_ptr(), ctypes.addressof(_maps(prep)), *vectors,
+                        out.data_ptr(), n, t, f, head_tokens, stream)
     if rc != 0:
-        raise RuntimeError(f"fused_encoder_layer kernel launch failed: CUDA error {rc}")
-    launches += 1
+        raise RuntimeError(f"fused_encoder_layer {dtype} kernel launch failed: CUDA error {rc}")
+    if f32:
+        launches_f32 += 1
+    else:
+        launches += 1
     return out.reshape(b, m, t_out, d)

@@ -1,16 +1,22 @@
 """Fused ReLU FFN of the split-encoder route: CUDA kernel and plain twin.
 
 Replaces ``slice3d_tpu/ops/pallas_ffn.py::fused_ffn`` (the TPU kernel
-``_fused_ffn_tpu``, body ``_kernel``).  The kernel (``csrc/fused_ffn.cu``) is
-written by hand for Hopper (sm_90a); its source note says what bounds it and
-how the design answers that.
+``_fused_ffn_tpu``, body ``_kernel``), which the JAX package runs at the
+input's dtype, bf16 or fp32.  The kernels are written by hand for Hopper
+(sm_90a), one a dtype: bf16 in ``csrc/fused_ffn.cu`` (``wgmma``/TMA), fp32
+in ``csrc/fused_ffn_f32.cu`` (fp32 FMAs on the CUDA cores: no TF32, no
+bf16); their source notes say what bounds them and how the design answers
+that.
 
 ``fused_ffn`` takes a CPU tensor to ``fused_ffn_ref`` and a CUDA tensor to
-the kernel, which takes bf16 activations only and raises on anything else.
-Both compute ``relu(x W1^T + b1) W2^T + b2`` per row with the TPU kernel's
-rounding points: the weights in x's dtype, b1 and b2 in fp32, both products
-accumulated in fp32, h rounded to x's dtype after the ReLU, the output
-rounded to x's dtype.  The weights are in ``nn.Linear``'s layout:
+the kernel of its dtype (``kernel_dtype``: bf16 or fp32), and raises on
+anything else.  Each kernel counts its launches: ``launches`` (bf16),
+``launches_f32`` (fp32).  Both versions compute ``relu(x W1^T + b1) W2^T +
+b2`` per row with the TPU kernel's rounding points: the weights in x's
+dtype, b1 and b2 in fp32, both products accumulated in fp32, h rounded to
+x's dtype after the ReLU, the output rounded to x's dtype.  In fp32 every
+rounding is the identity, and the fp32 kernel differs from the plain version
+by summation order alone.  The weights are in ``nn.Linear``'s layout:
 ``w1 = linear1.weight`` (F, D), ``w2 = linear2.weight`` (D, F) (the JAX
 function takes their transposes).
 """
@@ -19,20 +25,27 @@ from __future__ import annotations
 
 import ctypes
 import os
+from typing import Optional, Tuple
 
 import torch
 
-from .prepared import prepare
+from .prepared import KERNEL_DTYPES, aligned, one_kernel_dtype, prepare
 
-__all__ = ["fused_ffn", "fused_ffn_ref", "launches"]
+__all__ = ["fused_ffn", "fused_ffn_ref", "kernel_dtype", "KERNEL_DTYPES", "launches",
+           "launches_f32"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _SRC = os.path.join(_CSRC, "fused_ffn.cu")
 # the F-tile loop (shared with fused_encoder.cu) and the Hopper pieces it is built from
 _HDRS = [os.path.join(_CSRC, "ffn_tile.cuh"), os.path.join(_CSRC, "attention_sm90.cuh")]
+_SRC_F32 = os.path.join(_CSRC, "fused_ffn_f32.cu")
+_HDRS_F32 = [os.path.join(_CSRC, "ffn_tile_f32.cuh")]  # shared with fused_encoder_f32.cu
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# kernel launches made through fused_ffn (see chip_smoke.py)
+# kernel launches made through fused_ffn, bf16 and fp32 (see chip_smoke.py)
 launches = 0
+launches_f32 = 0
 
 
 def fused_ffn_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -46,51 +59,76 @@ def fused_ffn_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch
     return (torch.matmul(h.to(f32), w2.to(dt).to(f32).t()) + b2.to(f32)).to(dt)
 
 
-# Tile constants of the kernel's sources (tests/test_torch_ffn.py ties them
-# to the .cu and .cuh files): F is taken in F-tiles of FT, and a row tile
-# holds 64 rows for each of CONSUMERS consumer warpgroups
+# Tile constants of the kernels' sources (tests/test_torch_ffn.py ties them
+# to the .cu and .cuh files): F is taken in F-tiles of FT; a bf16 row tile
+# holds 64 rows for each of CONSUMERS consumer warpgroups, an fp32 one ROWS
 KERNEL_TILES = {"ffn_tile.cuh": {"D": 128, "FT": 64, "ROWS": 128, "STAGES": 3},
-                "fused_ffn.cu": {"CONSUMERS": 3}}
+                "fused_ffn.cu": {"CONSUMERS": 3},
+                "ffn_tile_f32.cuh": {"D": 128, "FT": 64, "ROWS": 128, "STAGES": 3}}
 F_MULTIPLE = KERNEL_TILES["ffn_tile.cuh"]["FT"]
 TILE_ROWS = 64 * KERNEL_TILES["fused_ffn.cu"]["CONSUMERS"]
+TILE_ROWS_F32 = KERNEL_TILES["ffn_tile_f32.cuh"]["ROWS"]
 
 
-def weight_bytes_per_call(n: int, f: int = 2048, tile_rows: int = TILE_ROWS) -> int:
-    """Bytes of W1 and W2 the kernel fetches from L2 in one call over n rows,
-    counted from its tiling (not read from the card): every block reads them
-    once a row tile of ``tile_rows``."""
-    return -(-n // tile_rows) * 2 * 2 * KERNEL_TILES["ffn_tile.cuh"]["D"] * f
+def weight_bytes_per_call(n: int, f: int = 2048, tile_rows: Optional[int] = None,
+                          dtype: torch.dtype = torch.bfloat16) -> int:
+    """Bytes of W1 and W2 the kernel of ``dtype`` fetches from L2 in one call
+    over n rows, counted from its tiling (not read from the card): every
+    block reads them once a row tile of ``tile_rows`` (default: the
+    kernel's, ``TILE_ROWS`` or ``TILE_ROWS_F32``)."""
+    f32 = dtype == torch.float32
+    rows = tile_rows or (TILE_ROWS_F32 if f32 else TILE_ROWS)
+    return -(-n // rows) * 2 * (4 if f32 else 2) * KERNEL_TILES["ffn_tile.cuh"]["D"] * f
 
 
-_LIB = None  # the library, bound once per process
+def ffn_stream_f32(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """The fp32 kernels' FFN weight stream: per F-tile of FT, W1's tile
+    K-major as [D][FT] (``[k][c] = w1[ft + c][k]``), then W2's as [FT][D]
+    (``[j][n] = w2[n][ft + j]``), flat (csrc/ffn_tile_f32.cuh streams it
+    stage by stage).  w1 (F, D), w2 (D, F) in nn.Linear's layout."""
+    ft = KERNEL_TILES["ffn_tile_f32.cuh"]["FT"]
+    f, d = w1.shape
+    t1 = w1.reshape(f // ft, ft, d).transpose(1, 2).reshape(f // ft, -1)
+    t2 = w2.reshape(d, f // ft, ft).permute(1, 2, 0).reshape(f // ft, -1)
+    return torch.cat((t1, t2), 1).reshape(-1)
+
+
+_LIB = None  # the bf16 library, bound once per process
 _KERNEL = None  # its launch entry point
+_LIB_F32 = None  # the fp32 library
+_KERNEL_F32 = None  # its launch entry point
 
 
-def kernel():
-    """The kernel's C entry point: built (if stale, nvcc for sm_90a) and
-    bound on the first call, then cached, so a launch never reaches
-    ``native``."""
-    global _LIB, _KERNEL
-    if _KERNEL is None:
+def kernel(dtype: torch.dtype = torch.bfloat16):
+    """The launch entry point of ``dtype``'s kernel: built (if stale, nvcc
+    for sm_90a) and bound on the first call, then cached, so a launch never
+    reaches ``native``.  Both take (x, weights, b1, b2, out, n, f, stream):
+    the bf16 one the weight set's TMA maps, the fp32 one its packed stream."""
+    global _LIB, _KERNEL, _LIB_F32, _KERNEL_F32
+    f32 = dtype == torch.float32
+    if (_KERNEL_F32 if f32 else _KERNEL) is None:
         from ..native import build_library, nvcc_path
 
-        lib = build_library(
-            "s3d_fused_ffn", [_SRC],
-            [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"], headers=_HDRS)
-        fn = lib.s3d_fused_ffn
+        name = "s3d_fused_ffn_f32" if f32 else "s3d_fused_ffn"
+        lib = build_library(name, [_SRC_F32 if f32 else _SRC], [nvcc_path(), *NVCC_FLAGS],
+                            headers=_HDRS_F32 if f32 else _HDRS)
+        fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        _LIB, _KERNEL = lib, fn
-    return _KERNEL
+        if f32:
+            _LIB_F32, _KERNEL_F32 = lib, fn
+        else:
+            _LIB, _KERNEL = lib, fn
+    return _KERNEL_F32 if f32 else _KERNEL
 
 
-def library() -> ctypes.CDLL:
-    """The kernel's library (built by ``kernel``): besides the launch it
-    exports the weight maps' encoder and the kernel's resident blocks an SM
-    (``s3d_fused_ffn_blocks_per_sm``)."""
-    kernel()
-    return _LIB
+def library(dtype: torch.dtype = torch.bfloat16) -> ctypes.CDLL:
+    """The library of ``dtype``'s kernel (built by ``kernel``): besides the
+    launch it exports the kernel's resident blocks an SM
+    (``s3d_fused_ffn_blocks_per_sm``, ``s3d_fused_ffn_f32_blocks_per_sm``)
+    and, bf16, the weight maps' encoder."""
+    kernel(dtype)
+    return _LIB_F32 if dtype == torch.float32 else _LIB
 
 
 def _maps(prep) -> ctypes.Array:
@@ -109,24 +147,35 @@ def _maps(prep) -> ctypes.Array:
     return prep.maps
 
 
-def prepared_weights(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor):
-    """w1, w2 in bf16 and b1, b2 in fp32, cast once per weight set
-    (``ops/prepared.py``)."""
+def prepared_weights(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                     dtype: torch.dtype = torch.bfloat16):
+    """The kernel of ``dtype``'s weight set, made once per weight set
+    (``ops/prepared.py``): bf16 w1, w2, or fp32 (the F-tile stream
+    ``ffn_stream_f32``, one tensor), and b1, b2 in fp32."""
+    if dtype == torch.float32:
+        return prepare("fused_ffn", [w1, w2], [b1, b2], dtype=dtype,
+                       pack=lambda a, b: (ffn_stream_f32(a, b),))
     return prepare("fused_ffn", [w1, w2], [b1, b2])
+
+
+def kernel_dtype(*named: Tuple[str, torch.Tensor]) -> torch.dtype:
+    """The one dtype of the named tensors, which must be a kernel's
+    (``KERNEL_DTYPES``): a ``TypeError`` names the first that is not, or
+    that differs from the first tensor's.  Reads dtypes only, on any device."""
+    return one_kernel_dtype("fused_ffn", named)
 
 
 def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
               b2: torch.Tensor) -> torch.Tensor:
     """relu(x W1^T + b1) W2^T + b2 over x's last axis: (..., D) -> (..., D).
 
-    A CPU tensor takes the plain version.  A CUDA tensor launches the kernel,
-    which needs bf16 x, D = 128, F a positive multiple of 64 (the kernel's
-    F-tile, ``F_MULTIPLE``) and every weight on x's device; anything else
-    raises.  The kernel has no backward (like the TPU kernel it replaces):
-    with grad mode on and x or a weight that requires grad it raises rather
-    than return a tensor cut from the graph.
+    A CPU tensor takes the plain version.  A CUDA tensor launches the kernel
+    of x's dtype, which needs bf16 or fp32 x, D = 128, F a positive multiple
+    of 64 (the kernels' F-tile, ``F_MULTIPLE``) and every weight on x's
+    device; anything else raises.  The kernels have no backward (like the TPU
+    kernel they replace): with grad mode on and x or a weight that requires
+    grad it raises rather than return a tensor cut from the graph.
     """
-    global launches
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_ffn: unsupported device {x.device}")
     if x.device.type == "cpu":
@@ -136,8 +185,7 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
                            "the TPU kernel it replaces): run it under torch.no_grad(), or "
                            "build the layer with route='plain' to train through the plain "
                            "version")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"fused_ffn kernel takes bf16, got {x.dtype}")
+    dtype = kernel_dtype(("x", x))
     d = x.shape[-1]
     f = w1.shape[0]
     if d != 128 or f <= 0 or f % F_MULTIPLE:
@@ -148,20 +196,34 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
         if tuple(t.shape) != shape or t.device != x.device:
             raise ValueError(f"fused_ffn: a weight of shape {tuple(t.shape)} on {t.device}, "
                              f"expected {shape} on {x.device}")
-    xf = x.reshape(-1, d).contiguous()
+    return _launch_kernel(x, w1, b1, w2, b2, dtype)
+
+
+def _launch_kernel(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                   b2: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Launch ``dtype``'s kernel on a checked x (..., D) and weights."""
+    global launches, launches_f32
+    d, f = x.shape[-1], w1.shape[0]
+    f32 = dtype == torch.float32
+    xf = aligned(x.reshape(-1, d))
     n = xf.shape[0]
     out = torch.empty((n, d), dtype=x.dtype, device=x.device)
     if n == 0:
         return out.reshape(x.shape)
-    launch = kernel()
-    prep = prepared_weights(w1, b1, w2, b2)
-    maps = _maps(prep)
+    launch = kernel(dtype)
+    prep = prepared_weights(w1, b1, w2, b2, dtype)
+    # the bf16 kernel reads the weights through their TMA maps, the fp32 one
+    # streams the packed weights
+    weights = prep.weights[0].data_ptr() if f32 else ctypes.addressof(_maps(prep))
     b1f, b2f = prep.vectors
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = launch(xf.data_ptr(), ctypes.addressof(maps), b1f.data_ptr(), b2f.data_ptr(),
-                    out.data_ptr(), n, f, stream)
+        rc = launch(xf.data_ptr(), weights, b1f.data_ptr(), b2f.data_ptr(), out.data_ptr(),
+                    n, f, stream)
     if rc != 0:
-        raise RuntimeError(f"fused_ffn kernel launch failed: CUDA error {rc}")
-    launches += 1
+        raise RuntimeError(f"fused_ffn {dtype} kernel launch failed: CUDA error {rc}")
+    if f32:
+        launches_f32 += 1
+    else:
+        launches += 1
     return out.reshape(x.shape)

@@ -53,6 +53,8 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from .prepared import KERNEL_DTYPES, aligned, one_kernel_dtype
+
 __all__ = ["spatial_attention", "spatial_attention_ref", "spatial_attention_bwd_ref",
            "SpatialAttention", "attention_kernel_eligible", "kernel_dtype",
            "KERNEL_DTYPES", "KERNEL_HEAD_DIMS", "KERNEL_T_MULTIPLE", "KERNEL_TILES",
@@ -74,7 +76,6 @@ launches_bwd = 0
 launches_f32 = 0
 launches_bwd_f32 = 0
 
-KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_HEAD_DIMS = (24, 48)  # the UNet's heads at ds 1 and ds 2
 # the kernels' tiles along T, by source and constant (csrc/<source>'s
 # constexpr ints): T must be a multiple of each
@@ -182,15 +183,7 @@ def kernel_dtype(*named: Tuple[str, torch.Tensor]) -> torch.dtype:
     """The one dtype of the named tensors, which must be a kernel's
     (``KERNEL_DTYPES``): a ``TypeError`` names the first that is not, or
     that differs from the first tensor's.  Reads dtypes only, on any device."""
-    first = named[0][1].dtype
-    for name, x in named:
-        if x.dtype not in KERNEL_DTYPES:
-            raise TypeError(f"spatial_attention kernels take bf16 or fp32, got {name} "
-                            f"{x.dtype}")
-        if x.dtype != first:
-            raise TypeError(f"spatial_attention kernels take one dtype a call, got "
-                            f"{named[0][0]} {first} and {name} {x.dtype}")
-    return first
+    return one_kernel_dtype("spatial_attention", named)
 
 
 def _check_kernel_inputs(*named: Tuple[str, torch.Tensor]) -> None:
@@ -213,13 +206,6 @@ def _check_kernel_inputs(*named: Tuple[str, torch.Tensor]) -> None:
         raise ValueError(f"spatial_attention kernel: unsupported shape T={t} DH={dh} "
                          f"(T a multiple of {KERNEL_T_MULTIPLE}, DH in "
                          f"{KERNEL_HEAD_DIMS})")
-
-
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """``x`` contiguous at a 16-byte aligned address (the kernels' TMA and
-    16-byte loads need it; a view into a larger tensor may start anywhere)."""
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _forward_kernel(q, k, v, scale: float, with_lse: bool
@@ -290,7 +276,7 @@ class SpatialAttention(torch.autograd.Function):
             ctx.save_for_backward(q, k, v)
             return spatial_attention_ref(q, k, v, scale)
         _check_kernel_inputs(("q", q), ("k", k), ("v", v))
-        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+        q, k, v = aligned(q), aligned(k), aligned(v)
         out, lse = _forward_kernel(q, k, v, scale, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
@@ -304,7 +290,7 @@ class SpatialAttention(torch.autograd.Function):
         else:
             q, k, v, out, lse = ctx.saved_tensors
             _check_kernel_inputs(("q", q), ("do", do))
-            dq, dk, dv = _backward_kernel(q, k, v, out, lse, _aligned(do), ctx.scale)
+            dq, dk, dv = _backward_kernel(q, k, v, out, lse, aligned(do), ctx.scale)
         return dq, dk, dv, None
 
 
@@ -324,4 +310,4 @@ def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return spatial_attention_ref(q, k, v, scale)
     _check_kernel_inputs(("q", q), ("k", k), ("v", v))
-    return _forward_kernel(_aligned(q), _aligned(k), _aligned(v), scale, with_lse=False)[0]
+    return _forward_kernel(aligned(q), aligned(k), aligned(v), scale, with_lse=False)[0]

@@ -48,10 +48,11 @@ from .parallel.sharding import replicate, shard_batch
 from .models.disn import DISNModel
 from .models.gtslice import GTSliceModel
 from .models.slicenet import SliceNetModel
+from .ops.fused_encoder import KERNEL_DTYPES
 from .ops.lattice_sample import lattice_sample_sum, projection_is_separable
 from .ops.projection import project_points
 
-__all__ = ["Reconstructor"]
+__all__ = ["Reconstructor", "check_head_routes"]
 
 # test-mode canonical -> camera-aligned mapping: flip y and z
 _FLIP = (1.0, -1.0, -1.0)
@@ -79,6 +80,21 @@ class _Encoded:
         return (obj // self.per, obj % self.per) if self.per else (0, obj)
 
 
+def check_head_routes(device: torch.device, routes: Iterable[str],
+                      dtype: Optional[torch.dtype]) -> None:
+    """Raise unless a model whose encoder layers take ``routes`` and compute
+    in ``dtype`` (None: the fp32 inputs' dtype) can run on ``device``: on a
+    card, the kernel routes (``"fused"``, ``"split"``) take bf16 or fp32,
+    the dtypes of the head's kernels; the plain route and the CPU take
+    any."""
+    kernels = sorted(set(routes) - {"plain"})
+    dt = dtype or torch.float32
+    if device.type == "cuda" and kernels and dt not in KERNEL_DTYPES:
+        raise ValueError(f"the encoder's {kernels} route takes bf16 or fp32 on the card, not "
+                         f"{dt}: build the model with dtype=torch.bfloat16 or None (fp32), or "
+                         "route='plain'")
+
+
 def _moved(x, device: torch.device):
     """A Cond (nested lists and tuples of tensors) on ``device``."""
     if isinstance(x, torch.Tensor):
@@ -104,8 +120,8 @@ class Reconstructor:
 
     Args:
       model: a ``SliceNetModel``, ``GTSliceModel`` or ``DISNModel`` (its
-        ``dtype`` is the compute dtype; both kernel routes of the encoder
-        take bf16 on the card).
+        ``dtype`` is the compute dtype, None for fp32; both kernel routes of
+        the encoder take bf16 or fp32 on the card: ``check_head_routes``).
       resolution0 / upsampling_steps / threshold / chunk_size / box_size:
         the MISE operating point; refinement levels are evaluated in chunks
         of at most ``chunk_size`` points.
@@ -172,11 +188,9 @@ class Reconstructor:
         self.shard_axis = shard_axis
         self.device = resolve_device(device)
         self.is_disn = isinstance(model, DISNModel)
-        kernels = set() if self.is_disn else (
-            {layer.route for layer in model.att_decoder.layers} - {"plain"})
-        if self.device.type == "cuda" and kernels and model.dtype != torch.bfloat16:
-            raise ValueError(f"the encoder's {sorted(kernels)} route takes bf16 on the card: "
-                             "build the model with dtype=torch.bfloat16 (or route='plain')")
+        if not self.is_disn:
+            check_head_routes(self.device, (layer.route for layer in model.att_decoder.layers),
+                              model.dtype)
         self.model = model.to(self.device).eval()
         self.chunk_size = int(chunk_size)
         self.box_size = float(box_size)

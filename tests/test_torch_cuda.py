@@ -32,6 +32,11 @@ ATTN_BWD_TOL = dict(atol=0.08, rtol=0.04)
 # matmuls must fail these (chip_smoke.py phase 19, where the readings are)
 ATTN_F32_TOL = dict(atol=5e-5, rtol=5e-5)
 ATTN_BWD_F32_TOL = dict(atol=2e-4, rtol=1e-4)
+# the fp32 head kernels vs their plain versions with TF32 off: both in true
+# fp32, apart by summation order (and the exponential in the layer); the
+# plain versions with TF32 matmuls must fail it (chip_smoke.py phase 3,
+# where the readings are)
+HEAD_F32_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 def layer_params(seed, device):
@@ -81,8 +86,8 @@ def test_kernel_matches_plain(card, n, head_tokens):
 def test_kernel_rejects_what_it_does_not_take(card):
     params = layer_params(41, card)
     x = torch.zeros((1, 4, 13, D), device=card)
-    with pytest.raises(TypeError):  # fp32 has no instantiation
-        fe.fused_encoder_layer(x, params)
+    with pytest.raises(TypeError):  # fp16 has no kernel (bf16 and fp32 have)
+        fe.fused_encoder_layer(x.half(), params)
     with pytest.raises(ValueError):
         fe.fused_encoder_layer(x.to(torch.bfloat16), params, head_tokens=2)
     with pytest.raises(ValueError):
@@ -330,8 +335,8 @@ def test_fused_ffn_rejects_what_it_does_not_take(card):
     args = [params[k] for k in ("linear1.weight", "linear1.bias", "linear2.weight",
                                 "linear2.bias")]
     x = torch.zeros((4, D), device=card)
-    with pytest.raises(TypeError):  # fp32 has no instantiation
-        ff.fused_ffn(x, *args)
+    with pytest.raises(TypeError):  # fp16 has no kernel (bf16 and fp32 have)
+        ff.fused_ffn(x.half(), *args)
     with pytest.raises(ValueError):  # F not a multiple of 64
         ff.fused_ffn(x.to(torch.bfloat16), args[0][:100], args[1][:100], args[2][:, :100],
                      args[3])
@@ -678,3 +683,108 @@ def test_device_preprocess_on_the_card(card):
     got = preprocess_rgba_device(torch.from_numpy(raw).to(card), 16).cpu()
     torch.testing.assert_close(got, preprocess_rgba_device(torch.from_numpy(raw), 16),
                                atol=1e-5, rtol=0)
+
+
+def _f32_case(card, shape, seed):
+    x = torch.from_numpy(np.random.default_rng(seed).normal(size=shape).astype(np.float32))
+    return x.to(card), layer_params(seed + 1, card)
+
+
+def _ffn_args(params):
+    return [params[k] for k in ("linear1.weight", "linear1.bias", "linear2.weight",
+                                "linear2.bias")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 5, 13, 16])
+@pytest.mark.parametrize("head_tokens", [0, 1])
+def test_encoder_f32_matches_plain(card, no_tf32, t, head_tokens):
+    """fp32 kernels vs the plain version on the same fp32 inputs (TF32 off),
+    T from 1 to 16 and N = 301 points (no multiple of a tile of 128 // T
+    points, nor of 128 rows): within ``HEAD_F32_TOL``, which the plain
+    version with TF32 matmuls fails.  One fp32 launch, no bf16 one."""
+    x, params = _f32_case(card, (1, 301, t, D), 90 + t)
+    before = (fe.launches, fe.launches_f32, ff.launches, ff.launches_f32)
+    with torch.no_grad():
+        got = fe.fused_encoder_layer(x, params, head_tokens=head_tokens)
+        torch.cuda.synchronize()
+        assert (fe.launches, fe.launches_f32, ff.launches, ff.launches_f32) == (
+            before[0], before[1] + 1, before[2], before[3])
+        want = fe.fused_encoder_layer_ref(x, params, head_tokens=head_tokens)
+        assert got.shape == want.shape == (1, 301, head_tokens or t, D)
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, **HEAD_F32_TOL)
+        with _tf32_matmuls():
+            control = fe.fused_encoder_layer_ref(x, params, head_tokens=head_tokens)
+    assert _violations(control, want, HEAD_F32_TOL) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 127, 129, 3000 + 77])
+def test_fused_ffn_f32_matches_plain(card, no_tf32, rows):
+    """fp32 FFN kernel vs the plain version (TF32 off), N one row, around
+    the 128-row tile and over many tiles: within ``HEAD_F32_TOL``, which
+    the plain version with TF32 matmuls fails (from two rows on: cuBLAS
+    takes one row as a matrix-vector product, which has no TF32 path).
+    One fp32 launch, no bf16 one."""
+    x, params = _f32_case(card, (rows, D), 93)
+    args = _ffn_args(params)
+    before = (fe.launches, fe.launches_f32, ff.launches, ff.launches_f32)
+    with torch.no_grad():
+        got = ff.fused_ffn(x, *args)
+        torch.cuda.synchronize()
+        assert (fe.launches, fe.launches_f32, ff.launches, ff.launches_f32) == (
+            before[0], before[1], before[2], before[3] + 1)
+        want = ff.fused_ffn_ref(x, *args)
+        assert got.shape == want.shape == (rows, D) and got.dtype == torch.float32
+        torch.testing.assert_close(got, want, **HEAD_F32_TOL)
+        with _tf32_matmuls():
+            control = ff.fused_ffn_ref(x, *args)
+    assert _violations(control, want, HEAD_F32_TOL) > 0 or rows == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_tokens", [0, 1])
+def test_f32_head_kernels_repeat_bit_for_bit(card, head_tokens):
+    """No atomics: two runs of each fp32 kernel on the same inputs are
+    bit-equal."""
+    x, params = _f32_case(card, (1, 3000, 13, D), 95)
+    with torch.no_grad():
+        runs = [fe.fused_encoder_layer(x, params, head_tokens=head_tokens) for _ in range(2)]
+        ffn = [ff.fused_ffn(x[0, :, head_tokens], *_ffn_args(params)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs) and torch.equal(*ffn)
+
+
+@pytest.mark.cuda
+def test_f32_kernels_refuse_autograd_and_other_dtypes(card):
+    x, params = _f32_case(card, (1, 4, 13, D), 96)
+    with pytest.raises(RuntimeError, match="inference only"):
+        fe.fused_encoder_layer(x.requires_grad_(), params)
+    with pytest.raises(TypeError):
+        fe.fused_encoder_layer(x.detach().double(), params)
+    with pytest.raises(TypeError):
+        ff.fused_ffn(x.detach()[0, :, 0].double(), *_ffn_args(params))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fused", "split"])
+def test_f32_slicenet_runs_the_f32_kernels(card, no_tf32, route):
+    """An fp32 SliceNet on the card takes its route's fp32 kernel, three
+    launches a head call (fused: the layer; split: its FFN) and no bf16
+    launch, and agrees with the CPU's fp32 field."""
+    model = init_slicenet(0, route=route)
+    rng = np.random.default_rng(5)
+    _, proj = camera.camera_matrices(0.0, 0.0, 1.2)
+    feed = {"img_input": rng.uniform(-1, 1, (64, 64, 3)).astype(np.float32),
+            "trans_mat_wo_rot_tp": proj.astype(np.float32)}
+    kw = dict(resolution0=16, upsampling_steps=1, chunk_size=4096)
+    cpu, _ = Reconstructor(model, device="cpu", **kw).build_grid(feed)
+    before = (fe.launches, fe.launches_f32, ff.launches, ff.launches_f32)
+    grid, _ = Reconstructor(model, **kw).build_grid(feed)
+    counts = [a - b for a, b in zip((fe.launches, fe.launches_f32, ff.launches,
+                                     ff.launches_f32), before)]
+    f32 = counts[1] if route == "fused" else counts[3]
+    assert f32 > 0 and f32 % 3 == 0 and counts[0] == counts[2] == 0
+    assert counts[3 if route == "fused" else 1] == 0
+    np.testing.assert_allclose(grid, cpu, atol=1e-3, rtol=0)

@@ -254,9 +254,12 @@ def test_weight_bridge_round_trip_generation(part):
     ("spatial_attention", "kernel", "s3d_spatial_attention", ()),
     ("spatial_attention", "kernel_bwd", "s3d_spatial_attention_bwd", ()),
     ("spatial_attention", "kernel", "s3d_spatial_attention_f32", (torch.float32,)),
-    ("spatial_attention", "kernel_bwd", "s3d_spatial_attention_bwd_f32", (torch.float32,))],
+    ("spatial_attention", "kernel_bwd", "s3d_spatial_attention_bwd_f32", (torch.float32,)),
+    ("fused_encoder", "kernel", "s3d_fused_encoder_f32", (torch.float32,)),
+    ("fused_ffn", "kernel", "s3d_fused_ffn_f32", (torch.float32,))],
     ids=["fused_encoder", "fused_ffn", "spatial_attention", "spatial_attention_bwd",
-         "spatial_attention_f32", "spatial_attention_bwd_f32"])
+         "spatial_attention_f32", "spatial_attention_bwd_f32", "fused_encoder_f32",
+         "fused_ffn_f32"])
 def test_kernel_entry_point_is_bound_once(module, entry, library, args, monkeypatch):
     """A kernel wrapper resolves its library on the first launch only: later
     launches never reach ``native`` (no compiler search, no locks)."""
@@ -274,7 +277,9 @@ def test_kernel_entry_point_is_bound_once(module, entry, library, args, monkeypa
                                      s3d_spatial_attention=lambda *args: 0,
                                      s3d_spatial_attention_bwd=lambda *args: 0,
                                      s3d_spatial_attention_f32=lambda *args: 0,
-                                     s3d_spatial_attention_bwd_f32=lambda *args: 0)
+                                     s3d_spatial_attention_bwd_f32=lambda *args: 0,
+                                     s3d_fused_encoder_f32=lambda *args: 0,
+                                     s3d_fused_ffn_f32=lambda *args: 0)
 
     monkeypatch.setattr(native, "build_library", fake_build)
     monkeypatch.setattr(native, "nvcc_path", lambda: "nvcc")

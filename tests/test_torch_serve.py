@@ -329,7 +329,7 @@ def test_load_model(tmp_path):
     assert [layer.route for layer in seeded.att_decoder.layers] == ["fused"] * 3
     assert seeded.dtype == torch.bfloat16
     fp32 = build_model(config.Options(**dict(SMALL, dtype="float32")))
-    assert fp32.dtype is None and fp32.att_decoder.layers[0].route == "plain"
+    assert fp32.dtype is None and fp32.att_decoder.layers[0].route == "fused"
     sd = init_slicenet(7).state_dict()
     torch.save({"model": sd, "n_epoch": 3}, tmp_path / "ref.ckpt")
     loaded = load_model(opts, str(tmp_path / "ref.ckpt"))

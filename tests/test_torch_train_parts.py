@@ -312,8 +312,8 @@ def test_fused_encoder_kernel_refuses_autograd(monkeypatch):
         fe.fused_encoder_layer(x, params)  # the weights require grad
     with pytest.raises(RuntimeError, match="inference only"):
         fe.fused_encoder_layer(x.requires_grad_(), {k: v.detach() for k, v in params.items()})
-    with torch.no_grad(), pytest.raises(TypeError, match="bf16"):
-        fe.fused_encoder_layer(x, params)  # past the guard: fp32 has no kernel
+    with torch.no_grad(), pytest.raises(TypeError, match="bf16 or fp32"):
+        fe.fused_encoder_layer(x.half(), params)  # past the guard: fp16 has no kernel
     monkeypatch.undo()
     # on the CPU the plain version runs and is differentiable
     out = fe.fused_encoder_layer(torch.randn((1, 2, 13, 128)), params)
