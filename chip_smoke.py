@@ -225,10 +225,12 @@ import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3; the
-# special function units issue 16 exp2 per clock per SM (132 SMs)
+# special function units issue 16 exp2 per clock per SM (132 SMs); TF32 on
+# the tensor cores, 2,048 flops a clock per SM (495 TFLOP/s at 1830 MHz)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 SFU_PER_CLOCK = 16 * 132
+TF32_PER_CLOCK = 2048 * 132
 N_POINTS = 8 * 65 * 65  # one coarse-level slab group: 8 z-slabs of 65^2
 TOL = dict(atol=2e-2, rtol=1e-2)  # bf16 outputs of LayerNorm: ~2.5 ulp
 # fused_ffn kernel vs plain: both round h and the output to bf16 from fp32 sums
@@ -412,12 +414,13 @@ TRAIN_TINY = dict(timesteps=20, vae_ch=32, vae_mult=(1, 2), vae_nres=1, unet_cha
 ATTN_F32_SRC = {"spatial_attention_f32": ("slice3d_tpu_torch/csrc/spatial_attention_f32.cu",
                                           "slice3d_tpu/ops/pallas_attention.py:59"),
                 "spatial_attention_bwd_f32": (
-                    "slice3d_tpu_torch/csrc/spatial_attention_bwd_f32.cu",
+                    "slice3d_tpu_torch/csrc/spatial_attention_bwd_f32x3.cu",
                     "slice3d_tpu/ops/pallas_attention.py:150")}
 # phase 19: the fp32 attention kernels against their plain versions at
-# ATTN_SHAPES, element-wise: both compute in true fp32 and differ by summation
-# order and the exponential, so the tolerances sit far below what TF32
-# matmuls in the plain version give (the control that must fail them)
+# ATTN_SHAPES, element-wise: both compute in fp32 (the backward's products as
+# 3xTF32 on the tensor cores, which rounds at the fp32 level) and differ by
+# summation order and the exponential, so the tolerances sit far below what
+# TF32 matmuls in the plain version give (the control that must fail them)
 ATTN_F32_TOL = dict(atol=5e-5, rtol=5e-5)
 ATTN_BWD_F32_TOL = dict(atol=2e-4, rtol=1e-4)
 # ``main -t --dtype float32`` at configs/objaverse-ldm-kl-8.yaml's widths (batch
@@ -433,16 +436,17 @@ TRAIN_TINY_F32 = dict(TRAIN_TINY, unet_channels=192, cond_widths=(192, 384))
 HEAD_KERNELS = ("fused_encoder_layer", "fused_ffn", "fused_encoder_layer_f32", "fused_ffn_f32")
 HEAD_F32_SRC = {"fused_encoder_layer_f32": ("slice3d_tpu_torch/csrc/fused_encoder_f32.cu",
                                             "slice3d_tpu/ops/pallas_encoder.py:463"),
-                "fused_ffn_f32": ("slice3d_tpu_torch/csrc/fused_ffn_f32.cu",
+                "fused_ffn_f32": ("slice3d_tpu_torch/csrc/fused_ffn_f32x3.cu",
                                   "slice3d_tpu/ops/pallas_ffn.py:49")}
 # phase 3: the fp32 head kernels against their plain versions at the bf16
 # kernels' shapes, element-wise: both compute in true fp32 and differ by
 # summation order (and the exponential in the layer); the plain versions
 # with TF32 matmuls must fail the tolerance (the control).  Readings on an
 # NVIDIA H100 80GB HBM3 at 700 W (this phase): the layer 1.2e-6 / 1.7e-6
-# (head_tokens 0 / 1) at outputs up to 5.4, the FFN 0 / 1.8e-6 at N =
-# 439,400 / 33,800; with TF32 matmuls 5.8e-4 to 7.0e-4 (millions of
-# violations): the tolerance sits ~6x above the first, ~60x below the second
+# (head_tokens 0 / 1) at outputs up to 5.4, the FFN (3xTF32 since PR 18)
+# 2.9e-6 / 1.7e-6 at N = 439,400 / 33,800; with TF32 matmuls 5.8e-4 to
+# 7.0e-4 (millions of violations): the tolerance sits ~3x above the first,
+# ~60x below the second
 HEAD_F32_TOL = dict(atol=1e-5, rtol=1e-5)
 # phase 20: the fp32 head through the entry points a user calls: the API on
 # phase 4's feeds (fp32 fused, then fp32 plain: s per object beside phase 4's
@@ -717,6 +721,13 @@ def fp32_fma_ms(flops: float, sm_clock_hz: float) -> float:
     return flops / (132 * 128 * 2 * sm_clock_hz) * 1e3
 
 
+def tf32x3_ms(flops: float, sm_clock_hz: float) -> float:
+    """The least time of ``flops`` fp32 flops as 3xTF32 on the tensor cores
+    (the fp32 kernels redesigned in csrc/*_f32x3.cu): three TF32 products
+    each, at 132 SMs x 2,048 TF32 flops a clock (535 TFLOP/s at 1980 MHz)."""
+    return 3 * flops / (TF32_PER_CLOCK * sm_clock_hz) * 1e3
+
+
 def phase_head_f32(sm_clock_hz: float):
     """The fp32 head kernels against their plain versions (TF32 off) at the
     bf16 kernels' shapes, on an fp32 SliceNet's seeded layers: the layer at
@@ -725,7 +736,9 @@ def phase_head_f32(sm_clock_hz: float):
     control that must fail ``HEAD_F32_TOL``; ms of the kernel, the plain
     version and the library (fp32 ``nn.TransformerEncoderLayer`` for the
     full layer, ``F.linear`` -> ``relu`` -> ``F.linear`` for the FFN, TF32
-    off) beside the fp32 FMA bound."""
+    off) beside the bound: the fp32 FMA bound for the layer (SIMT), the
+    3xTF32 bound for the FFN (on the tensor cores, with its FMA bound and
+    the share of each beside it)."""
     from slice3d_tpu_torch.models.slicenet import init_slicenet
     from slice3d_tpu_torch.ops import fused_encoder as fe
     from slice3d_tpu_torch.ops import fused_ffn as ff
@@ -780,20 +793,27 @@ def phase_head_f32(sm_clock_hz: float):
             ms = cuda_ms(run, 10)
             plain_ms = cuda_ms(plain, 3)
             library_ms = cuda_ms(library, 5) if library is not None else None
-        t_ops, t_bytes = fp32_fma_ms(flops, sm_clock_hz), nbytes / PEAK_BYTES * 1e3
+        x3 = name == "fused_ffn_f32"  # on the tensor cores in 3xTF32
+        fma = fp32_fma_ms(flops, sm_clock_hz)
+        t_ops, t_bytes = tf32x3_ms(flops, sm_clock_hz) if x3 else fma, nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
         m = {"head_tokens" if name == "fused_encoder_layer_f32" else "n_rows": arg, **r,
              "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
              "bound_by": "operations" if t_ops >= t_bytes else "bytes", "gflop": flops / 1e9,
              "mbytes": nbytes / 1e6, **kernel_rates(ms, flops, bound)}
+        if x3:
+            m.update(fma_bound_ms=max(fma, t_bytes), fma_bound_share=max(fma, t_bytes) / ms)
         modes[name].append(m)
         lib_s = f"{library_ms:.4f} ms" if library_ms is not None else "none (no single call)"
+        fma_s = (f"; fp32 FMA bound {m['fma_bound_ms']:.4f} ms, bound / kernel "
+                 f"{m['fma_bound_share']:.4f}" if x3 else "")
         print(f"[kernel] {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (fp32, "
-              f"TF32 off) {lib_s}, bound {bound:.4f} ms by {m['bound_by']} (fp32 FMA; "
-              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; {m['tflops']:.2f} TFLOP/s, bound "
-              f"/ kernel {m['bound_share']:.4f}); {tiling}; max_abs_err {r['max_abs_err']:.6g}, "
-              f"the plain version with TF32 matmuls {r['tf32_max_abs_err']:.6g} "
-              f"({r['tf32_violations']} violations)")
+              f"TF32 off) {lib_s}, bound {bound:.4f} ms by {m['bound_by']} "
+              f"({'3xTF32' if x3 else 'fp32 FMA'}; {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB; {m['tflops']:.2f} TFLOP/s, bound / kernel "
+              f"{m['bound_share']:.4f}{fma_s}); {tiling}; max_abs_err "
+              f"{r['max_abs_err']:.6g}, the plain version with TF32 matmuls "
+              f"{r['tf32_max_abs_err']:.6g} ({r['tf32_violations']} violations)")
         check(r["tf32_violations"] > 0, f"{what}: the plain version with TF32 matmuls passes "
               f"|k-p| <= {HEAD_F32_TOL['atol']} + {HEAD_F32_TOL['rtol']}*|p|, so the tolerance "
               "cannot tell fp32 from TF32")
@@ -3933,18 +3953,22 @@ def phase_jax_orbax(power: str):
     return out
 
 
-def attention_f32_work(shape, sm_clock_hz: float, backward: bool):
+def attention_f32_work(shape, sm_clock_hz: float, backward: bool, fma: bool = False):
     """(flops, exps, bytes, bound_ms, bound_by) of one fp32 attention call:
-    its products as fp32 FMAs on the CUDA cores (132 SMs x 128 lanes x 2 at
-    the clock: 4 T^2 DH a head forward, 10 backward), one exponential per
-    logit, each input read and each output written once (fp32; the backward
-    reads q, k, v, o, do and the row log-sum-exp and writes dq, dk, dv)."""
+    its products (4 T^2 DH a head forward, 10 backward) as fp32 FMAs on the
+    CUDA cores (132 SMs x 128 lanes x 2 at the clock) for the forward, whose
+    kernel is SIMT, and as 3xTF32 on the tensor cores (``tf32x3_ms``) for
+    the backward, or as fp32 FMAs with ``fma``; one exponential per logit;
+    each input read and each output written once (fp32; the backward reads
+    q, k, v, o, do and the row log-sum-exp and writes dq, dk, dv)."""
     b, h, t, dh = shape
     flops = (10 if backward else 4) * b * h * t * t * dh
     exps = b * h * t * t
     nbytes = (8 * b * h * t * dh + b * h * t if backward else 4 * b * h * t * dh) * 4
-    times = {"operations (fp32 FMA)": flops / (132 * 128 * 2 * sm_clock_hz),
-             "operations (exponentials)": exps / (SFU_PER_CLOCK * sm_clock_hz),
+    ops = ({"operations (3xTF32)": tf32x3_ms(flops, sm_clock_hz) / 1e3}
+           if backward and not fma else
+           {"operations (fp32 FMA)": flops / (132 * 128 * 2 * sm_clock_hz)})
+    times = {**ops, "operations (exponentials)": exps / (SFU_PER_CLOCK * sm_clock_hz),
              "bytes": nbytes / PEAK_BYTES}
     by = max(times, key=times.get)
     return flops, exps, nbytes, times[by] * 1e3, by
@@ -4020,11 +4044,13 @@ def phase_attention_f32(sm_clock_hz: float):
                                                             retain_graph=True), 5)
             del out, lib_out, qkv, lse
         flops, exps, nbytes, bound_b, by = attention_f32_work(shape, sm_clock_hz, True)
+        fma_b = attention_f32_work(shape, sm_clock_hz, True, fma=True)[3]
         bwd.append({"shape": list(shape), **rb, "ms": ms_b, "autograd_ms": autograd_ms,
                     "plain_ms": plain_b, "library_ms": library_b, "bound_ms": bound_b,
                     "bound_by": by, "gflop": flops / 1e9, "gexp": exps / 1e9,
                     "mbytes": nbytes / 1e6, "bound_share": bound_b / ms_b,
-                    "tflops": flops / ms_b / 1e9})
+                    "tflops": flops / ms_b / 1e9, "fma_bound_ms": fma_b,
+                    "fma_bound_share": fma_b / ms_b})
         for name, m in (("spatial_attention_f32", fwd[-1]), ("spatial_attention_bwd_f32",
                                                               bwd[-1])):
             print(f"[kernel] {name} {shape}: kernel {m['ms']:.4f} ms"
@@ -4035,7 +4061,10 @@ def phase_attention_f32(sm_clock_hz: float):
                   f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms by "
                   f"{m['bound_by']} ({m['gflop']:.2f} GFLOP, {m['gexp']:.4f} G exp, "
                   f"{m['mbytes']:.2f} MB; {m['tflops']:.2f} TFLOP/s, bound / kernel "
-                  f"{m['bound_share']:.4f}); max_abs_err {m['max_abs_err']:.6g}, the plain "
+                  f"{m['bound_share']:.4f}"
+                  + (f"; fp32 FMA bound {m['fma_bound_ms']:.4f} ms, bound / kernel "
+                     f"{m['fma_bound_share']:.4f}" if "fma_bound_ms" in m else "")
+                  + f"); max_abs_err {m['max_abs_err']:.6g}, the plain "
                   f"version with TF32 matmuls {m['tf32_max_abs_err']:.6g} "
                   f"({m['tf32_violations']} violations)")
         for name, m, tol in (("spatial_attention_f32", fwd[-1], ATTN_F32_TOL),

@@ -15,6 +15,9 @@
 //   * wgmma: the warpgroup's fences, commit and wait, shared-memory matrix
 //     descriptors, and m64nNk16 bf16 products with fp32 accumulators, A from
 //     shared memory (SS) or from registers (RS);
+//   * wgmma m64nNk8 TF32 products (SS and RS), the hi/lo split and the
+//     K-major planes of 3xTF32 fp32 products (csrc/spatial_attention_bwd_f32x3.cu
+//     and, through csrc/ffn_tile_f32x3.cuh, csrc/fused_ffn_f32x3.cu);
 //   * named barriers and setmaxnreg for warp-specialised blocks;
 //   * the online-softmax step of the forward;
 //   * on the host: the tensor maps, encoded through the driver entry point
@@ -371,6 +374,169 @@ __device__ __forceinline__ void online_softmax_step(float (&s)[32], float (&m)[2
       sum += a + b;
     }
     l[h] = fmaf(l[h], alpha[h], sum);
+  }
+}
+
+// fp32 on the tensor cores: 3xTF32.  wgmma takes fp32 only as TF32 (8 bits
+// of exponent, 10 of mantissa), read from a 32-bit word whose low 13 bits it
+// ignores.  A value x is split into hi = tf32(x) and lo = tf32(x - hi), both
+// rounded to nearest (ties away from zero), so x = hi + lo to within
+// 2^-22 |x|, and a product is taken as hi.hi + hi.lo + lo.hi in the fp32
+// accumulator (lo.lo, ~2^-22 of it, is dropped): three k8 products on the
+// tensor cores for one fp32 product.  tf32 operands have no transpose bit
+// (only 16-bit types do), so both operands are K-major.
+//
+// Planes.  The kernels keep each split operand as two planes (hi, lo) in
+// wgmma's un-swizzled K-major core-matrix layout: a tile of R rows (a
+// multiple of 8) by K columns (a multiple of 8) is K / 4 slabs of R x 16
+// contiguous bytes, element (r, c) at byte (c / 4) R 16 + 16 r + 4 (c % 4);
+// each 8 x 4 block is a 128-byte core matrix (core matrices R 16 bytes apart
+// along K: LBO; 128 bytes apart along the rows: SBO).  Threads write the
+// planes (they split the values), 16 contiguous bytes a row, so a quarter
+// warp stores 128 contiguous bytes.
+//
+// Register A operands.  The A fragment of an m64nNk8 tf32 product holds, in
+// warp w and lane 4 g + t, rows 16 w + g (+ 8) and columns t and t + 4 of the
+// k8 step; an accumulator holds columns 2 t and 2 t + 1.  So an accumulator's
+// k8 block j becomes the A fragment of a k8 step whose contraction index is
+// permuted within the block: fragment column k is the accumulator's column
+// kperm(k) = 2 (k % 4) + k / 4, and the paired B operand stores contraction
+// index 8 j + kperm(k) in its column 8 j + k.
+
+__device__ __forceinline__ int kperm(int k) { return 2 * (k & 3) + (k >> 2); }
+
+// x = hi + lo, both TF32 (low 13 bits zero), each rounded to nearest
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// Four values split and stored as 16 bytes of a hi plane and of a lo plane.
+__device__ __forceinline__ void tf32_split_store4(uint8_t* hi, uint8_t* lo, float4 x) {
+  uint4 h, l;
+  tf32_split(x.x, h.x, l.x);
+  tf32_split(x.y, h.y, l.y);
+  tf32_split(x.z, h.z, l.z);
+  tf32_split(x.w, h.w, l.w);
+  *reinterpret_cast<uint4*>(hi) = h;
+  *reinterpret_cast<uint4*>(lo) = l;
+}
+
+// Byte offset of element (r, c) of a plane of R rows (see above).
+template <int R>
+__device__ __forceinline__ uint32_t plane_offset(int r, int c) {
+  return uint32_t((c >> 2) * (R * 16) + r * 16 + (c & 3) * 4);
+}
+
+// Descriptor of k8 step kk of a plane of R rows, from row r0 (a multiple of 8).
+template <int R>
+__device__ __forceinline__ uint64_t plane_desc(const uint8_t* plane, int r0, int kk) {
+  return smem_desc(plane + kk * 2 * R * 16 + r0 * 16, R * 16, 128);
+}
+
+#define S3D_X4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+
+// d (64 x N, fp32) (+)= A (64 x 8, shared, K-major) B (8 x N, shared,
+// K-major), one TF32 product; scale_d = 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  static_assert(N == 32 || N == 64, "no such wgmma shape here");
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n}\n"
+        : S3D_X4(0), S3D_X4(4), S3D_X4(8), S3D_X4(12)
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n}\n"
+        : S3D_X4(0), S3D_X4(4), S3D_X4(8), S3D_X4(12), S3D_X4(16), S3D_X4(20), S3D_X4(24),
+          S3D_X4(28)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+}
+
+// d (64 x N, fp32) (+)= A (64 x 8, TF32 fragments in registers) B (8 x N,
+// shared, K-major), one TF32 product; scale_d = 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  static_assert(N == 24 || N == 48 || N == 128, "no such wgmma shape here");
+  if constexpr (N == 24) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+        "{%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+        : S3D_X4(0), S3D_X4(4), S3D_X4(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  } else if constexpr (N == 48) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+        : S3D_X4(0), S3D_X4(4), S3D_X4(8), S3D_X4(12), S3D_X4(16), S3D_X4(20)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : S3D_X4(0), S3D_X4(4), S3D_X4(8), S3D_X4(12), S3D_X4(16), S3D_X4(20), S3D_X4(24),
+          S3D_X4(28), S3D_X4(32), S3D_X4(36), S3D_X4(40), S3D_X4(44), S3D_X4(48), S3D_X4(52),
+          S3D_X4(56), S3D_X4(60)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+}
+
+#undef S3D_X4
+
+// One fp32 k8 step as three TF32 products, smallest first: d (+)= A_lo B_hi
+// + A_hi B_lo + A_hi B_hi, A and B from their hi and lo planes.
+template <int N>
+__device__ __forceinline__ void tf32x3_ss(float (&d)[N / 2], uint64_t a_hi, uint64_t a_lo,
+                                          uint64_t b_hi, uint64_t b_lo, int scale_d) {
+  wgmma_ss_tf32<N>(d, a_lo, b_hi, scale_d);
+  wgmma_ss_tf32<N>(d, a_hi, b_lo, 1);
+  wgmma_ss_tf32<N>(d, a_hi, b_hi, 1);
+}
+
+// The same with A's hi and lo fragments in registers.
+template <int N>
+__device__ __forceinline__ void tf32x3_rs(float (&d)[N / 2], const uint32_t (&a_hi)[4],
+                                          const uint32_t (&a_lo)[4], uint64_t b_hi,
+                                          uint64_t b_lo, int scale_d) {
+  wgmma_rs_tf32<N>(d, a_lo, b_hi, scale_d);
+  wgmma_rs_tf32<N>(d, a_hi, b_lo, 1);
+  wgmma_rs_tf32<N>(d, a_hi, b_hi, 1);
+}
+
+// The k8 blocks j0 .. j0 + J - 1 of an m64nN accumulator (N = 2 M) as split
+// A fragments, the contraction index permuted within each block (kperm
+// above).  j0 is a constant where the caller's loops unroll.
+template <int J, int M>
+__device__ __forceinline__ void tf32x3_from_acc(uint32_t (&hi)[J][4], uint32_t (&lo)[J][4],
+                                                const float (&d)[M], int j0 = 0) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const float* b = d + 4 * (j0 + j);
+    tf32_split(b[0], hi[j][0], lo[j][0]);  // row g, column kperm(t) = 2 t
+    tf32_split(b[2], hi[j][1], lo[j][1]);  // row g + 8, column 2 t
+    tf32_split(b[1], hi[j][2], lo[j][2]);  // row g, column kperm(t + 4) = 2 t + 1
+    tf32_split(b[3], hi[j][3], lo[j][3]);  // row g + 8, column 2 t + 1
   }
 }
 

