@@ -411,13 +411,13 @@ FSDP_AXES = (1, 2, 4, 8)
 TRAIN_TINY = dict(timesteps=20, vae_ch=32, vae_mult=(1, 2), vae_nres=1, unet_channels=32,
                   unet_mult=(1, 2), unet_nres=1, unet_attention_ds=(1,),
                   unet_inject_blocks=(0, 3), cond_widths=(32, 64), latent_size=8)
-ATTN_F32_SRC = {"spatial_attention_f32": ("slice3d_tpu_torch/csrc/spatial_attention_f32.cu",
+ATTN_F32_SRC = {"spatial_attention_f32": ("slice3d_tpu_torch/csrc/spatial_attention_f32x3.cu",
                                           "slice3d_tpu/ops/pallas_attention.py:59"),
                 "spatial_attention_bwd_f32": (
                     "slice3d_tpu_torch/csrc/spatial_attention_bwd_f32x3.cu",
                     "slice3d_tpu/ops/pallas_attention.py:150")}
 # phase 19: the fp32 attention kernels against their plain versions at
-# ATTN_SHAPES, element-wise: both compute in fp32 (the backward's products as
+# ATTN_SHAPES, element-wise: both compute in fp32 (the kernels' products as
 # 3xTF32 on the tensor cores, which rounds at the fp32 level) and differ by
 # summation order and the exponential, so the tolerances sit far below what
 # TF32 matmuls in the plain version give (the control that must fail them)
@@ -434,19 +434,19 @@ F32_SAMPLE = ["--sampler", "ddim", "--ddim_steps", "20"]
 TRAIN_TINY_F32 = dict(TRAIN_TINY, unet_channels=192, cond_widths=(192, 384))
 # the SDF head's kernels, both dtypes (counters of read_counts)
 HEAD_KERNELS = ("fused_encoder_layer", "fused_ffn", "fused_encoder_layer_f32", "fused_ffn_f32")
-HEAD_F32_SRC = {"fused_encoder_layer_f32": ("slice3d_tpu_torch/csrc/fused_encoder_f32.cu",
+HEAD_F32_SRC = {"fused_encoder_layer_f32": ("slice3d_tpu_torch/csrc/fused_encoder_f32x3.cu",
                                             "slice3d_tpu/ops/pallas_encoder.py:463"),
                 "fused_ffn_f32": ("slice3d_tpu_torch/csrc/fused_ffn_f32x3.cu",
                                   "slice3d_tpu/ops/pallas_ffn.py:49")}
 # phase 3: the fp32 head kernels against their plain versions at the bf16
-# kernels' shapes, element-wise: both compute in true fp32 and differ by
-# summation order (and the exponential in the layer); the plain versions
+# kernels' shapes, element-wise: both compute in fp32 (the kernels' products
+# as 3xTF32 on the tensor cores, which rounds at the fp32 level) and differ
+# by summation order (and the exponential in the layer); the plain versions
 # with TF32 matmuls must fail the tolerance (the control).  Readings on an
-# NVIDIA H100 80GB HBM3 at 700 W (this phase): the layer 1.2e-6 / 1.7e-6
-# (head_tokens 0 / 1) at outputs up to 5.4, the FFN (3xTF32 since PR 18)
-# 2.9e-6 / 1.7e-6 at N = 439,400 / 33,800; with TF32 matmuls 5.8e-4 to
-# 7.0e-4 (millions of violations): the tolerance sits ~3x above the first,
-# ~60x below the second
+# NVIDIA H100 80GB HBM3 at 700 W (this phase): the layer 3.1e-6 / 2.7e-6
+# (head_tokens 0 / 1) at outputs up to 5.4, the FFN 2.9e-6 / 1.7e-6 at N =
+# 439,400 / 33,800; with TF32 matmuls 5.8e-4 to 7.0e-4 (millions of
+# violations): the tolerance sits ~3x above the first, ~60x below the second
 HEAD_F32_TOL = dict(atol=1e-5, rtol=1e-5)
 # phase 20: the fp32 head through the entry points a user calls: the API on
 # phase 4's feeds (fp32 fused, then fp32 plain: s per object beside phase 4's
@@ -723,8 +723,8 @@ def fp32_fma_ms(flops: float, sm_clock_hz: float) -> float:
 
 def tf32x3_ms(flops: float, sm_clock_hz: float) -> float:
     """The least time of ``flops`` fp32 flops as 3xTF32 on the tensor cores
-    (the fp32 kernels redesigned in csrc/*_f32x3.cu): three TF32 products
-    each, at 132 SMs x 2,048 TF32 flops a clock (535 TFLOP/s at 1980 MHz)."""
+    (the fp32 kernels, csrc/*_f32x3.cu): three TF32 products each, at 132
+    SMs x 2,048 TF32 flops a clock (535 TFLOP/s at 1980 MHz)."""
     return 3 * flops / (TF32_PER_CLOCK * sm_clock_hz) * 1e3
 
 
@@ -736,9 +736,9 @@ def phase_head_f32(sm_clock_hz: float):
     control that must fail ``HEAD_F32_TOL``; ms of the kernel, the plain
     version and the library (fp32 ``nn.TransformerEncoderLayer`` for the
     full layer, ``F.linear`` -> ``relu`` -> ``F.linear`` for the FFN, TF32
-    off) beside the bound: the fp32 FMA bound for the layer (SIMT), the
-    3xTF32 bound for the FFN (on the tensor cores, with its FMA bound and
-    the share of each beside it)."""
+    off) beside the bound: the 3xTF32 bound (both kernels run their
+    products on the tensor cores), with the fp32 FMA bound and the share of
+    each beside it."""
     from slice3d_tpu_torch.models.slicenet import init_slicenet
     from slice3d_tpu_torch.ops import fused_encoder as fe
     from slice3d_tpu_torch.ops import fused_ffn as ff
@@ -793,25 +793,21 @@ def phase_head_f32(sm_clock_hz: float):
             ms = cuda_ms(run, 10)
             plain_ms = cuda_ms(plain, 3)
             library_ms = cuda_ms(library, 5) if library is not None else None
-        x3 = name == "fused_ffn_f32"  # on the tensor cores in 3xTF32
-        fma = fp32_fma_ms(flops, sm_clock_hz)
-        t_ops, t_bytes = tf32x3_ms(flops, sm_clock_hz) if x3 else fma, nbytes / PEAK_BYTES * 1e3
+        fma = max(fp32_fma_ms(flops, sm_clock_hz), nbytes / PEAK_BYTES * 1e3)
+        t_ops, t_bytes = tf32x3_ms(flops, sm_clock_hz), nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
         m = {"head_tokens" if name == "fused_encoder_layer_f32" else "n_rows": arg, **r,
              "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
              "bound_by": "operations" if t_ops >= t_bytes else "bytes", "gflop": flops / 1e9,
-             "mbytes": nbytes / 1e6, **kernel_rates(ms, flops, bound)}
-        if x3:
-            m.update(fma_bound_ms=max(fma, t_bytes), fma_bound_share=max(fma, t_bytes) / ms)
+             "mbytes": nbytes / 1e6, **kernel_rates(ms, flops, bound),
+             "fma_bound_ms": fma, "fma_bound_share": fma / ms}
         modes[name].append(m)
         lib_s = f"{library_ms:.4f} ms" if library_ms is not None else "none (no single call)"
-        fma_s = (f"; fp32 FMA bound {m['fma_bound_ms']:.4f} ms, bound / kernel "
-                 f"{m['fma_bound_share']:.4f}" if x3 else "")
         print(f"[kernel] {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (fp32, "
               f"TF32 off) {lib_s}, bound {bound:.4f} ms by {m['bound_by']} "
-              f"({'3xTF32' if x3 else 'fp32 FMA'}; {flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB; {m['tflops']:.2f} TFLOP/s, bound / kernel "
-              f"{m['bound_share']:.4f}{fma_s}); {tiling}; max_abs_err "
+              f"(3xTF32; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; {m['tflops']:.2f} "
+              f"TFLOP/s, bound / kernel {m['bound_share']:.4f}; fp32 FMA bound {fma:.4f} ms, "
+              f"bound / kernel {m['fma_bound_share']:.4f}); {tiling}; max_abs_err "
               f"{r['max_abs_err']:.6g}, the plain version with TF32 matmuls "
               f"{r['tf32_max_abs_err']:.6g} ({r['tf32_violations']} violations)")
         check(r["tf32_violations"] > 0, f"{what}: the plain version with TF32 matmuls passes "
@@ -3955,19 +3951,17 @@ def phase_jax_orbax(power: str):
 
 def attention_f32_work(shape, sm_clock_hz: float, backward: bool, fma: bool = False):
     """(flops, exps, bytes, bound_ms, bound_by) of one fp32 attention call:
-    its products (4 T^2 DH a head forward, 10 backward) as fp32 FMAs on the
-    CUDA cores (132 SMs x 128 lanes x 2 at the clock) for the forward, whose
-    kernel is SIMT, and as 3xTF32 on the tensor cores (``tf32x3_ms``) for
-    the backward, or as fp32 FMAs with ``fma``; one exponential per logit;
+    its products (4 T^2 DH a head forward, 10 backward) as 3xTF32 on the
+    tensor cores (``tf32x3_ms``), or as fp32 FMAs on the CUDA cores (132 SMs
+    x 128 lanes x 2 at the clock) with ``fma``; one exponential per logit;
     each input read and each output written once (fp32; the backward reads
     q, k, v, o, do and the row log-sum-exp and writes dq, dk, dv)."""
     b, h, t, dh = shape
     flops = (10 if backward else 4) * b * h * t * t * dh
     exps = b * h * t * t
     nbytes = (8 * b * h * t * dh + b * h * t if backward else 4 * b * h * t * dh) * 4
-    ops = ({"operations (3xTF32)": tf32x3_ms(flops, sm_clock_hz) / 1e3}
-           if backward and not fma else
-           {"operations (fp32 FMA)": flops / (132 * 128 * 2 * sm_clock_hz)})
+    ops = ({"operations (fp32 FMA)": flops / (132 * 128 * 2 * sm_clock_hz)} if fma else
+           {"operations (3xTF32)": tf32x3_ms(flops, sm_clock_hz) / 1e3})
     times = {**ops, "operations (exponentials)": exps / (SFU_PER_CLOCK * sm_clock_hz),
              "bytes": nbytes / PEAK_BYTES}
     by = max(times, key=times.get)
@@ -4019,10 +4013,12 @@ def phase_attention_f32(sm_clock_hz: float):
             plain_ms = cuda_ms(lambda: sa.spatial_attention_ref(q, k, v, scale), 3)
             library_ms = cuda_ms(lambda: sdpa(q, k, v, scale=scale), 10)
         flops, exps, nbytes, bound_ms, by = attention_f32_work(shape, sm_clock_hz, False)
+        fma_f = attention_f32_work(shape, sm_clock_hz, False, fma=True)[3]
         fwd.append({"shape": list(shape), **r, "ms": ms, "plain_ms": plain_ms,
                     "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": by,
                     "gflop": flops / 1e9, "gexp": exps / 1e9, "mbytes": nbytes / 1e6,
-                    "bound_share": bound_ms / ms, "tflops": flops / ms / 1e9})
+                    "bound_share": bound_ms / ms, "tflops": flops / ms / 1e9,
+                    "fma_bound_ms": fma_f, "fma_bound_share": fma_f / ms})
         with tf32(False):
             qkv = [x.clone().requires_grad_() for x in (q, k, v)]
             out = sa.spatial_attention(*qkv, scale)
@@ -4062,8 +4058,8 @@ def phase_attention_f32(sm_clock_hz: float):
                   f"{m['bound_by']} ({m['gflop']:.2f} GFLOP, {m['gexp']:.4f} G exp, "
                   f"{m['mbytes']:.2f} MB; {m['tflops']:.2f} TFLOP/s, bound / kernel "
                   f"{m['bound_share']:.4f}"
-                  + (f"; fp32 FMA bound {m['fma_bound_ms']:.4f} ms, bound / kernel "
-                     f"{m['fma_bound_share']:.4f}" if "fma_bound_ms" in m else "")
+                  + f"; fp32 FMA bound {m['fma_bound_ms']:.4f} ms, bound / kernel "
+                  f"{m['fma_bound_share']:.4f}"
                   + f"); max_abs_err {m['max_abs_err']:.6g}, the plain "
                   f"version with TF32 matmuls {m['tf32_max_abs_err']:.6g} "
                   f"({m['tf32_violations']} violations)")

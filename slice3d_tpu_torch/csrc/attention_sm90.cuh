@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's hand-written kernels:
 // the spatial attention kernels (csrc/spatial_attention.cu,
-// csrc/spatial_attention_bwd.cu) and, through csrc/ffn_tile.cuh, the SDF
-// head's (csrc/fused_encoder.cu, csrc/fused_ffn.cu).
+// csrc/spatial_attention_bwd.cu, and in fp32 csrc/spatial_attention_f32x3.cu,
+// csrc/spatial_attention_bwd_f32x3.cu) and, through csrc/ffn_tile.cuh and
+// csrc/ffn_tile_f32x3.cuh, the SDF head's (csrc/fused_encoder.cu,
+// csrc/fused_ffn.cu, csrc/fused_encoder_f32x3.cu, csrc/fused_ffn_f32x3.cu).
 //
 //   * mbarriers: init, arrive, arrive.expect_tx, try_wait.parity.  A wait
 //     that has not completed after 10 s of the card's global timer
@@ -16,8 +18,9 @@
 //     descriptors, and m64nNk16 bf16 products with fp32 accumulators, A from
 //     shared memory (SS) or from registers (RS);
 //   * wgmma m64nNk8 TF32 products (SS and RS), the hi/lo split and the
-//     K-major planes of 3xTF32 fp32 products (csrc/spatial_attention_bwd_f32x3.cu
-//     and, through csrc/ffn_tile_f32x3.cuh, csrc/fused_ffn_f32x3.cu);
+//     K-major planes of 3xTF32 fp32 products, and the splitting warpgroup
+//     of the fp32 attention kernels, which splits streamed tiles into planes
+//     while two consumer warpgroups run the products;
 //   * named barriers and setmaxnreg for warp-specialised blocks;
 //   * the online-softmax step of the forward;
 //   * on the host: the tensor maps, encoded through the driver entry point
@@ -441,8 +444,32 @@ __device__ __forceinline__ uint64_t plane_desc(const uint8_t* plane, int r0, int
 template <int N>
 __device__ __forceinline__ void wgmma_ss_tf32(float (&d)[N / 2], uint64_t da, uint64_t db,
                                               int scale_d) {
-  static_assert(N == 32 || N == 64, "no such wgmma shape here");
-  if constexpr (N == 32) {
+  static_assert(N == 32 || N == 64 || N == 96 || N == 128, "no such wgmma shape here");
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1;\n}\n"
+        : S3D_X4(0), S3D_X4(4), S3D_X4(8), S3D_X4(12), S3D_X4(16), S3D_X4(20), S3D_X4(24),
+          S3D_X4(28), S3D_X4(32), S3D_X4(36), S3D_X4(40), S3D_X4(44), S3D_X4(48), S3D_X4(52),
+          S3D_X4(56), S3D_X4(60)
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else if constexpr (N == 96) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "%48, %49, p, 1, 1;\n}\n"
+        : S3D_X4(0), S3D_X4(4), S3D_X4(8), S3D_X4(12), S3D_X4(16), S3D_X4(20), S3D_X4(24),
+          S3D_X4(28), S3D_X4(32), S3D_X4(36), S3D_X4(40), S3D_X4(44)
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else if constexpr (N == 32) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
@@ -537,6 +564,94 @@ __device__ __forceinline__ void tf32x3_from_acc(uint32_t (&hi)[J][4], uint32_t (
     tf32_split(b[2], hi[j][1], lo[j][1]);  // row g + 8, column 2 t
     tf32_split(b[1], hi[j][2], lo[j][2]);  // row g, column kperm(t + 4) = 2 t + 1
     tf32_split(b[3], hi[j][3], lo[j][3]);  // row g + 8, column 2 t + 1
+  }
+}
+
+// Rows [0, ROWS) of DH fp32 at src (global or shared, 16-byte aligned) ->
+// rows r0 .. of hi, lo planes of PR rows whose contraction runs over the
+// head; t: the thread's index among NT.  A quarter warp takes 8 rows, row
+// r8 its 16-byte piece (c + r8 / ROT) % NCH: the stores fill the 8 rows of
+// a core-matrix column, in distinct banks, and the loads from rows DH * 4
+// bytes apart fall in distinct banks too.
+template <int ROWS, int PR, int DH, int NT>
+__device__ __forceinline__ void split_rows(const float* src, uint8_t* hi, uint8_t* lo, int r0,
+                                           int t) {
+  constexpr int NCH = DH / 4;
+  constexpr int ROT = DH == 48 ? 2 : 4;
+  static_assert(ROWS * NCH % NT == 0, "whole float4s a thread");
+#pragma unroll
+  for (int k = 0; k < ROWS * NCH / NT; ++k) {
+    const int i = t + NT * k;
+    const int rest = i >> 3, r8 = i & 7;
+    const int c = (rest % NCH + r8 / ROT) % NCH, r = (rest / NCH) * 8 + r8;
+    const uint32_t off = plane_offset<PR>(r0 + r, 4 * c);
+    tf32_split_store4(hi + off, lo + off, reinterpret_cast<const float4*>(src)[r * NCH + c]);
+  }
+}
+
+// Rows [0, ROWS) of DH fp32 at src (shared) -> hi, lo planes of DH rows whose
+// contraction runs over the ROWS rows, row m in column 8 (m / 8) + kslot(m %
+// 8): column 4 cc + e holds row 8 (cc / 2) + kperm(4 (cc % 2) + e) = 8 (cc /
+// 2) + 2 e + cc % 2.  A thread stores 16 bytes of a plane row; a quarter
+// warp, 8 rows of one core matrix.
+template <int ROWS, int DH, int NT>
+__device__ __forceinline__ void split_cols(const float* src, uint8_t* hi, uint8_t* lo, int t) {
+  constexpr int ITEMS = DH * ROWS / 4;
+  static_assert(ITEMS % NT == 0, "whole items a thread");
+#pragma unroll
+  for (int k = 0; k < ITEMS / NT; ++k) {
+    const int i = t + NT * k;
+    const int d = 8 * ((i >> 3) % (DH / 8)) + (i & 7), cc = (i >> 3) / (DH / 8);
+    const float* col = src + (8 * (cc >> 1) + (cc & 1)) * DH + d;
+    const uint32_t off = plane_offset<DH>(d, 4 * cc);
+    tf32_split_store4(hi + off, lo + off,
+                      make_float4(col[0], col[2 * DH], col[4 * DH], col[6 * DH]));
+  }
+}
+
+// The fp32 attention kernels' mbarriers: raw_full[2] (the bulk copies'
+// bytes), full[2] (every splitting thread), empty[2] (every consumer warp),
+// initialised by thread 0 before the block's first barrier.
+__device__ __forceinline__ void split_bars_init(uint64_t* bars, int consumer_warps) {
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&bars[b], 1);
+      mbar_init(&bars[2 + b], 128);
+      mbar_init(&bars[4 + b], consumer_warps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// The splitting warpgroup's loop (its thread t of 128, its named barrier
+// bar): per tile j, wait for stage j % 2 to be free and for raw tile j to
+// land, split it into the stage (split(raw, stage, t)), release the stage
+// to the consumers, and, once all its threads have read the raw tile, copy
+// tile j + 2 into it (fetch(j + 2)).  The consumers wait on full[j % 2] and
+// each of their warps arrives on empty[j % 2] once its products have read
+// the stage.
+template <class Split, class Fetch>
+__device__ __forceinline__ void splitter_loop(int t, int bar, int n_tiles, int raw_bytes,
+                                              int stage_bytes, uint8_t* raws, uint8_t* stages,
+                                              uint64_t* raw_full, uint64_t* full,
+                                              uint64_t* empty, Split split, Fetch fetch) {
+  if (t == 0) {
+    fetch(0);
+    if (n_tiles > 1) fetch(1);
+  }
+#pragma unroll 1
+  for (int j = 0; j < n_tiles; ++j) {
+    const int b = j & 1;
+    if (j >= 2) mbar_wait(&empty[b], ((j >> 1) & 1) ^ 1);
+    mbar_wait(&raw_full[b], (j >> 1) & 1);
+    split(reinterpret_cast<const float*>(raws + b * raw_bytes), stages + b * stage_bytes, t);
+    fence_proxy_async();
+    mbar_arrive(&full[b]);
+    if (j + 2 < n_tiles) {
+      named_sync(bar, 128);
+      if (t == 0) fetch(j + 2);
+    }
   }
 }
 

@@ -1,7 +1,10 @@
 // The F-tile loop of the SDF head's 128 -> F -> 128 ReLU FFN in fp32 on
-// Hopper's tensor cores (sm_90a, 3xTF32), used by csrc/fused_ffn_f32x3.cu.
-// Built from csrc/attention_sm90.cuh's pieces (mbarriers that trap, bulk
-// copies, the TF32 split, planes and wgmma products).
+// Hopper's tensor cores (sm_90a, 3xTF32), and the weight ring it reads,
+// used by csrc/fused_ffn_f32x3.cu and csrc/fused_encoder_f32x3.cu (the
+// encoder layer's FFN half; its attention kernel streams Wqkv through a ring
+// of its own item size).  Built from csrc/attention_sm90.cuh's pieces
+// (mbarriers that trap, bulk copies, the TF32 split, planes and wgmma
+// products).
 //
 // fp32 in, fp32 out: every product is three TF32 products of split operands
 // (x = hi + lo, d += lo.hi + hi.lo + hi.hi; attention_sm90.cuh), which keeps
@@ -26,8 +29,9 @@
 // under each other's epilogues.
 //
 // Weights: the wrapper packs each weight set once (ops/prepared.py,
-// ops/fused_ffn.py::ffn_stream_f32x3) into the stream of items the ring
-// reads, per F-tile a W1 item then a W2 item, each its hi plane then its lo
+// ops/fused_ffn.py::ffn_stream_f32x3; the encoder layer puts Wo's items
+// ahead of them, ops/fused_encoder.py::_pack_f32) into the stream of items
+// the ring reads, per F-tile a W1 item then a W2 item, each its hi plane then its lo
 // plane in the layout wgmma reads (32 KB an item at FT = 32): W1's rows are
 // hidden units, W2's rows the 128 outputs.  The producer copies an item with
 // one 1-D bulk copy into a ring of STAGES slots; a slot is refilled when the
@@ -54,38 +58,45 @@ constexpr int PLANE_BYTES = FT * D * 4;      // a TF32 plane of a W1 or W2 F-til
 constexpr int ITEM_BYTES = 2 * PLANE_BYTES;  // an item of the stream: hi, then lo
 constexpr int X_PLANE_BYTES = ROWS * D * 4;  // a TF32 plane of the tile's x rows
 
-// The weight ring: item `it` of the stream sits in slot it % STAGES; `full`
-// completes when its bytes have landed, `empty` when the consumer warps are
-// done with it.
-struct Ring {
+// A weight ring of S slots of ITEM bytes: item `it` of the stream sits in
+// slot it % S; `full` completes when its bytes have landed, `empty` when
+// the consumer warps are done with it.
+template <int S, int ITEM>
+struct RingOf {
+  static constexpr int SLOTS = S;
+  static constexpr int ITEM_SIZE = ITEM;
   uint8_t* slots;
   uint64_t* full;
   uint64_t* empty;
 
   __device__ void init() const {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], CONSUMER_WARPS);
     }
   }
   // consumer: item it, once it has landed
   __device__ const uint8_t* acquire(int it) const {
-    const int s = it % STAGES;
-    mbar_wait(&full[s], (it / STAGES) & 1);
-    return slots + s * ITEM_BYTES;
+    const int s = it % S;
+    mbar_wait(&full[s], (it / S) & 1);
+    return slots + s * ITEM;
   }
   // consumer warp, after its products that read item it have completed
   __device__ void release(int it, int lane) const {
-    if (lane == 0) mbar_arrive(&empty[it % STAGES]);
+    if (lane == 0) mbar_arrive(&empty[it % S]);
   }
   // producer: copy item it of the stream from src once its slot is free
   __device__ void load(int it, const uint8_t* src) const {
-    const int s = it % STAGES;
-    if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
-    mbar_expect_tx(&full[s], ITEM_BYTES);
-    bulk_load(slots + s * ITEM_BYTES, src, ITEM_BYTES, &full[s]);
+    const int s = it % S;
+    if (it >= S) mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+    mbar_expect_tx(&full[s], ITEM);
+    bulk_load(slots + s * ITEM, src, ITEM, &full[s]);
   }
 };
+
+// The FFN's ring: W1 and W2 items of an F-tile (and, in the encoder layer,
+// Wo's items before them).
+using Ring = RingOf<STAGES, ITEM_BYTES>;
 
 // Rows row0 .. row0 + 63 of x (n rows of D fp32, 16-byte aligned) into plane
 // rows r0 .. r0 + 63 of the x planes (rows past n as zeros, which compute

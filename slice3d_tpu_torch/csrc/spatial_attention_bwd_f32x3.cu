@@ -5,7 +5,7 @@
 // (pallas_call at :150, body _attn_bwd_kernel) for fp32 inputs, the training
 // precision of the JAX package's root CLI.  For every (batch, head), from q,
 // k, v, the forward's output o and the row log-sum-exp L it saved
-// (csrc/spatial_attention_f32.cu), and the output's gradient do, all
+// (csrc/spatial_attention_f32x3.cu), and the output's gradient do, all
 // (B, H, T, DH) fp32:
 //
 //   P  = softmax(q k^T * scale)              recomputed, P = exp2(S c - L)
@@ -58,9 +58,10 @@
 // streams the raw tiles (the rows of one head are contiguous) with 1-D bulk
 // copies on mbarriers, two tiles ahead, and all of it splits each raw tile
 // into one of two stages of planes while the consumers run their products
-// on the other; full / empty mbarriers hand the stages over.  So the split
-// runs beside the products, and a tile is split once for 128 rows.  The
-// wrapper allocates delta; the kernels allocate nothing.
+// on the other; full / empty mbarriers hand the stages over (its loop and
+// the split helpers are attention_sm90.cuh's, shared with the forward).  So
+// the split runs beside the products, and a tile is split once for 128
+// rows.  The wrapper allocates delta; the kernels allocate nothing.
 // Registers and shared memory (ptxas -v on the H100, sm_90a): 168 registers
 // a thread at launch, no spills; dynamic shared memory 174,128 B (dk/dv) and
 // 148,528 B (dq) at DH 24, 222,256 B and 197,680 B at DH 48.
@@ -114,90 +115,6 @@ struct X3 {
   static_assert(SMEM <= 232448, "shared memory over the per-block limit");
 };
 
-// Rows [0, ROWS) of DH fp32 at src (global or shared, 16-byte aligned) ->
-// rows r0 .. of hi, lo planes of PR rows whose contraction runs over the
-// head; t: the thread's index among NT.  A quarter warp takes 8 rows, row
-// r8 its 16-byte piece (c + r8 / ROT) % NCH: the stores fill the 8 rows of
-// a core-matrix column, in distinct banks, and the loads from rows DH * 4
-// bytes apart fall in distinct banks too.
-template <int ROWS, int PR, int DH, int NT>
-__device__ __forceinline__ void split_rows(const float* src, uint8_t* hi, uint8_t* lo, int r0,
-                                           int t) {
-  constexpr int NCH = DH / 4;
-  constexpr int ROT = DH == 48 ? 2 : 4;
-  static_assert(ROWS * NCH % NT == 0, "whole float4s a thread");
-#pragma unroll
-  for (int k = 0; k < ROWS * NCH / NT; ++k) {
-    const int i = t + NT * k;
-    const int rest = i >> 3, r8 = i & 7;
-    const int c = (rest % NCH + r8 / ROT) % NCH, r = (rest / NCH) * 8 + r8;
-    const uint32_t off = plane_offset<PR>(r0 + r, 4 * c);
-    tf32_split_store4(hi + off, lo + off, reinterpret_cast<const float4*>(src)[r * NCH + c]);
-  }
-}
-
-// Rows [0, ROWS) of DH fp32 at src (shared) -> hi, lo planes of DH rows whose
-// contraction runs over the ROWS rows, row m in column 8 (m / 8) + kslot(m %
-// 8): column 4 cc + e holds row 8 (cc / 2) + kperm(4 (cc % 2) + e) = 8 (cc /
-// 2) + 2 e + cc % 2.  A thread stores 16 bytes of a plane row; a quarter
-// warp, 8 rows of one core matrix.
-template <int ROWS, int DH, int NT>
-__device__ __forceinline__ void split_cols(const float* src, uint8_t* hi, uint8_t* lo, int t) {
-  constexpr int ITEMS = DH * ROWS / 4;
-  static_assert(ITEMS % NT == 0, "whole items a thread");
-#pragma unroll
-  for (int k = 0; k < ITEMS / NT; ++k) {
-    const int i = t + NT * k;
-    const int d = 8 * ((i >> 3) % (DH / 8)) + (i & 7), cc = (i >> 3) / (DH / 8);
-    const float* col = src + (8 * (cc >> 1) + (cc & 1)) * DH + d;
-    const uint32_t off = plane_offset<DH>(d, 4 * cc);
-    tf32_split_store4(hi + off, lo + off,
-                      make_float4(col[0], col[2 * DH], col[4 * DH], col[6 * DH]));
-  }
-}
-
-// The splitting warpgroup's loop, shared by both kernels: per tile j, wait
-// for stage j % 2 to be free and for raw tile j to land, split it into the
-// stage (split(raw, stage, t)), release the stage to the consumers, and,
-// once all its threads have read the raw tile, copy tile j + 2 into it
-// (fetch(j + 2)).
-template <class Split, class Fetch>
-__device__ __forceinline__ void splitter_loop(int n_tiles, int raw_bytes, int stage_bytes,
-                                              uint8_t* raws, uint8_t* stages,
-                                              uint64_t* raw_full, uint64_t* full,
-                                              uint64_t* empty, Split split, Fetch fetch) {
-  const int t = threadIdx.x - 128 * SPLITTER;
-  if (t == 0) {
-    fetch(0);
-    if (n_tiles > 1) fetch(1);
-  }
-#pragma unroll 1
-  for (int j = 0; j < n_tiles; ++j) {
-    const int b = j & 1;
-    if (j >= 2) mbar_wait(&empty[b], ((j >> 1) & 1) ^ 1);
-    mbar_wait(&raw_full[b], (j >> 1) & 1);
-    split(reinterpret_cast<const float*>(raws + b * raw_bytes), stages + b * stage_bytes, t);
-    fence_proxy_async();
-    mbar_arrive(&full[b]);
-    if (j + 2 < n_tiles) {
-      named_sync(BAR_SPLIT, 128);
-      if (t == 0) fetch(j + 2);
-    }
-  }
-}
-
-__device__ __forceinline__ void init_bars(uint64_t* bars) {
-  if (threadIdx.x == 0) {
-    for (int b = 0; b < 2; ++b) {
-      mbar_init(&bars[b], 1);              // raw_full: the bulk copies' bytes
-      mbar_init(&bars[2 + b], 128);        // full: every splitting thread
-      mbar_init(&bars[4 + b], 4 * CONSUMERS);  // empty: every consumer warp
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-}
-
 // Block b owns the queries (b % (t / BROWS)) * BROWS .. + BROWS - 1 of the
 // (batch, head) b / (t / BROWS), 64 for each consumer warpgroup.
 template <int DH>
@@ -227,12 +144,12 @@ __global__ void __launch_bounds__(THREADS, 1) attention_bwd_dq_x3_kernel(
   const size_t head = size_t(blockIdx.x / n_blocks) * t;
   const size_t row0 = head + size_t(blockIdx.x % n_blocks) * BROWS;
   const int n_tiles = t / TILE;
-  init_bars(raw_full);
+  split_bars_init(raw_full, 4 * CONSUMERS);
 
   if (wg == SPLITTER) {
     regs_dec<WS::PRODUCER>();
     splitter_loop(
-        n_tiles, C::RAW, C::STAGE, raws, stages, raw_full, full, empty,
+        tid - 128 * SPLITTER, BAR_SPLIT, n_tiles, C::RAW, C::STAGE, raws, stages, raw_full, full, empty,
         [&](const float* raw, uint8_t* st, int pt) {
           split_rows<TILE, TILE, DH, 128>(raw, st, st + TP, 0, pt);
           split_rows<TILE, TILE, DH, 128>(raw + TILE * DH, st + 2 * TP, st + 3 * TP, 0, pt);
@@ -373,12 +290,12 @@ __global__ void __launch_bounds__(THREADS, 1) attention_bwd_dkdv_x3_kernel(
   const size_t head = size_t(blockIdx.x / n_blocks) * t;
   const size_t key0 = head + size_t(blockIdx.x % n_blocks) * BROWS;
   const int n_tiles = t / TILE;
-  init_bars(raw_full);
+  split_bars_init(raw_full, 4 * CONSUMERS);
 
   if (wg == SPLITTER) {
     regs_dec<WS::PRODUCER>();
     splitter_loop(
-        n_tiles, C::RAW, C::STAGE, raws, stages, raw_full, full, empty,
+        tid - 128 * SPLITTER, BAR_SPLIT, n_tiles, C::RAW, C::STAGE, raws, stages, raw_full, full, empty,
         [&](const float* raw, uint8_t* st, int pt) {
           split_rows<TILE, TILE, DH, 128>(raw, st, st + TP, 0, pt);
           split_rows<TILE, TILE, DH, 128>(raw + TILE * DH, st + 2 * TP, st + 3 * TP, 0, pt);

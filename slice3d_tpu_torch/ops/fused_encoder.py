@@ -4,9 +4,11 @@ Replaces ``slice3d_tpu/ops/pallas_encoder.py::fused_encoder_layer``, which
 the JAX package runs at the model's compute dtype, bf16 or fp32.  The
 kernels are written by hand for Hopper (sm_90a), one a dtype: bf16 in
 ``csrc/fused_encoder.cu`` (``wgmma``/TMA), fp32 in
-``csrc/fused_encoder_f32.cu`` (fp32 FMAs on the CUDA cores: no TF32, no
-bf16); their source notes say what bounds them and how the design answers
-that.
+``csrc/fused_encoder_f32x3.cu`` on ``csrc/ffn_tile_f32x3.cuh`` (``wgmma`` in
+3xTF32: each fp32 product with a weight as three TF32 products of operands
+split into a hi and a lo TF32 part, which keeps fp32's accuracy; the
+attention core, softmax and LayerNorms in fp32 on the CUDA cores); their
+source notes say what bounds them and how the design answers that.
 
 ``fused_encoder_layer`` takes a CPU tensor to ``fused_encoder_layer_ref`` and
 a CUDA tensor to the kernel of its dtype (``kernel_dtype``: bf16 or fp32),
@@ -17,7 +19,8 @@ dtype at the same points as the TPU kernel's default body
 the attention output, h1 after the first LayerNorm and the ReLU output; the
 products accumulate, and the softmax and both LayerNorms run, in fp32.  In
 fp32 every rounding is the identity, and the fp32 kernel differs from the
-plain version by summation order and the exponential alone.
+plain version by the rounding of its split products (at the fp32 level),
+summation order and the exponential.
 
 ``params`` holds one layer's tensors under the reference torch names (the
 keys of ``TransformerEncoderLayer.named_parameters()``):
@@ -35,7 +38,7 @@ from typing import Mapping, Tuple
 
 import torch
 
-from .fused_ffn import NVCC_FLAGS, ffn_stream_f32
+from .fused_ffn import NVCC_FLAGS, ffn_stream_f32x3, planes, tf32_split
 from .prepared import KERNEL_DTYPES, aligned, one_kernel_dtype, prepare
 
 __all__ = ["fused_encoder_layer", "fused_encoder_layer_ref", "kernel_dtype", "KERNEL_DTYPES",
@@ -45,8 +48,9 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_CSRC, "fused_encoder.cu")
 # the F-tile loop (shared with fused_ffn.cu) and the Hopper pieces it is built from
 _HDRS = [os.path.join(_CSRC, "ffn_tile.cuh"), os.path.join(_CSRC, "attention_sm90.cuh")]
-_SRC_F32 = os.path.join(_CSRC, "fused_encoder_f32.cu")
-_HDRS_F32 = [os.path.join(_CSRC, "ffn_tile_f32.cuh")]  # the fp32 F-tile loop
+_SRC_F32 = os.path.join(_CSRC, "fused_encoder_f32x3.cu")
+# its F-tile loop and the Hopper pieces (TF32 split, planes, wgmma) it is built from
+_HDRS_F32 = [os.path.join(_CSRC, "ffn_tile_f32x3.cuh"), os.path.join(_CSRC, "attention_sm90.cuh")]
 
 # kernel launches made through fused_encoder_layer, bf16 and fp32 (see
 # chip_smoke.py)
@@ -112,11 +116,13 @@ def fused_encoder_layer_ref(x: torch.Tensor, params: Mapping[str, torch.Tensor],
 # holds ROWS rows (ROWS // T whole points, or at most ROWS points with
 # head_tokens = 1 in bf16) of points of at most MAX_T tokens; the fp32
 # kernels' attention takes ROWS // T whole points a tile and the rest ROWS
-# rows of its output, over NH heads of DH
+# rows of its output, over NH heads of DH, the attention's weight items KC
+# K-columns of a head's q|k|v rows (ATTN_STAGES of them in its ring)
 KERNEL_TILES = {"ffn_tile.cuh": {"D": 128, "FT": 64, "ROWS": 128, "STAGES": 3},
                 "fused_encoder.cu": {"MAX_T": 16},
-                "ffn_tile_f32.cuh": {"D": 128, "FT": 64, "ROWS": 128, "STAGES": 3},
-                "fused_encoder_f32.cu": {"NH": 4, "DH": 32, "MAX_T": 16}}
+                "ffn_tile_f32x3.cuh": {"D": 128, "FT": 32, "ROWS": 128, "STAGES": 3},
+                "fused_encoder_f32x3.cu": {"NH": 4, "DH": 32, "MAX_T": 16, "KC": 16,
+                                           "ATTN_STAGES": 4}}
 F_MULTIPLE = KERNEL_TILES["ffn_tile.cuh"]["FT"]
 _ROWS = KERNEL_TILES["ffn_tile.cuh"]["ROWS"]
 
@@ -130,13 +136,14 @@ def weight_bytes_per_call(n: int, t: int, head_tokens: int, f: int = 2048,
     ROWS) as keep the rounds of a persistent grid of ``grid`` blocks (one an
     SM: 132 on the H100) that ROWS-point tiles would take, as the kernel
     chooses.  fp32: the attention kernel reads Wqkv once a tile of ROWS // t
-    points, the rest Wo, W1 and W2 once a tile of ROWS output rows."""
+    points, the rest Wo, W1 and W2 once a tile of ROWS output rows, each
+    weight as a hi and a lo TF32 plane (8 bytes)."""
     d = KERNEL_TILES["ffn_tile.cuh"]["D"]
     if dtype == torch.float32:
-        rows = KERNEL_TILES["ffn_tile_f32.cuh"]["ROWS"]
+        rows = KERNEL_TILES["ffn_tile_f32x3.cuh"]["ROWS"]
         attn_tiles = -(-n // (rows // t))
         post_tiles = -(-(n * (head_tokens or t)) // rows)
-        return 4 * (attn_tiles * 3 * d * d + post_tiles * (d * d + 2 * d * f))
+        return 8 * (attn_tiles * 3 * d * d + post_tiles * (d * d + 2 * d * f))
     if head_tokens:
         rounds = -(-(-(-n // _ROWS)) // grid)
         tile_pts = -(-n // (rounds * grid))
@@ -212,16 +219,28 @@ def _on_card(x: torch.Tensor) -> bool:
     return x.device.type == "cuda"
 
 
+def _items(w: torch.Tensor, k: int) -> torch.Tensor:
+    """(..., R, K) matrices cut along K into items of k columns, each as its
+    hi and its lo TF32 plane (``fused_ffn.tf32_split``, ``fused_ffn.planes``):
+    (..., K // k, 2, R * k)."""
+    *lead, r, kk = w.shape
+    chunks = w.reshape(*lead, r, kk // k, k).transpose(-3, -2)
+    return torch.stack(tf32_split(planes(chunks)), -2)
+
+
 def _pack_f32(wqkv: torch.Tensor, wo: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
-    """The fp32 kernels' weight streams (csrc/fused_encoder_f32.cu): the
-    attention kernel's, one [D][3 DH] stage a head (``[k][which * DH + c] =
-    wqkv[which * D + h * DH + c][k]``, which 0 q, 1 k, 2 v), and the rest's,
-    Wo^T ([k][n] = wo[n][k], two stages of D / 2 rows) then the FFN's
-    (``fused_ffn.ffn_stream_f32``)."""
-    nh, dh = (KERNEL_TILES["fused_encoder_f32.cu"][k] for k in ("NH", "DH"))
+    """The fp32 kernels' weight streams (csrc/fused_encoder_f32x3.cu), flat:
+    the attention kernel's, per head its 3 DH rows (row ``which * DH + c`` =
+    ``wqkv[which * D + h * DH + c]``, which 0 q, 1 k, 2 v) in items of KC
+    K-columns (``_items``); the rest's, Wo's rows in items of the FFN's FT
+    K-columns, then the FFN's stream (``fused_ffn.ffn_stream_f32x3``)."""
+    tiles = KERNEL_TILES["fused_encoder_f32x3.cu"]
+    nh, dh, kc = tiles["NH"], tiles["DH"], tiles["KC"]
     d = wo.shape[0]
-    qkv = wqkv.reshape(3, nh, dh, d).permute(1, 3, 0, 2).reshape(-1)
-    return qkv, torch.cat((wo.t().reshape(-1), ffn_stream_f32(w1, w2)))
+    heads = wqkv.reshape(3, nh, dh, d).transpose(0, 1).reshape(nh, 3 * dh, d)
+    wo_items = _items(wo, KERNEL_TILES["ffn_tile_f32x3.cuh"]["FT"])
+    return (_items(heads, kc).reshape(-1),
+            torch.cat((wo_items.reshape(-1), ffn_stream_f32x3(w1, w2))))
 
 
 def prepared_params(params: Mapping[str, torch.Tensor], dtype: torch.dtype = torch.bfloat16):

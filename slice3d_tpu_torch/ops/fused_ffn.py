@@ -65,11 +65,10 @@ def fused_ffn_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch
 # Tile constants of the kernels' sources (tests/test_torch_ffn.py and
 # tests/test_torch_f32x3.py tie them to the .cu and .cuh files): F is taken
 # in F-tiles of FT; a bf16 row tile holds 64 rows for each of CONSUMERS
-# consumer warpgroups, an fp32 one ROWS (64 for each of CONSUMERS);
-# ffn_tile_f32.cuh is the fp32 encoder layer's (``ffn_stream_f32``)
+# consumer warpgroups, an fp32 one ROWS (64 for each of CONSUMERS); the fp32
+# encoder layer runs the same F-tile loop (ffn_tile_f32x3.cuh)
 KERNEL_TILES = {"ffn_tile.cuh": {"D": 128, "FT": 64, "ROWS": 128, "STAGES": 3},
                 "fused_ffn.cu": {"CONSUMERS": 3},
-                "ffn_tile_f32.cuh": {"D": 128, "FT": 64, "ROWS": 128, "STAGES": 3},
                 "ffn_tile_f32x3.cuh": {"D": 128, "FT": 32, "ROWS": 128, "STAGES": 3},
                 "fused_ffn_f32x3.cu": {"CONSUMERS": 2}}
 F_MULTIPLE = KERNEL_TILES["ffn_tile.cuh"]["FT"]
@@ -87,18 +86,6 @@ def weight_bytes_per_call(n: int, f: int = 2048, tile_rows: Optional[int] = None
     f32 = dtype == torch.float32
     rows = tile_rows or (TILE_ROWS_F32 if f32 else TILE_ROWS)
     return -(-n // rows) * 2 * (8 if f32 else 2) * KERNEL_TILES["ffn_tile.cuh"]["D"] * f
-
-
-def ffn_stream_f32(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
-    """The fp32 kernels' FFN weight stream: per F-tile of FT, W1's tile
-    K-major as [D][FT] (``[k][c] = w1[ft + c][k]``), then W2's as [FT][D]
-    (``[j][n] = w2[n][ft + j]``), flat (csrc/ffn_tile_f32.cuh streams it
-    stage by stage).  w1 (F, D), w2 (D, F) in nn.Linear's layout."""
-    ft = KERNEL_TILES["ffn_tile_f32.cuh"]["FT"]
-    f, d = w1.shape
-    t1 = w1.reshape(f // ft, ft, d).transpose(1, 2).reshape(f // ft, -1)
-    t2 = w2.reshape(d, f // ft, ft).permute(1, 2, 0).reshape(f // ft, -1)
-    return torch.cat((t1, t2), 1).reshape(-1)
 
 
 def tf32_split(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -128,7 +115,7 @@ def planes(t: torch.Tensor) -> torch.Tensor:
 
 
 def ffn_stream_f32x3(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
-    """The fp32 kernel's weight stream (csrc/ffn_tile_f32x3.cuh), flat: per
+    """The fp32 kernels' FFN weight stream (csrc/ffn_tile_f32x3.cuh), flat: per
     F-tile of FT hidden units a W1 item (the tile's rows, K = D) then a W2
     item (W2's D rows over the tile's FT units, each 8 of them permuted by
     ``kperm``: column 8 j + k holds unit 8 j + kperm(k)), each as its hi and

@@ -7,11 +7,10 @@ VJP of ``_make_attention``), which the JAX package runs in bf16 and in fp32.
 The kernels are written by hand for Hopper (sm_90a), a pair for each
 precision: bf16 in ``csrc/spatial_attention.cu`` and
 ``csrc/spatial_attention_bwd.cu`` (``wgmma``/TMA), fp32 in
-``csrc/spatial_attention_f32.cu`` (fp32 FMAs on the CUDA cores: no TF32, no
-bf16) and ``csrc/spatial_attention_bwd_f32x3.cu`` (``wgmma`` in 3xTF32: each
-fp32 product as three TF32 products of operands split into a hi and a lo
-TF32 part, which keeps fp32's accuracy); their source notes say what bounds
-them and how the design answers that.
+``csrc/spatial_attention_f32x3.cu`` and ``csrc/spatial_attention_bwd_f32x3.cu``
+(``wgmma`` in 3xTF32: each fp32 product as three TF32 products of operands
+split into a hi and a lo TF32 part, which keeps fp32's accuracy); their
+source notes say what bounds them and how the design answers that.
 
 ``spatial_attention`` is differentiable: with grad mode on and an input that
 requires grad it runs through ``SpatialAttention`` (an autograd Function)
@@ -35,8 +34,7 @@ to q's dtype, ``dk = ds^T q`` and ``dv = p(do's dtype)^T do`` accumulated
 in fp32 over the blocks and cast to k's and v's dtype.  (fp64 inputs compute
 in fp64, for ``gradcheck``.)  In fp32 every cast is the identity, and the
 fp32 kernels differ from the plain versions by summation order, the
-exponential and, in the backward, the rounding of its split products at the
-fp32 level.  The bf16 forward kernel runs an online softmax and
+exponential and the rounding of their split products at the fp32 level.  The bf16 forward kernel runs an online softmax and
 rounds the unnormalised ``exp(s - m)`` to bf16.  The bf16 backward kernel
 makes one pass over blocks of keys: it recomputes the probabilities with one
 exponential per logit from the saved log-sum-exp, takes ``rowsum(do o)``
@@ -67,7 +65,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_CSRC, "spatial_attention.cu")
 _SRC_BWD = os.path.join(_CSRC, "spatial_attention_bwd.cu")
 _HDR = os.path.join(_CSRC, "attention_sm90.cuh")  # included by the wgmma sources
-_SRC_F32 = os.path.join(_CSRC, "spatial_attention_f32.cu")
+_SRC_F32 = os.path.join(_CSRC, "spatial_attention_f32x3.cu")
 _SRC_BWD_F32 = os.path.join(_CSRC, "spatial_attention_bwd_f32x3.cu")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -84,7 +82,7 @@ KERNEL_HEAD_DIMS = (24, 48)  # the UNet's heads at ds 1 and ds 2
 # constexpr ints): T must be a multiple of each
 KERNEL_TILES = {"spatial_attention.cu": {"BQ": 128, "BK": 128},
                 "spatial_attention_bwd.cu": {"BKEYS": 128, "BQT": 64},
-                "spatial_attention_f32.cu": {"BQ": 128, "BK": 64},
+                "spatial_attention_f32x3.cu": {"BQ": 128, "TILE24": 128, "TILE48": 64},
                 "spatial_attention_bwd_f32x3.cu": {"BROWS": 128, "TILE24": 64, "TILE48": 32}}
 KERNEL_T_MULTIPLE = 128
 BWD_BLOCK_Q = 128  # the TPU backward's query block: max(block_q // 4, 128)
@@ -161,7 +159,7 @@ def kernel(dtype: torch.dtype = torch.bfloat16):
     global _KERNEL, _KERNEL_F32
     if dtype == torch.float32:
         if _KERNEL_F32 is None:
-            _KERNEL_F32 = _bind("s3d_spatial_attention_f32", _SRC_F32, (), 5)
+            _KERNEL_F32 = _bind("s3d_spatial_attention_f32", _SRC_F32, (_HDR,), 5)
         return _KERNEL_F32
     if _KERNEL is None:
         _KERNEL = _bind("s3d_spatial_attention", _SRC, (_HDR,), 5)

@@ -189,13 +189,15 @@ def test_a_failed_fp32_launch_raises(recorders, monkeypatch):
     assert _counts() == (0, 0, 0, 0)
 
 
-@pytest.mark.parametrize("name", ["spatial_attention_f32.cu"])
+@pytest.mark.parametrize("name", ["spatial_attention_f32x3.cu"])
 def test_fp32_sources_use_fp32_alone(name):
-    """The fp32 kernels are plain fp32 CUDA: no bf16 or half type, no tensor
-    core instruction (TF32 only exists there), no library kernel."""
+    """The fp32 forward takes fp32 and gives fp32: no bf16 or half type, no
+    library kernel, no inline assembly of its own, and the tensor cores only
+    through the 3xTF32 helpers of csrc/attention_sm90.cuh."""
     with open(os.path.join(sa._CSRC, name)) as f:
         code = "\n".join(line.split("//")[0] for line in f)  # comments aside
-    for word in ("bf16", "bfloat16", "half", "wmma", "mma", "tf32", "cublas", "cudnn",
-                 "cutlass", "asm"):
+    for word in ("bf16", "bfloat16", "half", "wmma", "cublas", "cudnn", "cutlass", "asm"):
         assert not re.search(word, code, flags=re.I), (name, word)
+    assert set(re.findall(r"\w*tf32\w*", code, flags=re.I)) == {
+        "tf32x3_ss", "tf32x3_rs", "tf32x3_from_acc"}
     assert re.findall(r"#include <([^>]+)>", code) == ["cuda_runtime.h", "math.h", "stdint.h"]

@@ -7,6 +7,7 @@ imports none, and it runs without tests/conftest.py (which imports JAX):
 """
 
 import contextlib
+import math
 
 import numpy as np
 import pytest
@@ -282,6 +283,27 @@ def test_spatial_attention_f32_backward_matches_plain(card, shape):
     with _tf32_matmuls():
         control = sa.spatial_attention_bwd_ref(q, k, v, do, scale)
     assert sum(_violations(c, w, ATTN_BWD_F32_TOL) for c, w in zip(control, want)) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [24, 48])
+def test_spatial_attention_f32_forward_repeats(card, dh):
+    """The fp32 forward sums in a fixed order (no atomics): two runs give
+    bit-equal outputs and row log-sum-exps, and the log-sum-exp the
+    backward reads is the exact one (fp64) to within ``ATTN_F32_TOL``'s
+    atol in log2 units: an error d in L is a relative error d ln 2 in
+    every probability the backward recomputes from it."""
+    shape = (2, 4, 4096 if dh == 24 else 1024, dh)
+    rng = np.random.default_rng(77 + dh)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32) * s).to(card)
+               for s in (2.0, 2.0, 1.0))
+    scale = dh ** -0.5
+    runs = [sa._forward_kernel(q, k, v, scale, with_lse=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    exact = torch.logsumexp((q.double() @ k.double().transpose(-1, -2)) * scale, -1)
+    torch.testing.assert_close(runs[0][1].double(), exact / math.log(2),
+                               atol=ATTN_F32_TOL["atol"], rtol=0)
 
 
 @pytest.mark.cuda

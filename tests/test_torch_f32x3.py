@@ -1,7 +1,8 @@
 """The 3xTF32 arithmetic and packing of the fp32 kernels redesigned for Hopper's
 tensor cores (CPU).
 
-csrc/fused_ffn_f32x3.cu (on csrc/ffn_tile_f32x3.cuh) and
+csrc/fused_ffn_f32x3.cu and csrc/fused_encoder_f32x3.cu (both on
+csrc/ffn_tile_f32x3.cuh), csrc/spatial_attention_f32x3.cu and
 csrc/spatial_attention_bwd_f32x3.cu take every fp32 product as three TF32
 products of operands split into hi = tf32(x) and lo = tf32(x - hi) (d +=
 lo.hi + hi.lo + hi.hi).  They run only on the card (tests/test_torch_cuda.py,
@@ -11,12 +12,13 @@ is undone by its inverse, and a torch emulation of each kernel's arithmetic
 (TF32 operands rounded by bit masking, exact TF32 products, fp32 sums) over
 the kernels' layouts is held against the JAX package, whose Pallas kernels
 run in interpret mode, at the fp32 tolerances the card holds the kernels to:
-the FFN against ``_fused_ffn_tpu`` at ``HEAD_F32_TOL`` (reading 2.1e-6 on
-outputs up to 4.2), the backward against ``_attention_backward`` at
-``ATTN_BWD_F32_TOL`` (reading 1.6e-5 on gradients up to 7.2).  One TF32
-product (hi.hi alone) reads 1.5e-3 and 2.6e-2 and fails both on most
-elements, so the tolerances tell 3xTF32 from TF32.  The new sources use TF32 only
-through the split helpers of csrc/attention_sm90.cuh.
+the FFN against ``_fused_ffn_tpu`` and the encoder layer against
+``fused_encoder_layer`` at ``HEAD_F32_TOL``, the forward against
+``_attention_forward`` at ``ATTN_F32_TOL`` and the backward against
+``_attention_backward`` at ``ATTN_BWD_F32_TOL``.  One TF32 product (hi.hi
+alone) fails each of them on many elements, so the tolerances tell 3xTF32
+from TF32.  The new sources use TF32 only through the split helpers of
+csrc/attention_sm90.cuh.
 """
 
 import functools
@@ -31,7 +33,8 @@ import jax.numpy as jnp
 import torch
 
 from slice3d_tpu.ops import pallas_attention as jax_attention
-from slice3d_tpu.ops import pallas_ffn
+from slice3d_tpu.ops import pallas_encoder, pallas_ffn
+from slice3d_tpu_torch.ops import fused_encoder as fe
 from slice3d_tpu_torch.ops import fused_ffn as ff
 from slice3d_tpu_torch.ops import spatial_attention as sa
 
@@ -39,6 +42,7 @@ D = 128
 # the card's tolerances for the fp32 kernels against their plain versions
 # (tests/test_torch_cuda.py, chip_smoke.py)
 HEAD_F32_TOL = dict(atol=1e-5, rtol=1e-5)
+ATTN_F32_TOL = dict(atol=5e-5, rtol=5e-5)
 ATTN_BWD_F32_TOL = dict(atol=2e-4, rtol=1e-4)
 FT = ff.KERNEL_TILES["ffn_tile_f32x3.cuh"]["FT"]
 
@@ -257,12 +261,181 @@ def test_backward_emulation_against_jax(bwd_case, products):
         assert bad > 100, bad
 
 
+def _fwd_emulated(q, k, v, scale, tile, products):
+    """csrc/spatial_attention_f32x3.cu's arithmetic: per key tile S = q k^T,
+    the online softmax in fp32 (running max m of the raw logits, running
+    sum l, alpha = exp2((m_old - m) c), exactly 1 while the max stays),
+    P = exp2(S c - m c) split from its accumulator, O = O alpha + P v with
+    the tile's keys in the kernel's permuted order (each 8 by kperm, on P's
+    columns and v's rows, as v^T's planes hold them); out = O / l and the
+    row log-sum-exp L = m c + log2 l (log2 units), every product split."""
+    c = scale * math.log2(math.e)
+    perm = torch.tensor([8 * (i // 8) + ff.kperm(i % 8) for i in range(tile)])
+    mm = functools.partial(_mm, products=products)
+    m = torch.full(q.shape[:-1] + (1,), -math.inf)
+    l = torch.zeros(q.shape[:-1] + (1,))
+    o = torch.zeros_like(q)
+    for j0 in range(0, q.shape[-2], tile):
+        kt, vt = k[..., j0:j0 + tile, :], v[..., j0:j0 + tile, :]
+        s = mm(q, kt.transpose(-1, -2))
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - mx) * c)
+        p = torch.exp2(s * c - mx * c)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + mm(p[..., perm], vt[..., perm, :])
+        m = mx
+    return o / l, (m * c + torch.log2(l))[..., 0]
+
+
+@pytest.fixture(scope="module", params=[24, 48], ids=["dh24", "dh48"])
+def fwd_case(request):
+    """q, k, v at (1, 2, 512, DH), the JAX Pallas forward's output
+    (interpret mode) and the rows' exact log-sum-exp (fp64, log2 units)."""
+    dh = request.param
+    shape, scale = (1, 2, 512, dh), dh ** -0.5
+    rng = np.random.default_rng(6 + dh)
+    q, k, v = (rng.normal(size=shape).astype(np.float32) * s for s in (2.0, 2.0, 1.0))
+    want = jax_attention._attention_forward(*(jnp.asarray(a) for a in (q, k, v)), scale, 512,
+                                            interpret=True)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    logits = (tq.double() @ tk.double().transpose(-1, -2)) * scale
+    lse = torch.logsumexp(logits, -1) * math.log2(math.e)
+    return (tq, tk, tv, scale), np.asarray(want, np.float32), lse.numpy()
+
+
+@pytest.mark.parametrize("products", [3, 1], ids=["3xtf32", "1xtf32"])
+def test_forward_emulation_against_jax(fwd_case, products):
+    """3xTF32 as the forward kernel takes it agrees with the JAX forward at
+    the card's fp32 tolerance, and its log-sum-exp (which the backward
+    reads) with the exact one to 1e-5 in log2 units; one TF32 product does
+    not."""
+    (q, k, v, scale), want, lse = fwd_case
+    tile = sa.KERNEL_TILES["spatial_attention_f32x3.cu"][f"TILE{q.shape[-1]}"]
+    got, got_lse = _fwd_emulated(q, k, v, scale, tile, products)
+    if products == 3:
+        np.testing.assert_allclose(got.numpy(), want, **ATTN_F32_TOL)
+        np.testing.assert_allclose(got_lse.numpy(), lse, atol=1e-5, rtol=0)
+    else:
+        assert _violations(got.numpy(), want, ATTN_F32_TOL) > 100
+
+
+def _ln(v, w, b):
+    mu = v.mean(-1, keepdim=True)
+    var = ((v - mu) ** 2).mean(-1, keepdim=True)
+    return (v - mu) * torch.rsqrt(var + 1e-5) * w + b
+
+
+def _unitems(items: torch.Tensor, r: int, k: int):
+    """(hi, lo) (r, K) matrices from their items (K // k, 2, r k) of k columns."""
+    return tuple(torch.cat([_unplane(it[part], r, k) for it in items], 1) for part in (0, 1))
+
+
+def _layer_emulated(x, p, head_tokens, products):
+    """csrc/fused_encoder_f32x3.cu's arithmetic over its packed streams: per
+    head q|k|v = x Wh^T + b from the attention stream's planes, the T x T
+    core and softmax in fp32, o; then o Wo^T from the Wo items, + bo + x,
+    LayerNorm 1 -> h1, the FFN over the stream's F-tiles (``_ffn_emulated``),
+    + b2 + h1 rebuilt from its planes (hi + lo), LayerNorm 2."""
+    n, t, d = x.shape
+    tiles = fe.KERNEL_TILES["fused_encoder_f32x3.cu"]
+    nh, dh, kc = tiles["NH"], tiles["DH"], tiles["KC"]
+    attn, post = fe._pack_f32(*(p[k] for k in ("self_attn.in_proj_weight",
+                                               "self_attn.out_proj.weight",
+                                               "linear1.weight", "linear2.weight")))
+    items = attn.reshape(nh, d // kc, 2, 3 * dh * kc)
+
+    def mm(a, w):  # a @ (hi + lo)^T, a split: three TF32 products, or hi.hi
+        ah, al = ff.tf32_split(a)
+        return ah @ w[0].t() if products == 1 else al @ w[0].t() + ah @ w[1].t() + ah @ w[0].t()
+
+    bias = p["self_attn.in_proj_bias"].reshape(3, nh, dh)
+    o = torch.zeros((n, head_tokens or t, d))
+    for h in range(nh):
+        qkv = mm(x, _unitems(items[h], 3 * dh, kc)) + bias[:, h].reshape(-1)
+        q, k, v = qkv.split(dh, -1)
+        q = q[:, :head_tokens] if head_tokens else q
+        probs = torch.softmax(q @ k.transpose(-1, -2) * dh ** -0.5, -1)
+        o[..., h * dh:(h + 1) * dh] = probs @ v
+    wo = _unitems(post[:2 * d * d].reshape(d // FT, 2, d * FT), d, FT)
+    x_res = x[:, :head_tokens] if head_tokens else x
+    h1 = _ln(x_res + (mm(o, wo) + p["self_attn.out_proj.bias"]), p["norm1.weight"],
+             p["norm1.bias"]).reshape(-1, d)
+    ffn = _ffn_emulated(h1, post[2 * d * d:], p["linear1.bias"], p["linear2.bias"],
+                        p["linear1.weight"].shape[0], products)
+    hi, lo = ff.tf32_split(h1)
+    out = _ln((hi + lo) + ffn, p["norm2.weight"], p["norm2.bias"])
+    return out.reshape(n, head_tokens or t, d)
+
+
+@pytest.fixture(scope="module")
+def layer_case():
+    """x (40 points of 13 tokens), a layer's weights in the JAX tree and
+    under the port's names, and the JAX Pallas layer's output (interpret
+    mode) at head_tokens 0 and 1."""
+    rng = np.random.default_rng(8)
+
+    def g(*shape, s=0.05):
+        return rng.normal(size=shape).astype(np.float32) * s
+
+    fp = {"qkv": {"kernel": g(D, 3 * D), "bias": g(3 * D, s=0.02)},
+          "out_proj": {"kernel": g(D, D), "bias": g(D, s=0.02)},
+          "ff1": {"kernel": g(D, 2048), "bias": g(2048, s=0.02)},
+          "ff2": {"kernel": g(2048, D), "bias": g(D, s=0.02)},
+          "norm1": {"scale": 1 + g(D, s=0.1), "bias": g(D, s=0.1)},
+          "norm2": {"scale": 1 + g(D, s=0.1), "bias": g(D, s=0.1)}}
+    tt = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    params = {"self_attn.in_proj_weight": tt(fp["qkv"]["kernel"].T),
+              "self_attn.in_proj_bias": tt(fp["qkv"]["bias"]),
+              "self_attn.out_proj.weight": tt(fp["out_proj"]["kernel"].T),
+              "self_attn.out_proj.bias": tt(fp["out_proj"]["bias"]),
+              "linear1.weight": tt(fp["ff1"]["kernel"].T), "linear1.bias": tt(fp["ff1"]["bias"]),
+              "linear2.weight": tt(fp["ff2"]["kernel"].T), "linear2.bias": tt(fp["ff2"]["bias"]),
+              "norm1.weight": tt(fp["norm1"]["scale"]), "norm1.bias": tt(fp["norm1"]["bias"]),
+              "norm2.weight": tt(fp["norm2"]["scale"]), "norm2.bias": tt(fp["norm2"]["bias"])}
+    x = rng.normal(size=(1, 40, 13, D)).astype(np.float32)
+    old = os.environ.get("SLICE3D_PALLAS_INTERPRET")
+    os.environ["SLICE3D_PALLAS_INTERPRET"] = "1"
+    try:
+        want = {ht: np.asarray(pallas_encoder.fused_encoder_layer(
+            jnp.asarray(x), fp, n_heads=4, head_tokens=ht))[0] for ht in (0, 1)}
+    finally:
+        if old is None:
+            del os.environ["SLICE3D_PALLAS_INTERPRET"]
+        else:
+            os.environ["SLICE3D_PALLAS_INTERPRET"] = old
+    return torch.from_numpy(x[0]), params, want
+
+
+@pytest.mark.parametrize("products", [3, 1], ids=["3xtf32", "1xtf32"])
+@pytest.mark.parametrize("head_tokens", [0, 1])
+def test_encoder_layer_emulation_against_jax(layer_case, head_tokens, products):
+    """3xTF32 as the encoder layer's kernels take it (the packed streams'
+    planes, LayerNorms on fp32, h1 rebuilt from its planes) agrees with the
+    JAX layer at fp32 within the card's ``HEAD_F32_TOL``; one TF32 product
+    does not."""
+    x, params, want = layer_case
+    got = _layer_emulated(x, params, head_tokens, products).numpy()
+    assert got.shape == want[head_tokens].shape
+    if products == 3:
+        np.testing.assert_allclose(got, want[head_tokens], **HEAD_F32_TOL)
+    else:
+        assert _violations(got, want[head_tokens], HEAD_F32_TOL) > 100
+
+
 SOURCES = {"spatial_attention_bwd_f32x3.cu": ["cuda_runtime.h", "math.h", "stdint.h",
                                               "attention_sm90.cuh"],
+           "spatial_attention_f32x3.cu": ["cuda_runtime.h", "math.h", "stdint.h",
+                                          "attention_sm90.cuh"],
            "fused_ffn_f32x3.cu": ["cuda_runtime.h", "stdint.h", "ffn_tile_f32x3.cuh"],
+           "fused_encoder_f32x3.cu": ["cuda_runtime.h", "math.h", "stdint.h",
+                                      "ffn_tile_f32x3.cuh"],
            "ffn_tile_f32x3.cuh": ["attention_sm90.cuh"]}
 # the 3xTF32 helpers of attention_sm90.cuh: the split and the three-product steps
 TF32_HELPERS = {"tf32_split", "tf32_split_store4", "tf32x3_ss", "tf32x3_rs", "tf32x3_from_acc"}
+# the product steps each source runs itself (fused_ffn_f32x3.cu's are the tile
+# header's; the encoder layer's RS products are the tile header's FFN)
+PRODUCTS = dict.fromkeys(SOURCES, {"tf32x3_ss", "tf32x3_rs"})
+PRODUCTS.update({"fused_ffn_f32x3.cu": set(), "fused_encoder_f32x3.cu": {"tf32x3_ss"}})
 
 
 @pytest.mark.parametrize("name", list(SOURCES))
@@ -275,8 +448,7 @@ def test_3xtf32_sources_reach_tf32_through_the_split_helpers(name):
         code = "\n".join(line.split("//")[0] for line in f)  # comments aside
     words = set(re.findall(r"\w*tf32\w*", code, flags=re.I))
     assert words <= TF32_HELPERS, (name, words - TF32_HELPERS)
-    if name != "fused_ffn_f32x3.cu":  # its products are the tile header's
-        assert {"tf32x3_ss", "tf32x3_rs"} <= words, (name, words)
+    assert PRODUCTS[name] <= words, (name, words)
     mma = set(re.findall(r"\w*mma\w*", code))
     assert mma <= {"wgmma_fence", "wgmma_commit", "wgmma_wait"}, (name, mma)
     for word in ("bf16", "bfloat16", "half", "cublas", "cudnn", "cutlass", "cute", "asm",

@@ -1,6 +1,6 @@
 """The fp32 head kernels' Python side, and the fp32 slice, on the CPU.
 
-The kernels (csrc/fused_encoder_f32.cu, csrc/fused_ffn_f32x3.cu) run only on
+The kernels (csrc/fused_encoder_f32x3.cu, csrc/fused_ffn_f32x3.cu) run only on
 the card (tests/test_torch_cuda.py, and phases 3, 6 and 20 of
 chip_smoke.py); their plain twins are held against the Pallas kernels in
 interpret mode by tests/test_torch_encoder.py and tests/test_torch_ffn.py.
@@ -243,33 +243,59 @@ def test_the_wrappers_take_the_plain_version_on_the_cpu():
     assert _counts() == before
 
 
+def _unplane(p: torch.Tensor, r: int, k: int) -> torch.Tensor:
+    """An (r, k) matrix from its K-major plane (``ff.planes``)."""
+    return p.reshape(k // 4, r, 4).transpose(0, 1).reshape(r, k)
+
+
 def test_ffn_stream_is_the_f_tiles_k_major():
-    """Per F-tile of 64: W1's tile as [D][64] (``[k][c] = w1[ft + c][k]``),
-    then W2's as [64][D] (``[j][n] = w2[n][ft + j]``)."""
+    """Per F-tile of FT = 32: W1's tile (its FT rows over D) then W2's (its D
+    rows over the tile's units, each 8 permuted by ``kperm``), each as a hi
+    and a lo K-major plane whose sum is the weight (exactly, for integers
+    below 2^22)."""
+    ft = ff.KERNEL_TILES["ffn_tile_f32x3.cuh"]["FT"]
     w1 = torch.arange(192 * D, dtype=torch.float32).reshape(192, D)
     w2 = -torch.arange(D * 192, dtype=torch.float32).reshape(D, 192)
-    s = ff.ffn_stream_f32(w1, w2).reshape(3, 2, D * 64)
-    for t in range(3):
-        assert torch.equal(s[t, 0].reshape(D, 64), w1[64 * t:64 * t + 64].t())
-        assert torch.equal(s[t, 1].reshape(64, D), w2[:, 64 * t:64 * t + 64].t())
+    s = ff.ffn_stream_f32x3(w1, w2).reshape(192 // ft, 4, D * ft)
+    perm = [8 * (i // 8) + ff.kperm(i % 8) for i in range(ft)]
+    for t in range(192 // ft):
+        assert torch.equal(_unplane(s[t, 0], ft, D) + _unplane(s[t, 1], ft, D),
+                           w1[ft * t:ft * t + ft])
+        assert torch.equal(_unplane(s[t, 2], D, ft) + _unplane(s[t, 3], D, ft),
+                           w2[:, [ft * t + p for p in perm]])
 
 
 def test_encoder_streams_are_the_heads_and_the_rest():
-    """The attention stream: a [D][96] stage a head, its q, k, v columns;
-    the rest's: Wo^T, then the FFN's stream."""
+    """The attention stream: per head its q, k, v rows (96) in items of KC
+    K-columns, each a hi and a lo TF32 plane; the rest's: Wo's rows in
+    items of FT K-columns, then the FFN's stream.  Each pair of planes
+    rebuilds its weights to within 2^-22 of them."""
     p = _layer_params(5, f=128)
     prep = fe.prepared_params(p, torch.float32)
     qkv, post = prep.weights
     assert qkv.dtype == post.dtype == torch.float32
+    assert not (qkv.view(torch.int32) & 0x1FFF).any()
+    assert not (post.view(torch.int32) & 0x1FFF).any()
+    kc = fe.KERNEL_TILES["fused_encoder_f32x3.cu"]["KC"]
+    ft = fe.KERNEL_TILES["ffn_tile_f32x3.cuh"]["FT"]
+
+    def near(got, want):
+        return bool(((got.double() - want.double()).abs() <= want.double().abs() * 2.0 ** -22)
+                    .all())
+
     w = p["self_attn.in_proj_weight"]
-    stages = qkv.reshape(4, D, 96)
+    items = qkv.reshape(4, D // kc, 2, 96 * kc)
     for h in range(4):
-        for which in range(3):
-            rows = w[which * D + 32 * h:which * D + 32 * h + 32]  # (32, D)
-            assert torch.equal(stages[h][:, 32 * which:32 * which + 32], rows.t())
-    assert torch.equal(post[:D * D].reshape(D, D), p["self_attn.out_proj.weight"].t())
-    assert torch.equal(post[D * D:], ff.ffn_stream_f32(p["linear1.weight"],
-                                                       p["linear2.weight"]))
+        rows = torch.cat([w[which * D + 32 * h:which * D + 32 * h + 32] for which in range(3)])
+        for i in range(D // kc):
+            got = _unplane(items[h, i, 0], 96, kc) + _unplane(items[h, i, 1], 96, kc)
+            assert near(got, rows[:, kc * i:kc * i + kc])
+    wo = post[:2 * D * D].reshape(D // ft, 2, D * ft)
+    for i in range(D // ft):
+        got = _unplane(wo[i, 0], D, ft) + _unplane(wo[i, 1], D, ft)
+        assert near(got, p["self_attn.out_proj.weight"][:, ft * i:ft * i + ft])
+    assert torch.equal(post[2 * D * D:], ff.ffn_stream_f32x3(p["linear1.weight"],
+                                                             p["linear2.weight"]))
     assert [v.dtype for v in prep.vectors] == [torch.float32] * 8
 
 
@@ -291,32 +317,36 @@ def test_prepare_keeps_bf16_and_fp32_sets_apart():
     assert [t.dtype for t in b32.weights] == [torch.float32] and b32.weights[0].numel() == 4 * D * 64
 
 
-@pytest.mark.parametrize("name", ["fused_encoder_f32.cu", "ffn_tile_f32.cuh"])
+@pytest.mark.parametrize("name", ["fused_encoder_f32x3.cu", "ffn_tile_f32x3.cuh"])
 def test_fp32_sources_use_fp32_alone(name):
-    """The fp32 kernels are plain fp32 CUDA: no bf16 or half type, no tensor
-    core instruction (TF32 only exists there), no library kernel, no inline
-    assembly."""
+    """The fp32 head kernels take fp32 and give fp32: no bf16 or half type,
+    no library kernel, no inline assembly of their own, and the tensor
+    cores only through the 3xTF32 helpers of csrc/attention_sm90.cuh (no
+    single TF32 product, no conversion of their own)."""
     with open(os.path.join(fe._CSRC, name)) as f:
         code = "\n".join(line.split("//")[0] for line in f)  # comments aside
-    for word in ("bf16", "bfloat16", "half", "wmma", "mma", "tf32", "cublas", "cudnn",
-                 "cutlass", "cute", "asm"):
+    for word in ("bf16", "bfloat16", "half", "wmma", "cublas", "cudnn", "cutlass", "cute",
+                 "asm"):
         assert not re.search(word, code, flags=re.I), (name, word)
+    assert set(re.findall(r"\w*tf32\w*", code, flags=re.I)) <= {
+        "tf32_split", "tf32_split_store4", "tf32x3_ss", "tf32x3_rs", "tf32x3_from_acc"}
     includes = re.findall(r"#include [<\"]([^>\"]+)[>\"]", code)
-    assert includes == (["cuda_pipeline_primitives.h", "cuda_runtime.h", "math.h", "stdint.h"]
-                        if name.endswith(".cuh") else ["ffn_tile_f32.cuh"])
+    assert includes == (["attention_sm90.cuh"] if name.endswith(".cuh") else
+                        ["cuda_runtime.h", "math.h", "stdint.h", "ffn_tile_f32x3.cuh"])
 
 
-@pytest.mark.parametrize("mod,name", [(fe, "fused_encoder_f32.cu"), (fe, "ffn_tile_f32.cuh"),
-                                      (ff, "ffn_tile_f32.cuh")])
+@pytest.mark.parametrize("mod,name", [(fe, "fused_encoder_f32x3.cu"), (fe, "ffn_tile_f32x3.cuh"),
+                                      (ff, "ffn_tile_f32x3.cuh")])
 def test_kernel_tiles_are_the_fp32_sources(mod, name):
     """``KERNEL_TILES`` states the fp32 sources' constants (the F check, the
-    weight streams' tiles, chip_smoke.py's weight bytes read them)."""
+    weight streams' tiles, chip_smoke.py's weight bytes read them); the
+    wrapper's F check takes whole fp32 F-tiles."""
     with open(os.path.join(mod._CSRC, name)) as f:
         src = f.read()
     for const, size in mod.KERNEL_TILES[name].items():
         found = re.findall(rf"^constexpr int {const} = (\d+);", src, flags=re.M)
         assert found == [str(size)], (name, const, found)
-    assert mod.KERNEL_TILES["ffn_tile_f32.cuh"]["FT"] == mod.F_MULTIPLE
+    assert mod.F_MULTIPLE % mod.KERNEL_TILES["ffn_tile_f32x3.cuh"]["FT"] == 0
 
 
 @pytest.mark.parametrize("n,t,head_tokens,tiles", [
@@ -324,8 +354,9 @@ def test_kernel_tiles_are_the_fp32_sources(mod, name):
     (300, 1, 1, (3, 3))])
 def test_fp32_encoder_weight_bytes_follow_its_tiles(n, t, head_tokens, tiles):
     """The attention kernel reads Wqkv once a tile of 128 // T points, the
-    rest Wo, W1 and W2 once a tile of 128 output rows."""
-    want = 4 * (tiles[0] * 3 * D * D + tiles[1] * (D * D + 2 * D * F))
+    rest Wo, W1 and W2 once a tile of 128 output rows, each weight as a hi
+    and a lo TF32 plane."""
+    want = 8 * (tiles[0] * 3 * D * D + tiles[1] * (D * D + 2 * D * F))
     assert fe.weight_bytes_per_call(n, t, head_tokens, dtype=torch.float32) == want
     assert ff.weight_bytes_per_call(439_400, dtype=torch.float32) == 3433 * 8 * 2 * D * F
 
